@@ -1,0 +1,189 @@
+"""lcasr_torch SCConformerXL against lcasr_tpu's, on the CPU in fp32, plus
+the flax-variables converter and the port's import isolation.
+
+Both models run exact fp32 attention on the CPU (lcasr_tpu's jnp oracle,
+lcasr_torch's plain kernel version).  Log-probs are compared at atol 1e-4:
+the same fp32 arithmetic in another order through a few layers of GEMMs
+over up to 3072 terms and a 4096-way log-softmax, whose values are about
+-8, leaves differences of a few 1e-6; 1e-4 keeps a margin and still
+catches any wrong weight layout, mask or op order (those move log-probs by
+1e-2 or more).
+"""
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lcasr_torch.models.import_jax import state_dict_from_flax
+from tests.test_torch_port_ops import randomize
+
+ATOL = 1e-4
+
+TINY = dict(vocab_size=16, d_model=64, n_layers=2, n_heads=2, head_dim=32,
+            subsampling_conv_channels=32, use_rotary=True, rotary_base_freq=1.5e6)
+
+
+def _pair(cfg, T, seed=0):
+    from lcasr_tpu.models.sconformer_xl import SCConformerXL as JModel
+    from lcasr_torch.models.sconformer_xl import SCConformerXL
+
+    jm = JModel(**cfg)
+    variables = randomize(jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 80, T))), seed=seed)
+    port = SCConformerXL(**cfg, device="cpu")
+    port.load_state_dict(state_dict_from_flax(variables), strict=True)
+    return jm, variables, port
+
+
+def _compare(jm, variables, port, audio, lengths):
+    want = jm.apply(variables, audio, length=None if lengths is None else jnp.asarray(lengths))
+    with torch.no_grad():
+        got = port(torch.from_numpy(audio),
+                   length=None if lengths is None else torch.from_numpy(lengths))
+    lp = got["final_posteriors"]
+    assert lp.dtype == torch.float32 and lp.shape == want["final_posteriors"].shape
+    np.testing.assert_array_equal(got["length"].numpy(), np.asarray(want["length"]))
+    np.testing.assert_allclose(lp.numpy(), np.asarray(want["final_posteriors"]),
+                               atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("variant", ["lengths", "no_lengths", "window", "rms_sandwich"])
+def test_tiny_model_matches_jax(variant):
+    cfg = dict(TINY)
+    if variant == "window":
+        cfg.update(attention_window_size=6, attention_window_size_right=3)
+    if variant == "rms_sandwich":
+        cfg.update(default_norm="rms_norm", sandwich_norm=True, bias_in_ff=True,
+                   decoder_norm=True, learned_rotary=True)
+    jm, variables, port = _pair(cfg, 300, seed=1)
+    rng = np.random.default_rng(2)
+    audio = rng.normal(size=(3, 80, 300)).astype(np.float32)
+    lengths = None if variant == "no_lengths" else np.array([300, 211, 97], np.int32)
+    _compare(jm, variables, port, audio, lengths)
+
+
+def test_flagship_widths_match_jax():
+    from lcasr_torch.models.sconformer_xl import FLAGSHIP
+
+    cfg = dict(FLAGSHIP, n_layers=2)
+    jm, variables, port = _pair(cfg, 256, seed=3)
+    rng = np.random.default_rng(4)
+    audio = rng.normal(size=(2, 80, 256)).astype(np.float32)
+    _compare(jm, variables, port, audio, np.array([256, 170], np.int32))
+
+
+def test_flagship_copy_matches_graft_entry():
+    from __graft_entry__ import FLAGSHIP as REPO_FLAGSHIP
+    from lcasr_torch.models.sconformer_xl import FLAGSHIP
+
+    assert FLAGSHIP == REPO_FLAGSHIP
+
+
+def test_bf16_model_runs_and_tracks_fp32():
+    """Compute dtype bf16 (the decode path's) on the CPU: finite fp32
+    log-probs that normalise, close to the fp32 model's."""
+    from lcasr_torch.models.sconformer_xl import SCConformerXL, init_weights_
+
+    rng = np.random.default_rng(5)
+    audio = torch.from_numpy(rng.normal(size=(2, 80, 256)).astype(np.float32))
+    lengths = torch.tensor([256, 100], dtype=torch.int32)
+    outs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        m = init_weights_(SCConformerXL(**TINY, dtype=dt, device="cpu"), seed=6)
+        with torch.no_grad():
+            outs[dt] = m(audio, length=lengths)["final_posteriors"]
+    lp = outs[torch.bfloat16]
+    assert lp.dtype == torch.float32 and torch.isfinite(lp).all()
+    np.testing.assert_allclose(lp.exp().sum(-1).numpy(), 1.0, atol=1e-4)
+    # bf16 keeps ~3 significant digits through two layers
+    assert (lp - outs[torch.float32]).abs().max() < 0.25
+
+
+def test_unported_options_raise():
+    from lcasr_torch.models.sconformer_xl import SCConformerXL
+
+    small = dict(vocab_size=8, d_model=32, n_layers=1, n_heads=1, head_dim=32,
+                 subsampling_conv_channels=8, device="cpu")
+    for kw in (dict(seq_axis_name="seq"), dict(quant_w8a8=True), dict(conv_type="longconv"),
+               dict(capture_qkv=True), dict(checkpoint_every_n_layers=1),
+               dict(subsampling="stacking"), dict(conv_norm="batch_norm")):
+        with pytest.raises(NotImplementedError):
+            SCConformerXL(**small, **kw)
+    with pytest.raises(TypeError):
+        SCConformerXL(**small, no_such_option=1)
+    m = SCConformerXL(**small)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        m(torch.zeros(1, 80, 64), train=True)
+
+
+def test_model_without_device_raises_when_no_gpu():
+    from lcasr_torch.models.sconformer_xl import SCConformerXL
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device=None means cuda there")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SCConformerXL(**TINY)
+
+
+# ---------------------------------------------------------------------------
+# converter
+# ---------------------------------------------------------------------------
+def test_converter_loads_strict_and_maps_layouts():
+    from lcasr_torch.models.sconformer_xl import SCConformerXL
+
+    jm, variables, port = _pair(TINY, 128)
+    sd = state_dict_from_flax(variables)
+    assert set(sd) == set(port.state_dict())
+    p = variables["params"]
+    np.testing.assert_array_equal(sd["layers.1.attend.qkv_proj.weight"].numpy(),
+                                  p["layers_1"]["attend"]["qkv_proj"]["kernel"].T)
+    np.testing.assert_array_equal(sd["subsampling.conv_in.weight"].numpy(),
+                                  p["subsampling"]["conv_in"]["kernel"].transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(sd["layers.0.conv.depthwise_kernel"].numpy()[:, 0, :],
+                                  p["layers_0"]["conv"]["depthwise_kernel"].T)
+    np.testing.assert_array_equal(
+        sd["layers.0.conv.norm.running_std"].numpy(),
+        variables["batch_stats"]["layers_0"]["conv"]["norm"]["running_std"])
+    # a missing tensor fails the strict load
+    del sd["decoder.ff.bias"]
+    with pytest.raises(RuntimeError):
+        SCConformerXL(**TINY, device="cpu").load_state_dict(sd, strict=True)
+
+
+@pytest.mark.parametrize("bad", ["leaf", "module", "collection"])
+def test_converter_raises_on_unknown_names(bad):
+    _, variables, _ = _pair(TINY, 128)
+    variables = dict(variables)
+    params = dict(variables["params"])
+    if bad == "leaf":
+        params["decoder"] = dict(params["decoder"], extra=np.zeros(3, np.float32))
+    elif bad == "module":
+        params["mystery"] = {"kernel": np.zeros((2, 2), np.float32)}
+    else:
+        variables["intermediates"] = {"x": np.zeros(1, np.float32)}
+    variables["params"] = params
+    with pytest.raises(ValueError, match="unknown"):
+        state_dict_from_flax(variables)
+
+
+# ---------------------------------------------------------------------------
+# isolation
+# ---------------------------------------------------------------------------
+def test_port_imports_no_jax_and_no_lcasr_tpu():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import lcasr_torch\n"
+        "for m in pkgutil.walk_packages(lcasr_torch.__path__, 'lcasr_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'lcasr_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len([n for n in sys.modules if n.startswith('lcasr_torch')]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=str(__import__("pathlib").Path(__file__).parents[1]))
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15  # every module was imported
