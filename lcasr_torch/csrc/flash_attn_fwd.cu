@@ -32,17 +32,13 @@
 // fp32 inputs take a separate SIMT kernel (fp32 FMA, no tensor cores). It
 // is slow, and is there because the JAX kernel accepts fp32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
 constexpr int BQ = 64;  // query rows per CTA
 constexpr int BK = 64;  // keys per k/v tile
 constexpr int NTHREADS = 128;
-static_assert(BQ == BK, "load_tile_async stages BK rows for q tiles too");
 constexpr float LSE_EMPTY = -1e30f;  // lse of a row with no valid key
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -59,11 +55,6 @@ struct Params {
   long long v_sb, v_st, v_sh;
   int q_off, kv_off, left, right;
 };
-
-__device__ __forceinline__ int floordiv(int a, int b) {  // b > 0
-  int q = a / b;
-  return (a % b != 0 && a < 0) ? q - 1 : q;
-}
 
 // The CTA's bounds: valid global rows < q_hi, valid global cols < kv_hi, and
 // the half-open range [t_lo, t_hi) of local k/v tiles it must visit.
@@ -98,58 +89,6 @@ __device__ __forceinline__ bool col_valid(const Params& p, const Bounds& bd,
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // 0 bytes read: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo, low 16 bits
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy `rows` x D bf16 of one (b, h) slice, starting at local row r0, into a
-// shared tile with row stride LD; rows at or past `limit` are zero-filled.
-template <int D, int LD>
-__device__ __forceinline__ void load_tile_async(
-    __nv_bfloat16* dst, const __nv_bfloat16* base, long long st, int r0,
-    int limit) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < BK * CH; i += NTHREADS) {
-    const int r = i / CH, c = i % CH;
-    const bool ok = r0 + r < limit;
-    const __nv_bfloat16* src = ok ? base + (long long)(r0 + r) * st + c * 8 : base;
-    cp_async16(dst + r * LD + c * 8, src, ok);
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(NTHREADS)
     flash_fwd_bf16(const Params p) {
@@ -189,9 +128,9 @@ __global__ void __launch_bounds__(NTHREADS)
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
   if (bd.t_lo < bd.t_hi) {
-    load_tile_async<D, LD>(sQ, qb, p.q_st, q0, p.Tq);
-    load_tile_async<D, LD>(sK, kb, p.k_st, bd.t_lo * BK, p.Tk);
-    load_tile_async<D, LD>(sV, vb, p.v_st, bd.t_lo * BK, p.Tk);
+    load_tile_async<D, LD, BQ, NTHREADS>(sQ, qb, p.q_st, q0, p.Tq);
+    load_tile_async<D, LD, BK, NTHREADS>(sK, kb, p.k_st, bd.t_lo * BK, p.Tk);
+    load_tile_async<D, LD, BK, NTHREADS>(sV, vb, p.v_st, bd.t_lo * BK, p.Tk);
     cp_async_commit();
     cp_async_wait_all();
     __syncthreads();
@@ -214,9 +153,9 @@ __global__ void __launch_bounds__(NTHREADS)
   for (int kt = bd.t_lo; kt < bd.t_hi; ++kt) {
     const int buf = (kt - bd.t_lo) & 1;
     if (kt + 1 < bd.t_hi) {  // prefetch the next tile into the other buffer
-      load_tile_async<D, LD>(sK + (buf ^ 1) * BK * LD, kb, p.k_st,
+      load_tile_async<D, LD, BK, NTHREADS>(sK + (buf ^ 1) * BK * LD, kb, p.k_st,
                              (kt + 1) * BK, p.Tk);
-      load_tile_async<D, LD>(sV + (buf ^ 1) * BK * LD, vb, p.v_st,
+      load_tile_async<D, LD, BK, NTHREADS>(sV + (buf ^ 1) * BK * LD, vb, p.v_st,
                              (kt + 1) * BK, p.Tk);
     }
     cp_async_commit();

@@ -25,7 +25,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "lcasr_torch_kernels"
-SOURCES = ("flash_attn_fwd.cu",)
+SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -37,7 +37,12 @@ NVCC_FLAGS = (
     "-fPIC",
 )
 
-launch_counts: Dict[str, int] = {"flash_attention_fwd": 0}
+launch_counts: Dict[str, int] = {
+    "flash_attention_fwd": 0,
+    "flash_attention_bwd_fused": 0,
+    "flash_attention_bwd_dq": 0,
+    "flash_attention_bwd_dkv": 0,
+}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}  # nvcc's stderr per source (ptxas registers, spills)
@@ -109,8 +114,13 @@ def _bind(src: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             [p] * 6 + [i] * 6 + [ll] * 9 + [i] * 4 + [p]
         )
         lib.lcasr_flash_attn_fwd.restype = i
-        lib.lcasr_cuda_error_string.argtypes = [i]
-        lib.lcasr_cuda_error_string.restype = ctypes.c_char_p
+    elif src == "flash_attn_bwd.cu":
+        lib.lcasr_flash_attn_bwd.argtypes = (
+            [i] + [p] * 10 + [i] * 6 + [ll] * 12 + [i] * 4 + [p]
+        )
+        lib.lcasr_flash_attn_bwd.restype = i
+    lib.lcasr_cuda_error_string.argtypes = [i]
+    lib.lcasr_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 

@@ -1,4 +1,4 @@
-"""Flax variables of lcasr_tpu's SCConformerXL -> the port's state_dict.
+"""Flax variables of lcasr_tpu's SCConformerXL <-> the port's state_dict.
 
 The inverse direction of lcasr_tpu/models/import_torch.py, for the port's
 own module tree (whose names follow the flax tree one to one):
@@ -15,6 +15,10 @@ It takes numpy arrays (convert jax arrays with `np.asarray` first), so the
 port needs no JAX.  Any leaf or module name it does not know raises: a
 leaf dropped silently would give wrong outputs.  Load the result with
 `model.load_state_dict(sd, strict=True)`.
+
+`flax_from_state_dict` is the way back (numpy leaves, flax names), used
+to compare parameters trained by the port with the JAX package's, and by
+`models.base.decay_mask`, whose rule is written in flax names.
 """
 from __future__ import annotations
 
@@ -78,4 +82,41 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor
             key, arr = _convert(path, np.asarray(leaf))
             dtype = np.int64 if path[-1] == "num_batches_tracked" else np.float32
             out[key] = torch.from_numpy(np.array(arr, dtype=dtype))  # a writable copy
+    return out
+
+
+def flax_path(key: str, tensor: torch.Tensor) -> Tuple[str, Tuple[str, ...]]:
+    """Port state_dict key -> (flax collection, flax path)."""
+    parts = key.split(".")
+    mods, name = [], parts[-1]
+    i = 0
+    while i < len(parts) - 1:
+        if parts[i] == "layers":
+            mods.append(f"layers_{parts[i + 1]}")
+            i += 2
+        else:
+            mods.append(parts[i])
+            i += 1
+    if name in _STAT_LEAVES:
+        return "batch_stats", tuple(mods + [name])
+    if name == "weight" and tensor.dim() in (2, 4):
+        name = "kernel"
+    return "params", tuple(mods + [name])
+
+
+def flax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's state_dict -> flax `{'params': ..., 'batch_stats': ...}`
+    with numpy leaves; the inverse of `state_dict_from_flax`."""
+    out: Dict[str, Any] = {}
+    for key, t in sd.items():
+        collection, path = flax_path(key, t)
+        arr = t.detach().cpu().numpy()
+        if path[-1] == "kernel":
+            arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+        elif path[-1] == "depthwise_kernel":  # (C, 1, K) -> (K, C)
+            arr = arr[:, 0, :].T
+        node = out.setdefault(collection, {})
+        for m in path[:-1]:
+            node = node.setdefault(m, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
     return out

@@ -1,5 +1,5 @@
 """SCConformerXL: self-conditioned CTC conformer (counterpart of
-lcasr_tpu/models/sconformer_xl.py), inference form.
+lcasr_tpu/models/sconformer_xl.py).
 
   subsampling (8x dw_striding) -> n x ConformerLayer -> CTC decoder, with
   self-conditioning after every layer but the last and the legacy double
@@ -13,21 +13,31 @@ path), applied at use.  Module and parameter names follow the flax tree one
 to one (`layers_3/attend/qkv_proj/kernel` is `layers.3.attend.qkv_proj.weight`),
 and the qkv projection keeps the JAX package's (3, H, D) output packing, so
 `models/import_jax.py` maps a flax checkpoint onto this module directly.
-Attention runs the flash-attention kernel on the GPU and its plain version
-on the CPU (`ops/flash_attention.py`).
+Attention runs the flash-attention kernels on the GPU and their plain
+versions on the CPU (`ops/flash_attention.py`), forward and backward.
+
+`forward(..., train=True)` trains: BatchRenorm uses batch statistics and
+moves its running ones, dropout is drawn from an explicit generator
+(`dropout_seed`; one seed per layer call, so a checkpointed layer's
+recompute draws the same masks), and `checkpoint_every_n_layers` /
+`remat_subsampling` recompute layers / the subsampling in the backward
+(`torch.utils.checkpoint`, non-reentrant; the JAX model's `nn.remat` with
+policy "nothing").
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from lcasr_torch.device import resolve_device
 from lcasr_torch.models.decoder import ASRLinearSCDecoder
 from lcasr_torch.ops.attention import length_mask
-from lcasr_torch.ops.conv import ConformerConvolution, ConvSubsampling
+from lcasr_torch.ops.conv import ConformerConvolution, ConvSubsampling, recomputing
 from lcasr_torch.ops.dense import Dense
 from lcasr_torch.ops.flash_attention import flash_attention
 from lcasr_torch.ops.mlp import ConformerFeedForward
@@ -51,9 +61,7 @@ FLAGSHIP = dict(
 # default, which is accepted, and what the option belongs to)
 _NOT_PORTED = {
     "use_pallas": (True, "a TPU switch; the port always runs its own kernel"),
-    "checkpoint_every_n_layers": (0, "remat (training slice)"),
-    "remat_policy": ("nothing", "remat (training slice)"),
-    "remat_subsampling": (False, "remat (training slice)"),
+    "remat_policy": ("nothing", "remat_policy 'dots' (GEMM outputs saved)"),
     "conv_type": ("standard", "longconv"),
     "longconv_weight_init": ("random", "longconv"),
     "longconv_position_kernel": (True, "longconv"),
@@ -68,7 +76,30 @@ _NOT_PORTED = {
     "stat_axes": ((), "context parallelism"),
     "quant_w8a8": (False, "W8A8 quantisation"),
 }
-_TRAINING = "training is not ported yet (it comes with the training slice)"
+
+
+class Dropout:
+    """Dropout masks from a generator seeded once per layer call (None:
+    no dropout), so that a checkpointed layer's recompute draws the same
+    masks.  Kept values are scaled by 1 / (1 - rate), as flax does."""
+
+    def __init__(self, seed: Optional[int], device):
+        self.gen = None if seed is None else torch.Generator(device=device).manual_seed(seed)
+
+    def __call__(self, x: torch.Tensor, rate: float) -> torch.Tensor:
+        if rate <= 0.0 or self.gen is None:
+            return x
+        keep = torch.rand(x.shape, generator=self.gen, device=x.device) >= rate
+        return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+NO_DROPOUT = Dropout(None, None)
+
+
+def _remat_contexts():
+    """checkpoint's (forward, recompute) contexts: BatchRenorm must know it
+    is being recomputed (ops/conv.py)."""
+    return contextlib.nullcontext(), recomputing()
 
 
 class Attention(nn.Module):
@@ -78,13 +109,15 @@ class Attention(nn.Module):
 
     def __init__(self, n_feats: int, head_dim: int, n_heads: int,
                  window: Tuple[int, int] = (-1, -1), bias: bool = False,
-                 qkv_bias: bool = False, dtype: torch.dtype = torch.float32):
+                 qkv_bias: bool = False, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_heads, self.head_dim, self.window = n_heads, head_dim, window
+        self.dropout = dropout
         self.qkv_proj = Dense(n_feats, 3 * n_heads * head_dim, bias=qkv_bias, dtype=dtype)
         self.out_proj = Dense(n_heads * head_dim, n_feats, bias=bias, dtype=dtype)
 
-    def forward(self, x, lengths=None, rotary=None):
+    def forward(self, x, lengths=None, rotary=None, drop: Dropout = NO_DROPOUT):
         B, N, _ = x.shape
         H, D = self.n_heads, self.head_dim
         mask = length_mask(lengths, N)[..., None] if lengths is not None else None
@@ -98,7 +131,9 @@ class Attention(nn.Module):
         out = out.reshape(B, N, H * D)
         if mask is not None:
             out = out.masked_fill(~mask, 0.0)
-        return self.out_proj(out)
+        # on the projected output, not on the probabilities, as in the JAX
+        # model (every paper config trains at dropout_attn 0.0)
+        return drop(self.out_proj(out), self.dropout)
 
 
 class ConformerLayer(nn.Module):
@@ -109,10 +144,12 @@ class ConformerLayer(nn.Module):
                  conv_norm: str = "batch_renorm", default_norm: str = "layer_norm",
                  sandwich_norm: bool = False, bias_in_ff: bool = False,
                  transformer: bool = False, window: Tuple[int, int] = (-1, -1),
-                 dtype: torch.dtype = torch.float32):
+                 dropout_ff: float = 0.0, dropout_conv: float = 0.0,
+                 dropout_attn: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         Norm = get_norm(default_norm)
         self.sandwich_norm, self.transformer = sandwich_norm, transformer
+        self.dropout_ff, self.dropout_conv = dropout_ff, dropout_conv
 
         def ff():  # hidden is always 4 x d_model, as in the JAX model
             return ConformerFeedForward(d_model, d_model * 4, bias1=bias_in_ff,
@@ -123,7 +160,8 @@ class ConformerLayer(nn.Module):
             if sandwich_norm:
                 self.ff1_norm_out = Norm(d_model)
         self.attn_norm = Norm(d_model)
-        self.attend = Attention(d_model, head_dim, n_heads, window=window, dtype=dtype)
+        self.attend = Attention(d_model, head_dim, n_heads, window=window,
+                                dropout=dropout_attn, dtype=dtype)
         if sandwich_norm:
             self.attn_norm_out = Norm(d_model)
         if not transformer:
@@ -135,22 +173,26 @@ class ConformerLayer(nn.Module):
             self.ff2_norm_out = Norm(d_model)
         self.norm_out = Norm(d_model)
 
-    def forward(self, x, lengths=None, pad_mask=None, rotary=None):
+    def forward(self, x, lengths=None, pad_mask=None, rotary=None, train: bool = False,
+                dropout_seed: Optional[int] = None):
+        drop = Dropout(dropout_seed, x.device) if train else NO_DROPOUT
         if not self.transformer:
             h = self.ff1(self.ff1_norm(x))
             if self.sandwich_norm:
                 h = self.ff1_norm_out(h)
-            x = h * 0.5 + x
-        h = self.attend(self.attn_norm(x), lengths=lengths, rotary=rotary)
+            x = drop(h, self.dropout_ff) * 0.5 + x
+        h = self.attend(self.attn_norm(x), lengths=lengths, rotary=rotary, drop=drop)
+        h = drop(h, min(self.dropout_ff, 0.1))
         if self.sandwich_norm:
             h = self.attn_norm_out(h)
         x = h + x
         if not self.transformer:
-            x = self.conv(self.conv_norm(x), pad_mask=pad_mask) + x
+            h = self.conv(self.conv_norm(x), pad_mask=pad_mask, train=train)
+            x = drop(h, self.dropout_conv) + x
         h = self.ff2(self.ff2_norm(x))
         if self.sandwich_norm:
             h = self.ff2_norm_out(h)
-        x = h * 0.5 + x
+        x = drop(h, self.dropout_ff) * 0.5 + x
         return self.norm_out(x)
 
 
@@ -177,6 +219,8 @@ class SCConformerXL(nn.Module):
         dropout_ff: float = 0.0,  # dropout only acts in training
         dropout_conv: float = 0.0,
         dropout_attn: float = 0.0,
+        checkpoint_every_n_layers: int = 0,
+        remat_subsampling: bool = False,
         conv_kernel_size: int = 9,
         conv_expansion_factor: float = 1.0,
         conv_norm: str = "batch_renorm",
@@ -195,10 +239,13 @@ class SCConformerXL(nn.Module):
         attention_window_size_left: Optional[int] = None,
         attention_window_size_right: Optional[int] = None,
         dtype: torch.dtype = torch.float32,
+        dropout_seed: int = 0,
         device=None,
         **not_ported,
     ):
         super().__init__()
+        if not_ported.get("remat_policy", "nothing") not in ("nothing", "dots"):
+            raise ValueError(f"remat_policy must be nothing|dots, got {not_ported['remat_policy']}")
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"SCConformerXL got an unexpected argument {name!r}")
@@ -213,6 +260,10 @@ class SCConformerXL(nn.Module):
         self.self_conditioning = self_conditioning
         self.legasee_double_norm = legasee_double_norm
         self.use_rotary = use_rotary
+        self.checkpoint_every_n_layers = checkpoint_every_n_layers
+        self.remat_subsampling = remat_subsampling
+        self.dropout_rates = (dropout_ff, dropout_conv, dropout_attn)
+        self.dropout_generator = torch.Generator().manual_seed(dropout_seed)
         left = (attention_window_size_left if attention_window_size_left is not None
                 else attention_window_size)
         right = (attention_window_size_right if attention_window_size_right is not None
@@ -237,7 +288,8 @@ class SCConformerXL(nn.Module):
                 conv_expansion_factor=conv_expansion_factor, conv_norm=conv_norm,
                 default_norm=default_norm, sandwich_norm=sandwich_norm,
                 bias_in_ff=bias_in_ff, transformer=transformer, window=self.window,
-                dtype=dtype,
+                dropout_ff=dropout_ff, dropout_conv=dropout_conv,
+                dropout_attn=dropout_attn, dtype=dtype,
             )
             for _ in range(n_layers)
         )
@@ -248,22 +300,32 @@ class SCConformerXL(nn.Module):
 
     def forward(self, audio_signal: torch.Tensor, length: Optional[torch.Tensor] = None,
                 train: bool = False, return_logits: bool = False):
-        if train:
-            raise NotImplementedError(f"SCConformerXL: {_TRAINING}")
         x = audio_signal.transpose(1, 2).to(self.dtype)  # (B, T, feat)
         B = x.shape[0]
         have_lengths = length is not None
         if not have_lengths:
             length = torch.full((B,), x.shape[1], dtype=torch.int32, device=x.device)
-        x, length = self.subsampling(x, length.to(x.device))
+        length = length.to(x.device)
+        if train and self.remat_subsampling:
+            x, length = checkpoint(self.subsampling, x, length, use_reentrant=False)
+        else:
+            x, length = self.subsampling(x, length)
         N = x.shape[1]
         lengths_arg = length if have_lengths else None
         pad_mask = ~length_mask(length, N) if have_lengths else None
         rotary = self.rotary_pos_emb(N, dtype=torch.float32) if self.use_rotary else None
 
         dec = self.decoder
+        draw = train and max(self.dropout_rates) > 0.0
         for i, layer in enumerate(self.layers):
-            x = layer(x, lengths_arg, pad_mask, rotary)
+            seed = (int(torch.randint(2 ** 62, (1,), generator=self.dropout_generator))
+                    if draw else None)
+            n = self.checkpoint_every_n_layers
+            if train and n > 0 and i % n == 0:
+                x = checkpoint(layer, x, lengths_arg, pad_mask, rotary, train, seed,
+                               use_reentrant=False, context_fn=_remat_contexts)
+            else:
+                x = layer(x, lengths_arg, pad_mask, rotary, train, seed)
             if i != self.n_layers - 1 and self.self_conditioning:
                 posts = torch.softmax(dec(x, logits=True).float(), dim=-1).to(x.dtype)
                 x = x + dec.project_back(posts)

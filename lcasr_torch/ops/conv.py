@@ -1,13 +1,20 @@
 """Convolution ops (counterpart of lcasr_tpu/ops/conv.py): batch renorm,
-the conformer conv module and conv subsampling, in eval form.
+the conformer conv module and conv subsampling.
 
-The running statistics of BatchRenorm are buffers; training (batch
-statistics, the r/d clip schedules and the keep-mask rule of the JAX
-module) belongs to the training slice of the port and raises here.
+The running statistics of BatchRenorm are buffers.  In training it
+normalises with masked batch statistics, corrected by the r/d factors of
+the clip schedules on `num_batches_tracked`, and moves the running
+statistics by momentum 0.01.  Under activation checkpointing the
+backward re-runs the forward: there (inside `recomputing()`) the module
+uses the running statistics its first pass saw and updates nothing, so
+the statistics advance once per micro step, as JAX's functional
+`mutable=["batch_stats"]` does.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -18,24 +25,73 @@ from lcasr_torch.ops.dense import Dense
 from lcasr_torch.ops.norms import LayerNorm
 from lcasr_torch.ops.subsampling import ACTS, dw_striding_chain
 
-_TRAINING = "training is not ported yet (it comes with the training slice)"
+_STATE = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Marks the backward's re-run of a checkpointed forward."""
+    _STATE.recomputing = True
+    try:
+        yield
+    finally:
+        _STATE.recomputing = False
+
+
+def is_recomputing() -> bool:
+    return getattr(_STATE, "recomputing", False)
 
 
 class BatchRenorm(nn.Module):
-    """Eval form: (x - running_mean) / running_std, no eps, then affine."""
+    """Batch renormalisation (arXiv:1702.03275) over (B, T, C).  Eval:
+    (x - running_mean) / running_std, no eps, then affine.  Train: see the
+    module docstring; `pad_mask` (True = padded) keeps frames out of the
+    batch statistics."""
 
-    def __init__(self, num_features: int):
+    def __init__(self, num_features: int, eps: float = 1e-3, momentum: float = 0.01):
         super().__init__()
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_std", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long))
+        self._first_pass = None  # running stats the last training forward used
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(f"BatchRenorm: {_TRAINING}")
-        y = (x.float() - self.running_mean) / self.running_std
+    def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
+                train: bool = False) -> torch.Tensor:
+        xf = x.float()
+        if not train:
+            y = (xf - self.running_mean) / self.running_std
+            return (self.weight * y + self.bias).to(x.dtype)
+        if pad_mask is not None:
+            w = (~pad_mask).to(xf.dtype)[..., None]  # (B, T, 1)
+            count = w.sum((0, 1)).clamp_min(1.0)
+            mean = (xf * w).sum((0, 1)) / count
+            var = ((xf - mean) ** 2 * w).sum((0, 1)) / count
+        else:
+            count = float(xf.shape[0] * xf.shape[1])
+            mean = xf.sum((0, 1)) / count
+            var = ((xf - mean) ** 2).sum((0, 1)) / count
+        std = torch.sqrt(var) + self.eps
+
+        if is_recomputing():
+            ra_mean, ra_std, steps = self._first_pass
+        else:
+            ra_mean, ra_std = self.running_mean.clone(), self.running_std.clone()
+            steps = self.num_batches_tracked.clone()
+            self._first_pass = (ra_mean, ra_std, steps)
+        t = steps.float()
+        rmax = (2.0 / 35000.0 * t + 25.0 / 35.0).clamp(1.0, 3.0)
+        dmax = (5.0 / 20000.0 * t - 25.0 / 20.0).clamp(0.0, 5.0)
+        r = torch.minimum(torch.maximum(std.detach() / ra_std, 1.0 / rmax), rmax)
+        d = torch.minimum(torch.maximum((mean.detach() - ra_mean) / ra_std, -dmax), dmax)
+        y = (xf - mean) / std * r + d
+        if not is_recomputing():
+            with torch.no_grad():
+                self.running_mean.add_(self.momentum * (mean.detach() - ra_mean))
+                self.running_std.add_(self.momentum * (std.detach() - ra_std))
+                self.num_batches_tracked.add_(1)
         return (self.weight * y + self.bias).to(x.dtype)
 
 
@@ -75,8 +131,6 @@ class ConformerConvolution(nn.Module):
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
                 train: bool = False) -> torch.Tensor:
-        if train:
-            raise NotImplementedError(f"ConformerConvolution: {_TRAINING}")
         x = self.pointwise_conv1(x)
         a, b = x.chunk(2, dim=-1)
         x = a * torch.sigmoid(b)  # GLU, a = first half
@@ -84,8 +138,23 @@ class ConformerConvolution(nn.Module):
             x = x.masked_fill(pad_mask[..., None], 0.0)
         x = depthwise_conv1d(x, self.depthwise_kernel.to(x.dtype),
                              self.depthwise_bias.to(x.dtype))
-        x = F.silu(self.norm(x))
+        stat_mask = _stat_mask(pad_mask) if train and pad_mask is not None else None
+        x = F.silu(self.norm(x, pad_mask=stat_mask, train=train))
         return self.pointwise_conv2(x)
+
+
+def _stat_mask(pad_mask: torch.Tensor) -> torch.Tensor:
+    """Frames kept out of the training batch statistics (True = out), the
+    JAX module's rule for static batches (lcasr_tpu/ops/conv.py:283-319):
+    rows of length 0 (finished samples) count for nothing, and live rows
+    count every frame up to the longest live row's length, padding
+    included, as the reference's shrinking dynamic batches do."""
+    row_len = (~pad_mask).sum(1).float()  # (B,)
+    live = row_len > 0
+    u_len = torch.where(live, row_len, torch.zeros_like(row_len)).max()
+    cols = torch.arange(pad_mask.shape[1], device=pad_mask.device, dtype=torch.float32)
+    keep = live[:, None] & (cols[None, :] < u_len)
+    return ~keep
 
 
 def calc_length(lengths: torch.Tensor, all_paddings: int, kernel_size: int,

@@ -1,6 +1,7 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain version
-(counterpart of lcasr_tpu/ops/flash_attention.py `flash_attention`,
-`flash_attention_with_lse`).
+"""Flash attention: the CUDA kernels' wrappers, their plain versions and the
+autograd Function (counterpart of lcasr_tpu/ops/flash_attention.py
+`flash_attention`, `flash_attention_with_lse`, `flash_attention_bwd` and
+the custom VJP `_fwd_rule` / `_bwd_rule`).
 
 Public layout (B, T, H, D), as in the JAX package.  The softmax scale is
 folded into q in q's dtype before the kernel (the JAX `_fwd` does the same,
@@ -10,14 +11,18 @@ min(len, q_offset + Tq) give o = 0 and lse = -1e30, and so do rows whose
 every key is masked.  The band and the lengths are in global coordinates,
 shifted by `q_offset` / `kv_offset` (context parallelism).
 
-On a CUDA tensor the wrapper launches the kernel in
-`lcasr_torch/csrc/flash_attn_fwd.cu` (bf16 or fp32; D in 32, 64, 128) and
-raises on anything the kernel does not take.  On a CPU tensor it runs
-`flash_attention_ref`, the plain fp32 version.  There is no fallback from
-one to the other.
+On a CUDA tensor the forward launches the kernel in
+`lcasr_torch/csrc/flash_attn_fwd.cu` (K1) and the backward the kernels in
+`csrc/flash_attn_bwd.cu`: the one-pass K3 when the attention is not banded
+on both sides, else K4 (dq) and K5 (dk, dv), as `_bwd_impl` chooses; with
+`LCASR_FUSED_ATTN_BWD=0` the split pair runs always.  All take bf16 or
+fp32 and D in 32, 64, 128, and raise on anything else.  On a CPU tensor
+they run `flash_attention_ref` / `flash_attention_bwd_ref`, the plain fp32
+versions.  There is no fallback from one to the other.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -28,17 +33,36 @@ from lcasr_torch.ops.attention import NEG_INF, length_mask, window_mask
 KERNEL_HEAD_DIMS = (32, 64, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _SRC = "flash_attn_fwd.cu"
+_BWD_SRC = "flash_attn_bwd.cu"
+
+
+def _scale(q: torch.Tensor, scale: Optional[float]) -> float:
+    return scale if scale is not None else q.shape[-1] ** -0.5
 
 
 def _scaled(q: torch.Tensor, scale: Optional[float]) -> torch.Tensor:
-    scale = scale if scale is not None else q.shape[-1] ** -0.5
-    return q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+    return q * torch.tensor(_scale(q, scale), dtype=q.dtype, device=q.device)
 
 
 def _lengths(lengths, B: int, Tk: int, device) -> torch.Tensor:
     if lengths is None:
         return torch.full((B,), Tk, dtype=torch.int32, device=device)
     return torch.as_tensor(lengths, device=device).to(torch.int32)
+
+
+def _valid_pairs(q, k, lengths, window, q_offset, kv_offset) -> torch.Tensor:
+    """(B, Tq, Tk) bool: the (row, col) pairs the masks leave valid."""
+    B, Tq = q.shape[:2]
+    Tk = k.shape[1]
+    lens = _lengths(lengths, B, Tk, q.device)
+    # global row r < min(len, q_offset + Tq) is r < len for every local row;
+    # likewise for columns
+    valid = (length_mask(lens, Tq, offset=q_offset)[:, :, None]
+             & length_mask(lens, Tk, offset=kv_offset)[:, None, :])
+    band = window_mask(Tq, Tk, window, q_offset=q_offset - kv_offset, device=q.device)
+    if band is not None:
+        valid = valid & band[None]
+    return valid
 
 
 def flash_attention_ref(
@@ -54,16 +78,7 @@ def flash_attention_ref(
     """Plain version of the kernel: eager fp32 math on the same pre-scaled q,
     the same masks and lse conventions.  Returns (o in q's dtype,
     lse (B, H, Tq) fp32)."""
-    B, Tq, H, D = q.shape
-    Tk = k.shape[1]
-    lens = _lengths(lengths, B, Tk, q.device)
-    # global row r < min(len, q_offset + Tq) is r < len for every local row;
-    # likewise for columns
-    valid = (length_mask(lens, Tq, offset=q_offset)[:, :, None]
-             & length_mask(lens, Tk, offset=kv_offset)[:, None, :])  # (B, Tq, Tk)
-    band = window_mask(Tq, Tk, window, q_offset=q_offset - kv_offset, device=q.device)
-    if band is not None:
-        valid = valid & band[None]
+    valid = _valid_pairs(q, k, lengths, window, q_offset, kv_offset)
     s = torch.einsum("bthd,bshd->bhts", _scaled(q, scale).float(), k.float())
     s = s.masked_fill(~valid[:, None], float("-inf"))
     m = s.amax(-1, keepdim=True)
@@ -76,8 +91,9 @@ def flash_attention_ref(
     return o.to(q.dtype), lse[..., 0]
 
 
-def _check_kernel_inputs(q, k, v):
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check_kernel_inputs(q, k, v, do=None):
+    named = (("q", q), ("k", k), ("v", v)) + ((("do", do),) if do is not None else ())
+    for name, t in named:
         if t.device.type != "cuda":
             raise ValueError(f"flash_attention: {name} is on {t.device}, q on cuda")
         if t.dtype != q.dtype:
@@ -108,6 +124,8 @@ def _check_kernel_inputs(q, k, v):
     B, _, H, _ = q.shape
     if k.shape[0] != B or k.shape[2:] != q.shape[2:] or v.shape != k.shape:
         raise ValueError(f"flash_attention: shapes q {q.shape}, k {k.shape}, v {v.shape}")
+    if do is not None and do.shape != q.shape:
+        raise ValueError(f"flash_attention: do {do.shape} is not shaped like q {q.shape}")
 
 
 def flash_attention_with_lse(
@@ -146,8 +164,124 @@ def flash_attention_with_lse(
     return o, lse
 
 
+def flash_attention_bwd_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    lengths: Optional[torch.Tensor] = None,
+    window: Tuple[int, int] = (-1, -1),
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+    kv_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward kernels: eager fp32 math from the same
+    pre-scaled q and the given (o, lse), with p = exp(s - lse) selected on
+    the valid pairs (rows past the length carry lse = -1e30 and are never
+    exponentiated into the result).  Returns (dq, dk, dv) in q's dtype."""
+    sc = _scale(q, scale)
+    valid = _valid_pairs(q, k, lengths, window, q_offset, kv_offset)[:, None]
+    qs, kf, vf, dof = _scaled(q, scale).float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bthd,bshd->bhts", qs, kf)
+    p = torch.where(valid, torch.exp(s - lse.float()[..., None]), torch.zeros_like(s))
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)  # (B, H, Tq)
+    dv = torch.einsum("bhts,bthd->bshd", p, dof)
+    dp = torch.einsum("bthd,bshd->bhts", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dk = torch.einsum("bhts,bthd->bshd", ds, qs)
+    dq = torch.einsum("bhts,bshd->bthd", ds, kf) * sc
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _fused_bwd(window: Tuple[int, int]) -> bool:
+    """K3 unless the band is two-sided or LCASR_FUSED_ATTN_BWD=0 (the gate
+    of `_bwd_impl`; the port has no probe: the one-pass kernel's dq
+    accumulation is exact on CUDA)."""
+    banded = window[0] >= 0 and window[1] >= 0
+    return not banded and os.environ.get("LCASR_FUSED_ATTN_BWD", "1") != "0"
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    lengths: Optional[torch.Tensor] = None,
+    window: Tuple[int, int] = (-1, -1),
+    softmax_scale: Optional[float] = None,
+    q_offset: int = 0,
+    kv_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward with an external (o, lse (B, H, Tq)) pair: (dq, dk, dv),
+    each shaped and typed like its input.  With a merged lse (ring
+    attention) the per-block dk, dv are exact and the dq are summable."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, lengths, window,
+                                       softmax_scale, int(q_offset), int(kv_offset))
+    do = do.contiguous()
+    _check_kernel_inputs(q, k, v, do)
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    scale = _scale(q, softmax_scale)
+    qs = _scaled(q, scale)
+    lens = _lengths(lengths, B, Tk, q.device).contiguous()
+    lse = lse.float().contiguous()
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()  # (B, H, Tq)
+    fused = _fused_bwd(window)
+    dq32 = (torch.zeros if fused else torch.empty)(
+        (B, Tq, H, D), dtype=torch.float32, device=q.device)
+    dk = torch.empty((B, Tk, H, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    lib = kernels.library(_BWD_SRC)
+
+    def launch(kind, name, dq_ptr, dk_ptr, dv_ptr):
+        with torch.cuda.device(q.device):
+            err = lib.lcasr_flash_attn_bwd(
+                kind, qs.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), lens.data_ptr(), dq_ptr, dk_ptr,
+                dv_ptr, B, H, Tq, Tk, D, int(q.dtype == torch.float32),
+                *qs.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+                int(q_offset), int(kv_offset), int(window[0]), int(window[1]),
+                torch.cuda.current_stream(q.device).cuda_stream,
+            )
+        kernels.check(lib, err, name)
+        kernels.launch_counts[name] += 1
+
+    if fused:
+        launch(0, "flash_attention_bwd_fused", dq32.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    else:
+        launch(1, "flash_attention_bwd_dq", dq32.data_ptr(), None, None)
+        launch(2, "flash_attention_bwd_dkv", None, dk.data_ptr(), dv.data_ptr())
+    # the chain-rule scale of dq, after the kernel (`_bwd_impl`)
+    return (dq32 * scale).to(q.dtype), dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: K1 (saves q, k, v, o, lse).  Backward: K3, or K4 + K5."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, window, softmax_scale, q_offset, kv_offset):
+        o, lse = flash_attention_with_lse(q, k, v, lengths, window, softmax_scale,
+                                          q_offset, kv_offset)
+        ctx.save_for_backward(q, k, v, o, lse, lengths)
+        ctx.args = (window, softmax_scale, q_offset, kv_offset)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, lengths = ctx.saved_tensors
+        window, softmax_scale, q_offset, kv_offset = ctx.args
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, lengths, window,
+                                         softmax_scale, q_offset, kv_offset)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(q, k, v, lengths=None, window=(-1, -1), softmax_scale=None,
                     q_offset: int = 0, kv_offset: int = 0) -> torch.Tensor:
-    """(B, Tq, H, D) in, (B, Tq, H, D) out."""
-    return flash_attention_with_lse(q, k, v, lengths, window, softmax_scale,
-                                    q_offset, kv_offset)[0]
+    """(B, Tq, H, D) in, (B, Tq, H, D) out; differentiable in q, k, v."""
+    return _FlashAttention.apply(q, k, v, lengths, tuple(window), softmax_scale,
+                                 int(q_offset), int(kv_offset))

@@ -1,0 +1,99 @@
+"""lcasr_torch's flash-attention backward against lcasr_tpu's, on the CPU in
+fp32.
+
+The JAX side runs its Pallas kernels in interpret mode (as the JAX
+package's own tests run them on the CPU): `jax.grad` through
+`flash_attention`'s custom VJP, and the public `flash_attention_bwd` with
+an external (o, lse).  The port's side is its autograd Function and
+`flash_attention_bwd`, which on CPU tensors run `flash_attention_bwd_ref`,
+the plain version of the K3/K4/K5 kernels.
+
+Tolerance: both sides compute in fp32 from the same inputs; sums over up to
+~200 keys of O(1) terms in another order differ by a few 1e-7, and the
+gradients here are O(1), so 1e-5 absolute keeps a wide margin while a
+wrong mask, scale or sign moves them by 1e-2 or more.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lcasr_tpu.ops import flash_attention as jfa
+from lcasr_torch.ops import flash_attention as tfa
+
+ATOL = 1e-5
+
+# (name, B, T, H, D, lengths, window, q_offset, kv_offset)
+CASES = [
+    ("ragged_zero", 3, 150, 2, 32, [150, 97, 0], (-1, -1), 0, 0),
+    ("T_not_tile_multiple", 2, 200, 1, 64, [200, 133], (-1, -1), 0, 0),
+    ("band", 2, 160, 2, 32, [160, 120], (24, 16), 0, 0),
+    ("band_left_only", 1, 130, 2, 32, [101], (20, -1), 0, 0),
+    ("offsets", 2, 140, 1, 32, [160, 90], (-1, -1), 17, 9),
+    ("offsets_band", 2, 140, 1, 32, [150, 120], (30, 20), 17, 9),
+    ("D128", 1, 140, 2, 128, [140], (-1, -1), 0, 0),
+]
+
+
+def _inputs(B, T, H, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(B, T, H, D)).astype(np.float32) for _ in range(4)]
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_autograd_matches_jax_grad(case):
+    _, B, T, H, D, lengths, window, qo, ko = case
+    q, k, v, do = _inputs(B, T, H, D)
+    lens = np.asarray(lengths, np.int32)
+
+    def loss(q, k, v):
+        o = jfa.flash_attention(q, k, v, lengths=jnp.asarray(lens), window=window,
+                                q_offset=jnp.int32(qo), kv_offset=jnp.int32(ko))
+        return (o * do).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o = tfa.flash_attention(qt, kt, vt, lengths=torch.from_numpy(lens), window=window,
+                            q_offset=qo, kv_offset=ko)
+    got = torch.autograd.grad((o * torch.from_numpy(do)).sum(), (qt, kt, vt))
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_bwd_with_external_o_lse_matches_jax(case):
+    """The public backward with an external (o, lse) pair, the form ring
+    attention reuses; o and lse from the JAX forward go into both."""
+    _, B, T, H, D, lengths, window, qo, ko = case
+    q, k, v, do = _inputs(B, T, H, D, seed=1)
+    lens = jnp.asarray(np.asarray(lengths, np.int32))
+    kw = dict(lengths=lens, window=window, q_offset=jnp.int32(qo), kv_offset=jnp.int32(ko))
+    o, lse = jfa.flash_attention_with_lse(q, k, v, **kw)
+    want = jfa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    t = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
+    got = tfa.flash_attention_bwd(t(q), t(k), t(v), t(o), t(lse), t(do),
+                                  lengths=t(lens), window=window, q_offset=qo, kv_offset=ko)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL, rtol=0)
+
+
+def test_zero_length_rows_get_zero_gradients_without_nan():
+    """Finished samples (length 0) carry lse = -1e30: the select keeps
+    exp(s + 1e30) = inf away from every gradient."""
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(2, 70, 2, 32, seed=2))
+    lens = torch.tensor([70, 0], dtype=torch.int32)
+    o, lse = tfa.flash_attention_with_lse(q, k, v, lens)
+    assert (lse[1] == -1e30).all()
+    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do, lens)
+    for g in (dq, dk, dv):
+        assert torch.isfinite(g).all() and (g[1] == 0).all() and (g[0] != 0).any()
+
+
+@pytest.mark.parametrize("window,env,fused", [((-1, -1), "1", True), ((-1, -1), "0", False),
+                                              ((8, 8), "1", False), ((8, -1), "1", True)])
+def test_kernel_choice_follows_the_jax_gate(monkeypatch, window, env, fused):
+    """K3 unless the band is two-sided or LCASR_FUSED_ATTN_BWD=0."""
+    monkeypatch.setenv("LCASR_FUSED_ATTN_BWD", env)
+    assert tfa._fused_bwd(window) is fused

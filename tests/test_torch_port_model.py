@@ -108,15 +108,12 @@ def test_unported_options_raise():
     small = dict(vocab_size=8, d_model=32, n_layers=1, n_heads=1, head_dim=32,
                  subsampling_conv_channels=8, device="cpu")
     for kw in (dict(seq_axis_name="seq"), dict(quant_w8a8=True), dict(conv_type="longconv"),
-               dict(capture_qkv=True), dict(checkpoint_every_n_layers=1),
+               dict(capture_qkv=True), dict(remat_policy="dots"),
                dict(subsampling="stacking"), dict(conv_norm="batch_norm")):
         with pytest.raises(NotImplementedError):
             SCConformerXL(**small, **kw)
     with pytest.raises(TypeError):
         SCConformerXL(**small, no_such_option=1)
-    m = SCConformerXL(**small)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        m(torch.zeros(1, 80, 64), train=True)
 
 
 def test_model_without_device_raises_when_no_gpu():
@@ -179,11 +176,11 @@ def test_port_imports_no_jax_and_no_lcasr_tpu():
         "for m in pkgutil.walk_packages(lcasr_torch.__path__, 'lcasr_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'lcasr_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'lcasr_tpu', 'yaml'))\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('lcasr_torch')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=str(__import__("pathlib").Path(__file__).parents[1]))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15  # every module was imported
+    assert int(out.stdout.strip()) >= 38  # every module was imported

@@ -203,8 +203,10 @@ def test_conformer_convolution_eval_matches_jax_with_pad_mask():
     want = jm.apply(variables, x, pad_mask=pad_mask, train=False)
     port = load_port(ConformerConvolution(32, 9), variables)
     assert_close(port(t(x), pad_mask=t(pad_mask)), want)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        port(t(x), train=True)
+    # train mode is ported now (tests/test_torch_port_train.py holds it
+    # against JAX); here: it runs and moves the statistics once
+    port(t(x), pad_mask=t(pad_mask), train=True)
+    assert int(port.norm.num_batches_tracked) == 1
 
 
 # ---------------------------------------------------------------------------
