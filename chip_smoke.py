@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # every phase, as a check of the port
     python3 chip_smoke.py --phases kernels # build + kernel checks only
     python3 chip_smoke.py --phases train   # build + the training path only
+    python3 chip_smoke.py --phases mamba_decode,mamba_train  # the Mamba family only
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -12,10 +13,12 @@ Phases, in order; any failure raises and exits non-zero:
               ptxas's register/spill lines and the card's name and power
               limit;
   2. kernels  hold each kernel against its plain PyTorch version on the card
-              at the main paths' shapes and on small edge cases: the forward
-              K1 and the backward K3 (one pass) and K4 + K5 (split); time
-              each against its bound, the plain version and a library call
-              doing the same work (the yardstick; the port never calls it);
+              at the main paths' shapes and on small edge cases: the
+              attention forward K1 and backward K3 (one pass) and K4 + K5
+              (split), the selective scan K6 and its backward K7; time each
+              against its bound, the plain version and, where there is one, a
+              library call doing the same work (the yardstick; the port never
+              calls it);
   3. model    the flagship SCConformerXL (9L-768D-6H, bf16, random weights
               from a numpy seed) on one (16, 80, 16384) window batch: finite,
               normalised log-probs, compared with the same model whose
@@ -31,7 +34,17 @@ Phases, in order; any failure raises and exits non-zero:
               launch counts zeroed just before and read just after; save /
               resume; one 16384 x 4 step with the kernels against plain
               attention (loss and whole gradient); a profile of that step;
-              a banded 2-layer step (K4 + K5); one 120,000 x 1 step.
+              a banded 2-layer step (K4 + K5); one 120,000 x 1 step;
+  6. mamba_decode  the full-width bidirectional Mamba (6 layers, d_model 768,
+              bf16, random weights from a seed): one window batch with the
+              kernel against the plain scan, then the same 20-minute
+              streaming decode as phase 4 (6 layers x 4 window batches = 24
+              K6 launches), RTFx as the median of 3;
+  7. mamba_train  the Trainer with model_class Mamba on the same ladder and
+              corpus as phase 5: launch counts (K6 twice per layer and micro
+              step under full remat, K7 once), save / resume, one 16384 x 4
+              step with the kernels against the plain scan (loss and whole
+              gradient), a profile of that step, one 120,000 x 1 step.
 
 The line before the last two is one JSON object with each kernel's numbers;
 the last line is the device record.  Without a GPU, or without the repo
@@ -47,7 +60,7 @@ import subprocess
 import sys
 import time
 
-PHASES = ("kernels", "model", "decode", "train")
+PHASES = ("kernels", "model", "decode", "train", "mamba_decode", "mamba_train")
 
 # configs/ladder_9l_768d_6h.yaml, written out: the machine with the card is
 # not promised pyyaml (tests/test_torch_port_train.py holds the two equal)
@@ -88,6 +101,14 @@ SMOKE_OVERRIDES = {
                            "max_sequence_length": 16384},
     "checkpointing": {"save_every_n_steps": 10 ** 9},
 }
+# the bidirectional-Mamba family at the class defaults of its model (6 layers,
+# d_model 768: d_inner 1536, dt_rank 48, d_state 16), every block recomputed
+# in the backward; the rest is the ladder configuration
+MAMBA_CONFIG = dict(LADDER_CONFIG, model_class="Mamba", model={
+    "n_layers": 6, "d_model": 768, "subsampling": "dw_striding", "subsampling_factor": 8,
+    "subsampling_conv_channels": 256, "subsampling_act": "silu", "self_conditioning": True,
+    "checkpoint_every_n_layers": 1,
+})
 DEVICE = "cuda"
 N_PODCASTS, PODCAST_FRAMES = 16, 16_384
 LONG_FRAMES = 120_000  # the paper's 20-minute bucket
@@ -105,6 +126,9 @@ PEAK_BYTES_PER_S = 3.35e12
 SEQ_LEN, OVERLAP, WINDOW_BATCH = 16_384, 14_336, 16
 TOTAL_FRAMES, FRAMES_PER_SECOND = 120_000, 100
 EXPECTED_LAUNCHES = 36  # 9 layers x 4 window batches
+MAMBA_EXPECTED_DECODE_LAUNCHES = 24  # 6 layers x 4 window batches
+# special-function units: one exp per clock on each of 16 units per SM
+SFU_PER_CLOCK_PER_SM = 16
 
 
 def log(msg: str) -> None:
@@ -312,8 +336,6 @@ def kernel_device_ms(torch, fn, names, n: int = 10):
 
 
 def phase_kernels_bwd(torch):
-    import numpy as np
-
     from lcasr_torch.ops.flash_attention import (
         flash_attention_bwd_ref, flash_attention_with_lse)
 
@@ -420,63 +442,299 @@ def phase_kernels_bwd(torch):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: one full-width window batch, kernel against plain attention
+# phase 2c: selective scan (K6) and its backward (K7) against their plain versions
+# ---------------------------------------------------------------------------
+SSM_KERNELS = {  # launch-count name -> (kernel symbol, Pallas body it replaces)
+    "selective_scan_fwd": ("selective_scan_fwd_kernel", 78, "_scan_kernel"),
+    "selective_scan_bwd": ("selective_scan_bwd_kernel", 177, "_scan_bwd_kernel"),
+}
+SSM_DECODE_SHAPE = (32, 2048, 768, 16)  # (Bt, L, D, N): 16 windows, both directions
+SSM_TRAIN_SHAPE = (8, 2048, 768, 16)  # a 16384-frame x 4 chunk
+# kernel and plain version are both fp32 on the same (possibly bf16-rounded)
+# inputs; they differ in exp2 against exp, fused multiply-adds and the order of
+# the sums over channels and time: 2e-4 of the largest reference value
+SSM_TOL = 2e-4
+
+
+def ssm_cases(torch):
+    """(name, Bt, L, D, x dtype, B/C dtype, B and C as strided slices, wide delta)"""
+    bf, f32 = torch.bfloat16, torch.float32
+    return [
+        ("fp32_L1", 2, 1, 40, f32, f32, False, False),
+        ("fp32_L15", 3, 15, 96, f32, f32, False, True),
+        ("fp32_L77_strided", 2, 77, 768, f32, f32, True, False),
+        ("bf16_L77_D100", 2, 77, 100, bf, bf, False, True),
+        ("bf16_L333_strided", 2, 333, 160, bf, bf, True, False),
+        ("mixed_L2048_strided", 2, 2048, 768, f32, bf, True, False),  # as the mixer gives
+        ("mixed_L15000_strided", 2, 15_000, 768, f32, bf, True, False),  # the 120,000-frame step
+        # the other shapes the main paths launch at, as the mixer gives them
+        ("decode_shape_full", *SSM_DECODE_SHAPE[:3], f32, bf, True, False),
+        ("train_shape_full", *SSM_TRAIN_SHAPE[:3], f32, bf, True, False),  # 16384 x 4
+        ("train_shape_8192x8", 16, 1024, 768, f32, bf, True, False),
+    ]
+
+
+def ssm_inputs(torch, gen, Bt, L, D, N, x_dtype, bc_dtype, strided, wide):
+    """x, delta, A, B, C, g as the mixer gives them: delta a softplus around
+    0.05 (`wide`: around 0.7, gains near 0), A = -(1..N) jittered, B and C
+    slices of one (Bt, L, 48 + 2N) projection when `strided`."""
+    import torch.nn.functional as F
+
+    randn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    x = randn(Bt, L, D).to(x_dtype)
+    delta = F.softplus(randn(Bt, L, D) + (0.0 if wide else -3.0))
+    A = -torch.arange(1, N + 1, device="cuda").float() * torch.exp(0.3 * randn(D, N))
+    if strided:
+        proj = randn(Bt, L, 48 + 2 * N).to(bc_dtype)
+        Bm, Cm = proj[..., 48:48 + N], proj[..., 48 + N:]
+    else:
+        Bm, Cm = randn(Bt, L, N).to(bc_dtype), randn(Bt, L, N).to(bc_dtype)
+    return x, delta, A, Bm, Cm, randn(Bt, L, D)
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def ssm_bound(torch, kind, shape, x_bytes, bc_bytes, states: bool):
+    """(bound ms, 'bytes' or 'operations') of one scan: every input read once
+    and every output written once at the memory rate, against the fp32
+    operations at the fp32 peak and the exps at the special-function rate
+    (16 per clock per SM at the card's highest SM clock)."""
+    Bt, L, D, N = shape
+    elems, small = Bt * L * D, Bt * L * N
+    state_bytes = 4 * Bt * -(-L // 32) * N * D if states else 0
+    if kind == "fwd":  # x, delta in; y out; per (t, d, n): 1 exp and 6 flops
+        nbytes = elems * (x_bytes + 4 + 4) + 2 * small * bc_bytes + 4 * D * N + state_bytes
+        exps, flops = elems * N, 6 * elems * N
+    else:  # x, delta, g in; dx, ddelta out; dB, dC, dA.  The function needs
+        # one exp per (t, d, n): a_t = exp(delta_t A) serves the recompute and
+        # the reverse sweep alike (that K7 computes it twice is its choice);
+        # 20 flops
+        nbytes = (elems * (x_bytes + 4 * 4) + 2 * small * bc_bytes + 2 * small * 4
+                  + 2 * 4 * D * N + state_bytes)
+        exps, flops = elems * N, 20 * elems * N
+    sfu_rate = (SFU_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count
+                * max_sm_clock_hz())
+    t_ops = max(flops / PEAK_FLOPS["fp32"], exps / sfu_rate) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_kernels_ssm(torch):
+    from lcasr_torch.ops import ssm
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = {name: 0.0 for name in SSM_KERNELS}
+
+    def rel_err(name, what, got, want):
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: non-finite {what}")
+        scale = max(want.abs().max().item(), 1e-6)
+        err = (got.float() - want.float()).abs().max().item() / scale
+        if err > SSM_TOL:
+            raise AssertionError(f"{name}: {what} off by {err:.3e} of its largest value "
+                                 f"(tolerance {SSM_TOL:g})")
+        return err
+
+    for (name, Bt, L, D, xd, bcd, strided, wide) in ssm_cases(torch):
+        x, delta, A, Bm, Cm, g = ssm_inputs(torch, gen, Bt, L, D, 16, xd, bcd, strided, wide)
+        y = ssm.selective_scan_fwd(x, delta, A, Bm, Cm)
+        y_s, states = ssm.selective_scan_fwd(x, delta, A, Bm, Cm, return_states=True)
+        grads = ssm.selective_scan_bwd(x, delta, A, Bm, Cm, states, g)
+        torch.cuda.synchronize()
+        y_ref, states_ref = ssm.selective_scan_ref(x, delta, A, Bm, Cm, return_states=True)
+        grads_ref = ssm.selective_scan_bwd_ref(x, delta, A, Bm, Cm, g)
+        if not torch.equal(y, y_s):
+            raise AssertionError(f"{name}: y differs with and without the saved states")
+        e_fwd = [rel_err(name, "y", y, y_ref), rel_err(name, "states", states, states_ref)]
+        e_bwd = [rel_err(name, what, got, want) for what, got, want in
+                 zip(("dx", "ddelta", "dA", "dB", "dC"), grads, grads_ref)]
+        log(f"  {name:22s} K6: y {e_fwd[0]:.2e} states {e_fwd[1]:.2e}   K7: dx {e_bwd[0]:.2e} "
+            f"ddelta {e_bwd[1]:.2e} dA {e_bwd[2]:.2e} dB {e_bwd[3]:.2e} dC {e_bwd[4]:.2e} "
+            f"(of the largest value; tolerance {SSM_TOL:g})")
+        worst["selective_scan_fwd"] = max(worst["selective_scan_fwd"], *e_fwd)
+        worst["selective_scan_bwd"] = max(worst["selective_scan_bwd"], *e_bwd)
+        del x, delta, A, Bm, Cm, g, y, y_s, states, grads, y_ref, states_ref, grads_ref
+
+    # timing at the decode's and the training step's shapes, x fp32 and B, C
+    # bf16 slices of the projection, as the bf16 mixer gives them
+    out, timed = {}, {}
+    for label, shape in (("decode", SSM_DECODE_SHAPE), ("train", SSM_TRAIN_SHAPE)):
+        Bt, L, D, N = shape
+        x, delta, A, Bm, Cm, g = ssm_inputs(torch, gen, Bt, L, D, N, torch.float32,
+                                            torch.bfloat16, True, False)
+        _, states = ssm.selective_scan_fwd(x, delta, A, Bm, Cm, return_states=True)
+        fwd = lambda: ssm.selective_scan_fwd(x, delta, A, Bm, Cm)
+        fwd_s = lambda: ssm.selective_scan_fwd(x, delta, A, Bm, Cm, return_states=True)
+        bwd = lambda: ssm.selective_scan_bwd(x, delta, A, Bm, Cm, states, g)
+        t = {"fwd": time_ms(torch, fwd, n=20), "fwd_states": time_ms(torch, fwd_s, n=20),
+             "bwd": time_ms(torch, bwd, n=10)}
+        t["bwd_kernel_only"] = kernel_device_ms(torch, bwd, [SSM_KERNELS["selective_scan_bwd"][0]],
+                                                n=5)[SSM_KERNELS["selective_scan_bwd"][0]]
+        t["fwd_plain"] = time_ms(torch, lambda: ssm.selective_scan_ref(x, delta, A, Bm, Cm),
+                                 n=2, warmup=1)
+        t["bwd_plain"] = time_ms(torch, lambda: ssm.selective_scan_bwd_ref(x, delta, A, Bm, Cm, g),
+                                 n=2, warmup=1)
+        t["fwd_bound"] = ssm_bound(torch, "fwd", shape, 4, 2, False)
+        t["fwd_states_bound"] = ssm_bound(torch, "fwd", shape, 4, 2, True)
+        t["bwd_bound"] = ssm_bound(torch, "bwd", shape, 4, 2, True)
+        timed[label] = t
+        log(f"  {label} shape {shape}, x fp32, B/C bf16 strided: K6 {t['fwd']:.4f} ms "
+            f"(with states {t['fwd_states']:.4f} ms), plain {t['fwd_plain']:.2f} ms, bound "
+            f"{t['fwd_bound'][0]:.4f} ms by {t['fwd_bound'][1]} (with states "
+            f"{t['fwd_states_bound'][0]:.4f} ms); K7 {t['bwd']:.4f} ms with the sums of its "
+            f"partials (kernel alone {t['bwd_kernel_only']:.4f} ms), plain {t['bwd_plain']:.2f} "
+            f"ms, bound {t['bwd_bound'][0]:.4f} ms by {t['bwd_bound'][1]}; no library call "
+            f"computes either")
+        del x, delta, A, Bm, Cm, g, states
+    # K6's row is the decode's launch (no states), K7's the training step's
+    for key, (ms, plain, bound, extra) in {
+        "selective_scan_fwd": (timed["decode"]["fwd"], timed["decode"]["fwd_plain"],
+                               timed["decode"]["fwd_bound"],
+                               {"ms_train_shape_with_states": timed["train"]["fwd_states"],
+                                "bound_ms_train_shape_with_states":
+                                    timed["train"]["fwd_states_bound"][0],
+                                "plain_ms_train_shape": timed["train"]["fwd_plain"]}),
+        "selective_scan_bwd": (timed["train"]["bwd"], timed["train"]["bwd_plain"],
+                               timed["train"]["bwd_bound"],
+                               {"kernel_only_ms": timed["train"]["bwd_kernel_only"],
+                                "ms_decode_shape": timed["decode"]["bwd"],
+                                "bound_ms_decode_shape": timed["decode"]["bwd_bound"][0],
+                                "plain_ms_decode_shape": timed["decode"]["bwd_plain"]}),
+    }.items():
+        symbol, line, body = SSM_KERNELS[key]
+        out[key] = {
+            "name": key, "route": "cuda", "source": "lcasr_torch/csrc/selective_scan.cu",
+            "replaces": f"lcasr_tpu/ops/ssm.py:{line}",
+            "replaces_fn": f"lcasr_tpu/ops/ssm.py:{body}",
+            "launches": None, "max_abs_err": worst[key], "ms": ms, "plain_ms": plain,
+            "library_ms": None, "bound_ms": bound[0], "bound_by": bound[1], **extra,
+        }
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 3 and 6 (first half): one full-width window batch, kernel against plain
 # ---------------------------------------------------------------------------
 def flagship_model(torch):
     from lcasr_torch.models.sconformer_xl import FLAGSHIP, SCConformerXL, init_weights_
 
-    model = SCConformerXL(**FLAGSHIP, dtype=torch.bfloat16, device="cuda")
+    model = SCConformerXL(**FLAGSHIP, dtype=torch.bfloat16, device=DEVICE)
     return init_weights_(model, seed=0)
 
 
-def phase_model(torch, model):
-    import numpy as np
+def mamba_model(torch, seed: int = 0):
+    """The full-width bf16 Mamba of MAMBA_CONFIG, its parameters drawn by the
+    model's own initialisers from `seed`."""
+    from lcasr_torch.config import Config
+    from lcasr_torch.models.registry import load_model
+
+    torch.manual_seed(seed)
+    cfg = Config(merged(MAMBA_CONFIG, {"model": {"init_seed": seed}}))
+    return load_model(cfg, 4095, device=DEVICE)
+
+
+def plain_attention(bf16: bool = False):
+    """Context in which SCConformerXL's attention is the plain fp32 version,
+    or plain attention in bf16 (this script only)."""
     from unittest import mock
 
     import lcasr_torch.models.sconformer_xl as sx
     from lcasr_torch.ops.flash_attention import flash_attention_ref
 
+    def plain(q, k, v, lengths=None, window=(-1, -1)):
+        return flash_attention_ref(q, k, v, lengths, window)[0]
+
+    return mock.patch.object(sx, "flash_attention", plain_bf16_attention if bf16 else plain)
+
+
+def plain_scan(dtype):
+    """Context in which `selective_scan` runs the plain versions of K6 and K7
+    in `dtype`, on any device (this script only)."""
+    from unittest import mock
+
+    from lcasr_torch.ops import ssm
+
+    def fwd(x, delta, A, B, C, return_states=False):
+        out = ssm.selective_scan_ref(x, delta, A, B, C, return_states, dtype=dtype)
+        return tuple(o.float() for o in out) if return_states else out.float()
+
+    def bwd(x, delta, A, B, C, states, g):
+        return tuple(o.float() for o in
+                     ssm.selective_scan_bwd_ref(x, delta, A, B, C, g, dtype=dtype))
+
+    # nothing is patched until the `with` is entered
+    return mock.patch.multiple(ssm, selective_scan_fwd=fwd, selective_scan_bwd=bwd)
+
+
+def require_launches(some: bool, what: str) -> None:
+    """Raise unless kernels were launched since the counts were last zeroed
+    (`some`) or none was (not `some`): a comparison of the kernels with their
+    plain versions must run the kernels on one side only."""
+    from lcasr_torch import kernels
+
+    n = sum(kernels.launch_counts.values())
+    if (n > 0) != some:
+        raise AssertionError(f"{what}: {n} kernel launches, expected "
+                             f"{'some' if some else 'none'} ({dict(kernels.launch_counts)})")
+
+
+def phase_model(torch, model, plain, what: str):
+    """One (16, 80, 16384) window batch with ragged lengths: finite,
+    normalised fp32 log-probs of the right shape, close to those of the same
+    model inside the `plain` context (the kernels' plain versions)."""
+    import numpy as np
+
+    from lcasr_torch import kernels
+
     rng = np.random.default_rng(1)
-    audio = torch.from_numpy(rng.normal(size=(16, 80, SEQ_LEN)).astype(np.float32)).cuda()
+    audio = torch.from_numpy(rng.normal(size=(16, 80, SEQ_LEN)).astype(np.float32)).to(DEVICE)
     lengths = torch.tensor([SEQ_LEN] * 10 + [15_552, 12_000, 8_191, 4_096, 1_000, 0],
-                           dtype=torch.int32, device="cuda")
+                           dtype=torch.int32, device=DEVICE)
     with torch.no_grad():
+        kernels.reset_launch_counts()
         out = model(audio, length=lengths)
         torch.cuda.synchronize()
+        require_launches(True, f"{what} forward")
         lp, out_len = out["final_posteriors"], out["length"]
-        if tuple(lp.shape) != (16, 2048, 4096) or lp.dtype != torch.float32:
+        if tuple(lp.shape) != (16, SEQ_LEN // 8, 4096) or lp.dtype != torch.float32:
             raise AssertionError(f"final_posteriors {tuple(lp.shape)} {lp.dtype}")
         if not torch.isfinite(lp).all():
             raise AssertionError("non-finite log-probs")
         norm_err = (lp.exp().sum(-1) - 1).abs().max().item()
         if norm_err > 1e-3:  # fp32 log-softmax: sums to 1 within float error
             raise AssertionError(f"log-probs do not normalise: {norm_err}")
-
-        def plain(q, k, v, lengths=None, window=(-1, -1)):
-            return flash_attention_ref(q, k, v, lengths, window)[0]
-
-        with mock.patch.object(sx, "flash_attention", plain):  # this script only
+        with plain:
+            kernels.reset_launch_counts()
             lp_plain = model(audio, length=lengths)["final_posteriors"]
+            require_launches(False, f"{what} forward inside its plain context")
         fwd_ms = time_ms(torch, lambda: model(audio, length=lengths), n=3, warmup=1)
-    valid = torch.arange(2048, device="cuda")[None, :] < out_len[:, None]
+    valid = torch.arange(lp.shape[1], device=DEVICE)[None, :] < out_len[:, None]
     diff = (lp - lp_plain).abs()[valid]
     agree = (lp.argmax(-1) == lp_plain.argmax(-1))[valid].float().mean().item()
     max_d, mean_d = diff.max().item(), diff.mean().item()
-    log(f"  flagship forward (16, 80, 16384) bf16: {fwd_ms:.2f} ms; vs plain attention: "
-        f"argmax agreement {agree:.5f}, max|dlogp| {max_d:.4f}, mean|dlogp| {mean_d:.2e}, "
-        f"normalisation error {norm_err:.1e}")
-    # both runs are bf16 end to end and differ only in where attention
-    # rounds (P to bf16 in the kernel); 9 random layers amplify that into
-    # small log-prob shifts and flip near-tied argmaxes among 4,096 classes
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {what} ({n_params / 1e6:.1f}M parameters) forward (16, 80, {SEQ_LEN}) bf16: "
+        f"{fwd_ms:.2f} ms; vs its plain version: argmax agreement {agree:.5f}, max|dlogp| "
+        f"{max_d:.4f}, mean|dlogp| {mean_d:.2e}, normalisation error {norm_err:.1e}")
+    # both runs are bf16 end to end and differ only in where the kernel rounds
+    # (attention: P to bf16; the scan: the last bit of an fp32 y that is then
+    # cast to bf16); the random layers amplify that into small log-prob shifts
+    # and flip near-tied argmaxes among 4,096 classes
     if not (agree >= 0.9 and max_d <= 1.0 and mean_d <= 0.05):
-        raise AssertionError("flagship model with the kernel disagrees with plain attention")
+        raise AssertionError(f"{what} with the kernels disagrees with its plain version")
     return fwd_ms
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path, a 20-minute streaming greedy decode
+# phases 4 and 6 (second half): the main path, a 20-minute streaming greedy decode
 # ---------------------------------------------------------------------------
-def phase_decode(torch, model):
+def phase_decode(torch, model, expected: dict, what: str, profile_file: str):
+    """`expected`: the launch counts one decode must show (every other
+    kernel 0)."""
     import numpy as np
 
     from lcasr_torch import kernels
@@ -486,13 +744,13 @@ def phase_decode(torch, model):
     n_classes = 4096
     spec = np.random.default_rng(2).normal(size=(1, 80, TOTAL_FRAMES)).astype(np.float32)
     decoder = StreamingDecoder(model, n_classes, window_batch_size=WINDOW_BATCH,
-                               transfer_dtype=torch.bfloat16, device="cuda")
+                               transfer_dtype=torch.bfloat16, device=DEVICE)
     kernels.reset_launch_counts()
     ids = decoder.greedy(spec, seq_len=SEQ_LEN, overlap=OVERLAP)
     launches = dict(kernels.launch_counts)
-    if launches["flash_attention_fwd"] != EXPECTED_LAUNCHES:
-        raise AssertionError(f"flash_attention_fwd launched {launches} times, "
-                             f"expected {EXPECTED_LAUNCHES}")
+    if launches != dict(dict.fromkeys(launches, 0), **expected):
+        raise AssertionError(f"{what} decode launched {launches}, expected {expected} "
+                             f"and 0 of every other kernel")
     if ids.ndim != 1 or ids.shape[0] < TOTAL_FRAMES // 8 - 8:
         raise AssertionError(f"decode gave {ids.shape} ids")
     if ids.min() < 0 or ids.max() >= n_classes:
@@ -507,11 +765,11 @@ def phase_decode(torch, model):
         raise AssertionError("repeated decodes differ")
     audio_s = TOTAL_FRAMES / FRAMES_PER_SECOND
     rtfx = audio_s / float(np.median(times))
-    log(f"  20-minute decode: {ids.shape[0]} frame ids, {len(tokens)} tokens after "
+    log(f"  {what} 20-minute decode: {ids.shape[0]} frame ids, {len(tokens)} tokens after "
         f"collapse, launches {launches}, decode s {[round(t, 4) for t in times]}, "
         f"RTFx (median of 3) {rtfx:.1f}")
     profile_run(torch, lambda: decoder.greedy(spec, seq_len=SEQ_LEN, overlap=OVERLAP),
-                "decode_profile.txt", "one decode")
+                profile_file, f"one {what} decode")
     return launches, rtfx
 
 
@@ -619,100 +877,261 @@ def plain_bf16_attention(q, k, v, lengths=None, window=(-1, -1)):
     return torch.einsum("bhts,bshd->bthd", p, v)
 
 
-def phase_train(torch, workdir: str):
-    import tempfile
-    from unittest import mock
+class TrainRun:
+    """What phases 5 and 7 share: the tokenizer, 16 synthetic podcasts, the
+    smoke ladder's configuration over `base_config`, and the checks of a
+    ladder run, of save / resume and of one 120,000-frame step.
+    `per_micro` holds the kernel launches one micro step must show (every
+    other kernel 0); `make_model(seed, config)` builds the model."""
 
-    import numpy as np
+    def __init__(self, torch, workdir: str, base_config: dict, make_model, per_micro: dict,
+                 what: str):
+        import tempfile
 
-    import lcasr_torch.models.sconformer_xl as sx
-    from lcasr_torch import kernels
-    from lcasr_torch.config import Config
-    from lcasr_torch.data.dataloading import VariableBatchSimpleDataloader, load_json
-    from lcasr_torch.data.tokenizer import load_tokenizer
-    from lcasr_torch.models.registry import load_model
-    from lcasr_torch.models.sconformer_xl import init_weights_
-    from lcasr_torch.ops.flash_attention import flash_attention_ref
-    from lcasr_torch.training.trainer import Trainer, make_chunks
+        from lcasr_torch.config import Config
+        from lcasr_torch.data.tokenizer import load_tokenizer
 
-    tok = load_tokenizer()
-    tmp = tempfile.mkdtemp(dir=workdir)
-    pairs = make_corpus(tmp, [PODCAST_FRAMES] * N_PODCASTS)
-    with open(os.path.join(tmp, "pairs.json"), "w") as f:
-        json.dump(pairs, f)
-    cfg_d = merged(LADDER_CONFIG, SMOKE_OVERRIDES)
-    cfg_d = merged(cfg_d, {"data": {"path": os.path.join(tmp, "pairs.json")},
-                           "checkpointing": {"dir": os.path.join(tmp, "ckpt")}})
-    cfg = Config(cfg_d)
+        self.torch, self.workdir, self.what = torch, workdir, what
+        self.make_model, self.per_micro = make_model, per_micro
+        self.tok = load_tokenizer()
+        self.tmp = tempfile.mkdtemp(dir=workdir)
+        self.pairs = make_corpus(self.tmp, [PODCAST_FRAMES] * N_PODCASTS)
+        with open(os.path.join(self.tmp, "pairs.json"), "w") as f:
+            json.dump(self.pairs, f)
+        self.cfg_d = merged(merged(base_config, SMOKE_OVERRIDES),
+                            {"data": {"path": os.path.join(self.tmp, "pairs.json")},
+                             "checkpointing": {"dir": os.path.join(self.tmp, "ckpt")}})
+        self.cfg = Config(self.cfg_d)
 
-    def fresh_model(seed, config=cfg):
-        return init_weights_(load_model(config, tok.vocab_size(), device=DEVICE), seed=seed)
+    def loader(self, trainer, config):
+        from lcasr_torch.data.dataloading import VariableBatchSimpleDataloader, load_json
 
-    def loader(trainer, config=cfg):
         return VariableBatchSimpleDataloader(
-            pairs=load_json(config["data"]["path"]), tokenizer=tok,
+            pairs=load_json(config["data"]["path"]), tokenizer=self.tok,
             batch_size=trainer.batch_size, chunk_size=config["audio_chunking"]["size"],
             chunk_overlap=0, random_seed=config["training"]["random_seed"])
 
-    model = fresh_model(0)
-    trainer = Trainer(cfg, model, tok, device=DEVICE)
-    trainer.init_state()
-    before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    def expected(self, launches: dict, micro: int) -> dict:
+        return dict(dict.fromkeys(launches, 0), **{k: v * micro for k, v in self.per_micro.items()})
+
+    def ladder(self):
+        """Train the ladder with the launch counts zeroed just before and
+        read just after; check steps, losses, movement, counts, resume.
+        Returns (trainer, model, launches)."""
+        import numpy as np
+
+        from lcasr_torch import kernels
+        from lcasr_torch.training.trainer import Trainer
+
+        torch, cfg, cfg_d = self.torch, self.cfg, self.cfg_d
+        model = self.make_model(0, cfg)
+        trainer = Trainer(cfg, model, self.tok, device=DEVICE)
+        trainer.init_state()
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.train(self.loader(trainer, cfg))
+        torch.cuda.synchronize()
+        ladder_s = time.perf_counter() - t0
+        launches = dict(kernels.launch_counts)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        metrics_path = os.path.join(trainer.checkpoint_dir, "metrics.jsonl")
+        rows = [json.loads(line) for line in open(metrics_path)]
+        losses = [(r["sequence_length"], r["batch_size"], r["loss"]) for r in rows if "loss" in r]
+        log(f"  {self.what} ladder run: {ladder_s:.2f} s, optimizer steps (seq, batch, loss/frame) "
+            f"{losses}")
+        first = (cfg_d["audio_chunking"]["size"], cfg_d["training"]["batch_size"])
+        ladder = [first, first, (2 * first[0], first[1] // 2), (2 * first[0], first[1] // 2)]
+        if [(s, b) for s, b, _ in losses] != ladder:
+            raise AssertionError(f"the ladder did not run the optimizer steps {ladder}")
+        if not all(np.isfinite(x) for *_, x in losses):
+            raise AssertionError("non-finite loss")
+        moved = max((p.detach() - before[n]).abs().max().item()
+                    for n, p in model.named_parameters())
+        if not moved > 0:
+            raise AssertionError("the parameters did not move")
+        micro = len(losses)  # one chunk per optimizer step here
+        log(f"  launches over the ladder run ({micro} micro steps): {launches}; peak memory "
+            f"{peak_gb:.2f} GB")
+        if launches != self.expected(launches, micro):
+            raise AssertionError(f"launch counts {launches}, expected "
+                                 f"{self.expected(launches, micro)}")
+
+        # save / resume into a fresh Trainer
+        meta = json.load(open(os.path.join(trainer.checkpoint_dir, f"step_{N_PODCASTS}",
+                                           "meta.json")))
+        other = Trainer(cfg, self.make_model(1, cfg), self.tok, device=DEVICE)
+        step, epoch, seen = other.resume()
+        same = all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                      other.model.state_dict().values()))
+        log(f"  resume: step {step}, epoch {epoch}, {len(seen)} seen ids, state equal {same}")
+        if not (same and step == meta["podcast_step"] == N_PODCASTS and epoch == meta["epoch"] == 1
+                and seen == meta["seen_ids"] and len(seen) == N_PODCASTS
+                and other.chunk_size == trainer.chunk_size == PODCAST_FRAMES):
+            raise AssertionError("save / resume round trip failed")
+
+        # per bucket: step wall ms and audio seconds per second
+        for seq, items in step_times(metrics_path).items():
+            ms = [m for m, _ in items]
+            frames = items[-1][1]
+            med = float(np.median(ms[1:] if len(ms) > 1 else ms))  # the first step warms up
+            log(f"  bucket {seq} frames: step ms {[round(m, 2) for m in ms]}, steady {med:.2f} "
+                f"ms, {frames} live frames per step, {frames * 0.01 / (med / 1e3):.1f} audio-s/s")
+        return trainer, model, launches
+
+    def chunk_16384x4(self):
+        """(batch, chunk): one 16384 x 4 chunk of the corpus."""
+        from lcasr_torch.data.dataloading import VariableBatchSimpleDataloader
+        from lcasr_torch.training.trainer import make_chunks
+
+        batch = next(iter(VariableBatchSimpleDataloader(
+            self.pairs, self.tok, batch_size=4, chunk_size=PODCAST_FRAMES, chunk_overlap=0)))
+        return batch, make_chunks(*batch[:3], self.tok, PODCAST_FRAMES, 0, self.tok.pad_id())[0]
+
+    def timed_step(self, trainer, chunk, profile_file: str) -> None:
+        """One 16384 x 4 training step (micro step + optimizer step) without
+        data loading: synchronised wall times, then its profile."""
+        torch = self.torch
+
+        def train_step():
+            trainer.micro_step(chunk)
+            trainer.fold_group(100.0 / (PODCAST_FRAMES * 4))
+            trainer.optimizer_step(3e-4)
+
+        train_step()  # warm
+        synced = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_step()
+            torch.cuda.synchronize()
+            synced.append((time.perf_counter() - t0) * 1e3)
+        log(f"  16384x4 {self.what} step without data loading, synchronised: "
+            f"{[round(x, 2) for x in synced]} ms")
+        profile_run(torch, train_step, profile_file, f"one 16384x4 {self.what} training step")
+
+    def long_step(self, model) -> None:
+        """One optimizer step of the 20-minute bucket: 120,000 frames x 1."""
+        import tempfile
+
+        import numpy as np
+
+        from lcasr_torch import kernels
+        from lcasr_torch.config import Config
+        from lcasr_torch.training.trainer import Trainer
+
+        torch = self.torch
+        long_dir = tempfile.mkdtemp(dir=self.workdir)
+        long_pairs = make_corpus(long_dir, [LONG_FRAMES], seed=3)
+        with open(os.path.join(long_dir, "pairs.json"), "w") as f:
+            json.dump(long_pairs, f)
+        long_cfg = Config(merged(
+            {k: v for k, v in self.cfg_d.items() if k != "sequence_scheduler"},
+            {"audio_chunking": {"size": LONG_FRAMES}, "training": {"batch_size": 1},
+             "data": {"path": os.path.join(long_dir, "pairs.json")},
+             "checkpointing": {"dir": os.path.join(long_dir, "ckpt")}}))
+        long_tr = Trainer(long_cfg, model, self.tok, device=DEVICE)
+        long_tr.init_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        long_tr.train(self.loader(long_tr, long_cfg))
+        torch.cuda.synchronize()
+        long_s = time.perf_counter() - t0
+        launches = dict(kernels.launch_counts)
+        metrics_path = os.path.join(long_tr.checkpoint_dir, "metrics.jsonl")
+        loss = [r["loss"] for r in map(json.loads, open(metrics_path)) if "loss" in r]
+        ms = step_times(metrics_path)[LONG_FRAMES][0][0]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"  120000x1 {self.what} step: loss {loss}, step {ms:.2f} ms "
+            f"({LONG_FRAMES * 0.01 / (ms / 1e3):.1f} audio-s/s), run {long_s:.2f} s, peak memory "
+            f"{peak:.2f} GB, launches {launches}")
+        if not (len(loss) == 1 and np.isfinite(loss[0])
+                and launches == self.expected(launches, 1)):
+            raise AssertionError(f"the 120000-frame {self.what} step failed")
+
+
+def grad_error(g, ref, names):
+    """(relative L2 error of the whole gradient, worst cosine over `names`, its
+    tensor) of g against ref."""
+    import torch
+
+    den = sum((ref[n] ** 2).sum().item() for n in ref)
+    num = sum(((g[n] - ref[n]) ** 2).sum().item() for n in ref)
+    cos = {n: torch.nn.functional.cosine_similarity(g[n].flatten(), ref[n].flatten(), dim=0).item()
+           for n in names}
+    worst = min(cos, key=cos.get)
+    return (num / den) ** 0.5, cos[worst], worst
+
+
+def gradient_gate(what, ref_name, yard_name, one_step, ref_ctx, yard_ctx, floors=(0.0, 0.0)):
+    """One 16384 x 4 micro step with the kernels, again (the step may not be
+    reproducible), inside `yard_ctx` (the yardstick) and inside `ref_ctx`
+    (the reference), on the same weights and batch.  The loss must lie
+    within LOSS_REL_MAX of the reference's; the gradient's relative L2 error
+    and worst per-tensor cosine deficit (1 - cos) against the reference within
+    `floors` + YARDSTICK_FACTOR times the yardstick's, and never past the
+    absolute caps."""
+    from lcasr_torch import kernels
+
     kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    trainer.train(loader(trainer))
-    torch.cuda.synchronize()
-    ladder_s = time.perf_counter() - t0
-    launches = dict(kernels.launch_counts)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    loss_k, g_k = one_step()
+    require_launches(True, f"{what} step")
+    g_k2 = one_step()[1]
+    kernels.reset_launch_counts()
+    with yard_ctx:
+        loss_y, g_y = one_step()
+    with ref_ctx:
+        loss_r, g_r = one_step()
+    require_launches(False, f"{what} step inside {yard_name} and {ref_name}")
+    den = sum((g_r[n] ** 2).sum().item() for n in g_r)
+    # cosines over the tensors whose gradient is not ~0 by construction (a
+    # bias before BatchRenorm gets only rounding noise)
+    names = [n for n in g_r if g_r[n].norm().item() > 1e-4 * den ** 0.5]
+    kr, kc, kn = grad_error(g_k, g_r, names)
+    yr, yc, yn = grad_error(g_y, g_r, names)
+    rerun = grad_error(g_k2, g_k, names)[0]
+    kl, yl = abs(loss_k - loss_r) / abs(loss_r), abs(loss_y - loss_r) / abs(loss_r)
+    l2_max = min(GRAD_REL_L2_MAX, floors[0] + YARDSTICK_FACTOR * yr)
+    cos_max = min(1 - GRAD_COS_MIN, floors[1] + YARDSTICK_FACTOR * (1 - yc))
+    verdict = (f"16384x4 {what} step against {ref_name} (loss {loss_r:.4f}; cosines over "
+               f"{len(names)} of {len(g_r)} tensors above 1e-4 of the global gradient norm): "
+               f"kernels: loss rel {kl:.2e}, gradient rel L2 {kr:.3e} (a rerun of the kernel step "
+               f"differs by {rerun:.3e}), worst cosine deficit {1 - kc:.3e} ({kn}); {yard_name} "
+               f"(the yardstick): loss rel {yl:.2e}, gradient rel L2 {yr:.3e}, worst cosine "
+               f"deficit {1 - yc:.3e} ({yn}); gates: loss rel <= {LOSS_REL_MAX:g}, rel L2 <= "
+               f"{l2_max:.3e} = min({GRAD_REL_L2_MAX:g}, {floors[0]:g} + {YARDSTICK_FACTOR:g} x "
+               f"yardstick), 1 - cos <= {cos_max:.3e} = min({1 - GRAD_COS_MIN:g}, {floors[1]:g} + "
+               f"{YARDSTICK_FACTOR:g} x yardstick)")
+    log("  " + verdict)
+    if not (kl <= LOSS_REL_MAX and kr <= l2_max and 1 - kc <= cos_max):
+        raise AssertionError(f"{what} training step with the kernels disagrees with "
+                             f"{ref_name}: " + verdict)
 
-    rows = [json.loads(line) for line in open(os.path.join(trainer.checkpoint_dir, "metrics.jsonl"))]
-    losses = [(r["sequence_length"], r["batch_size"], r["loss"]) for r in rows if "loss" in r]
-    log(f"  ladder run: {ladder_s:.2f} s, optimizer steps (seq, batch, loss/frame) {losses}")
-    first = (cfg_d["audio_chunking"]["size"], cfg_d["training"]["batch_size"])
-    ladder = [first, first, (2 * first[0], first[1] // 2), (2 * first[0], first[1] // 2)]
-    if [(s, b) for s, b, _ in losses] != ladder:
-        raise AssertionError(f"the ladder did not run the optimizer steps {ladder}")
-    if not all(np.isfinite(x) for *_, x in losses):
-        raise AssertionError("non-finite loss")
-    moved = max((p.detach() - before[n]).abs().max().item() for n, p in model.named_parameters())
-    if not moved > 0:
-        raise AssertionError("the parameters did not move")
-    micro = len(losses)  # one chunk per optimizer step here
-    want = {"flash_attention_fwd": 18 * micro, "flash_attention_bwd_fused": 9 * micro,
-            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
-    log(f"  launches over the ladder run ({micro} micro steps): {launches}; peak memory "
-        f"{peak_gb:.2f} GB")
-    if launches != want:
-        raise AssertionError(f"launch counts {launches}, expected {want}")
 
-    # save / resume into a fresh Trainer
-    meta = json.load(open(os.path.join(trainer.checkpoint_dir, f"step_{N_PODCASTS}", "meta.json")))
-    other = Trainer(cfg, fresh_model(1), tok, device=DEVICE)
-    step, epoch, seen = other.resume()
-    same = all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
-                                                  other.model.state_dict().values()))
-    log(f"  resume: step {step}, epoch {epoch}, {len(seen)} seen ids, state equal {same}")
-    if not (same and step == meta["podcast_step"] == N_PODCASTS and epoch == meta["epoch"] == 1
-            and seen == meta["seen_ids"] and len(seen) == N_PODCASTS
-            and other.chunk_size == trainer.chunk_size == PODCAST_FRAMES):
-        raise AssertionError("save / resume round trip failed")
-    del other
+def phase_train(torch, workdir: str):
+    import numpy as np
 
-    # per bucket: step wall ms and audio seconds per second
-    for seq, items in step_times(os.path.join(trainer.checkpoint_dir, "metrics.jsonl")).items():
-        ms = [m for m, _ in items]
-        frames = items[-1][1]
-        med = float(np.median(ms[1:] if len(ms) > 1 else ms))  # the first step warms up
-        log(f"  bucket {seq} frames: step ms {[round(m, 2) for m in ms]}, steady {med:.2f} ms, "
-            f"{frames} live frames per step, {frames * 0.01 / (med / 1e3):.1f} audio-s/s")
+    from lcasr_torch import kernels
+    from lcasr_torch.config import Config
+    from lcasr_torch.models.registry import load_model
+    from lcasr_torch.models.sconformer_xl import init_weights_
+    from lcasr_torch.training.trainer import Trainer, make_chunks
 
-    # one 16384 x 4 micro step, kernels against plain attention, same weights
-    batch = next(iter(VariableBatchSimpleDataloader(pairs, tok, batch_size=4, chunk_size=PODCAST_FRAMES,
-                                                    chunk_overlap=0)))
-    chunk = make_chunks(*batch[:3], tok, PODCAST_FRAMES, 0, tok.pad_id())[0]
+    def fresh_model(seed, config):
+        return init_weights_(load_model(config, 4095, device=DEVICE), seed=seed)
+
+    run = TrainRun(torch, workdir, LADDER_CONFIG, fresh_model,
+                   {"flash_attention_fwd": 18, "flash_attention_bwd_fused": 9}, "flagship")
+    trainer, model, launches = run.ladder()
+
+    # one 16384 x 4 micro step, kernels against plain fp32 attention; the
+    # yardstick is plain attention in bf16 (the rounding alone)
+    batch, chunk = run.chunk_16384x4()
     stats = [b.clone() for b in trainer._stat_buffers()]
 
     def one_step():
@@ -722,75 +1141,19 @@ def phase_train(torch, workdir: str):
             b.copy_(old)
         return float(loss), flat_grads(model)
 
-    loss_k, g_k = one_step()
+    gradient_gate("flagship", "plain fp32 attention", "plain bf16 attention", one_step,
+                  plain_attention(), plain_attention(bf16=True))
+    trainer.zero_pending()  # kept, the gradients would count in the 120000-frame step's peak
 
-    def plain(q, k, v, lengths=None, window=(-1, -1)):
-        return flash_attention_ref(q, k, v, lengths, window)[0]
-
-    with mock.patch.object(sx, "flash_attention", plain):  # this script only
-        loss_p, g_p = one_step()
-    with mock.patch.object(sx, "flash_attention", plain_bf16_attention):
-        loss_b, g_b = one_step()
-    den = sum((g_p[n] ** 2).sum().item() for n in g_p)
-    # the worst cosine over tensors whose gradient is not ~0 by construction
-    # (a bias before BatchRenorm gets only rounding noise: the batch mean
-    # takes it out again)
-    names = [n for n in g_p if g_p[n].norm().item() > 1e-4 * den ** 0.5]
-
-    def against_plain(g, loss):
-        """(loss rel. error, gradient rel. L2 error, worst cosine, its tensor)."""
-        num = sum(((g[n] - g_p[n]) ** 2).sum().item() for n in g_p)
-        cos = {n: torch.nn.functional.cosine_similarity(g[n].flatten(), g_p[n].flatten(), dim=0).item()
-               for n in names}
-        worst = min(cos, key=cos.get)
-        return abs(loss - loss_p) / abs(loss_p), (num / den) ** 0.5, cos[worst], worst
-
-    kl, kr, kc, kn = against_plain(g_k, loss_k)
-    bl, br, bc, bn = against_plain(g_b, loss_b)
-    # the step is not reproducible (dq's atomics, the library's backward
-    # kernels): the same step again, for scale
-    g_k2 = one_step()[1]
-    rerun = (sum(((g_k2[n] - g_k[n]) ** 2).sum().item() for n in g_p) / den) ** 0.5
-    verdict = (f"16384x4 step against plain fp32 attention (loss {loss_p:.4f}; cosines over {len(names)} "
-               f"of {len(g_p)} tensors above 1e-4 of the global gradient norm): kernels: loss rel "
-               f"{kl:.2e}, gradient rel L2 {kr:.3e} (a rerun of the kernel step differs by "
-               f"{rerun:.3e}), worst cosine {kc:.5f} ({kn}); plain bf16 "
-               f"attention (the yardstick): loss rel {bl:.2e}, gradient rel L2 {br:.3e}, worst cosine "
-               f"{bc:.5f} ({bn}); gates: loss rel <= {LOSS_REL_MAX:g}, rel L2 <= "
-               f"min({GRAD_REL_L2_MAX:g}, {YARDSTICK_FACTOR:g} x yardstick), 1 - cos <= "
-               f"min({1 - GRAD_COS_MIN:g}, {YARDSTICK_FACTOR:g} x yardstick)")
-    log("  " + verdict)
-    if not (kl <= LOSS_REL_MAX and kr <= min(GRAD_REL_L2_MAX, YARDSTICK_FACTOR * br)
-            and 1 - kc <= min(1 - GRAD_COS_MIN, YARDSTICK_FACTOR * (1 - bc))):
-        raise AssertionError("training step with the kernels disagrees with plain attention: " + verdict)
-    del g_k, g_k2, g_p, g_b  # kept, they would count in the 120000-frame step's peak
-    trainer.zero_pending()
-
-    # the profile of one 16384 x 4 training step (micro step + optimizer step)
-    def train_step():
-        trainer.micro_step(chunk)
-        trainer.fold_group(100.0 / (PODCAST_FRAMES * 4))
-        trainer.optimizer_step(3e-4)
-
-    train_step()  # warm
-    synced = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        train_step()
-        torch.cuda.synchronize()
-        synced.append((time.perf_counter() - t0) * 1e3)
     t0 = time.perf_counter()
-    make_chunks(*batch[:3], tok, PODCAST_FRAMES, 0, tok.pad_id())
-    chunk_ms = (time.perf_counter() - t0) * 1e3
-    log(f"  16384x4 step without data loading, synchronised: {[round(x, 2) for x in synced]} ms; "
-        f"make_chunks on the host (transcripts, BPE): {chunk_ms:.2f} ms")
-    profile_run(torch, train_step, "train_profile.txt", "one 16384x4 training step")
+    make_chunks(*batch[:3], run.tok, PODCAST_FRAMES, 0, run.tok.pad_id())
+    log(f"  make_chunks on the host (transcripts, BPE): {(time.perf_counter() - t0) * 1e3:.2f} ms")
+    run.timed_step(trainer, chunk, "train_profile.txt")
 
     # the banded path: 2 full-width layers with a window, one step, K4 + K5
-    band_cfg = Config(merged(cfg_d, {"model": {"n_layers": 2, "attention_window_size": 256}}))
-    band = Trainer(band_cfg, fresh_model(2, band_cfg), tok, device=DEVICE,
-                   checkpoint_dir=os.path.join(tmp, "ckpt_band"))
+    band_cfg = Config(merged(run.cfg_d, {"model": {"n_layers": 2, "attention_window_size": 256}}))
+    band = Trainer(band_cfg, fresh_model(2, band_cfg), run.tok, device=DEVICE,
+                   checkpoint_dir=os.path.join(run.tmp, "ckpt_band"))
     band.init_state()
     kernels.reset_launch_counts()
     loss, _ = band.micro_step(chunk)
@@ -805,37 +1168,39 @@ def phase_train(torch, workdir: str):
         raise AssertionError("the banded step did not run K4 + K5 once per layer")
     del band
 
-    # one optimizer step of the 20-minute bucket: 120,000 frames x 1
-    long_dir = tempfile.mkdtemp(dir=workdir)
-    long_pairs = make_corpus(long_dir, [LONG_FRAMES], seed=3)
-    with open(os.path.join(long_dir, "pairs.json"), "w") as f:
-        json.dump(long_pairs, f)
-    long_cfg = Config(merged({k: v for k, v in cfg_d.items() if k != "sequence_scheduler"}, {
-        "audio_chunking": {"size": LONG_FRAMES}, "training": {"batch_size": 1},
-        "data": {"path": os.path.join(long_dir, "pairs.json")},
-        "checkpointing": {"dir": os.path.join(long_dir, "ckpt")}}))
-    long_tr = Trainer(long_cfg, model, tok, device=DEVICE)
-    long_tr.init_state()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    long_tr.train(loader(long_tr, long_cfg))
-    torch.cuda.synchronize()
-    long_s = time.perf_counter() - t0
-    long_launches = dict(kernels.launch_counts)
-    long_rows = [json.loads(line) for line in
-                 open(os.path.join(long_tr.checkpoint_dir, "metrics.jsonl"))]
-    long_loss = [r["loss"] for r in long_rows if "loss" in r]
-    long_ms = step_times(os.path.join(long_tr.checkpoint_dir, "metrics.jsonl"))[LONG_FRAMES][0][0]
-    long_peak = torch.cuda.max_memory_allocated() / 1e9
-    log(f"  120000x1 step: loss {long_loss}, step {long_ms:.2f} ms "
-        f"({LONG_FRAMES * 0.01 / (long_ms / 1e3):.1f} audio-s/s), run {long_s:.2f} s, peak memory "
-        f"{long_peak:.2f} GB, launches {long_launches}")
-    if not (len(long_loss) == 1 and np.isfinite(long_loss[0])
-            and long_launches["flash_attention_bwd_fused"] == 9):
-        raise AssertionError("the 120000-frame step failed")
+    run.long_step(model)
     return launches, band_launches
+
+
+# one 16384 x 4 Mamba step: kernel and plain scan are both fp32 scans inside a
+# bf16 model, so the reference is the plain scan in fp64 and the yardstick the
+# plain scan in fp32; these floors keep the gate meaningful where the
+# yardstick's own error is next to nothing
+MAMBA_REL_L2_FLOOR, MAMBA_COS_FLOOR = 1e-3, 1e-5
+
+
+def phase_mamba_train(torch, workdir: str):
+    n_layers = MAMBA_CONFIG["model"]["n_layers"]
+    remat = MAMBA_CONFIG["model"]["checkpoint_every_n_layers"] == 1
+    # a recomputed block runs K6 in the forward and again in the backward
+    run = TrainRun(torch, workdir, MAMBA_CONFIG, lambda seed, config: mamba_model(torch, seed),
+                   {"selective_scan_fwd": n_layers * (2 if remat else 1),
+                    "selective_scan_bwd": n_layers}, "Mamba")
+    trainer, model, launches = run.ladder()
+    _, chunk = run.chunk_16384x4()
+
+    def one_step():
+        trainer.zero_pending()
+        loss, _ = trainer.micro_step(chunk)
+        return float(loss), flat_grads(model)
+
+    gradient_gate("Mamba", "the plain scan in fp64", "the plain scan in fp32", one_step,
+                  plain_scan(torch.float64), plain_scan(torch.float32),
+                  floors=(MAMBA_REL_L2_FLOOR, MAMBA_COS_FLOOR))
+    trainer.zero_pending()
+    run.timed_step(trainer, chunk, "mamba_train_profile.txt")
+    run.long_step(model)
+    return launches
 
 
 def main() -> int:
@@ -844,6 +1209,9 @@ def main() -> int:
                         help="comma-separated subset of " + ",".join(PHASES))
     args = parser.parse_args()
     phases = args.phases.split(",")
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        parser.error(f"unknown phases {unknown}; choose from {', '.join(PHASES)}")
 
     import torch
 
@@ -856,7 +1224,7 @@ def main() -> int:
 
     gpu = gpu_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
-    log("[1/5] build")
+    log("[1/7] build")
     build_s = kernels.build()
     log(f"  build {build_s:.2f} s into {kernels.BUILD_DIR}")
     for src, text in kernels.build_log.items():
@@ -866,26 +1234,28 @@ def main() -> int:
     log(f"  gpu: {gpu}")
 
     results = {}
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_train")
     if "kernels" in phases:
-        log("[2/5] kernels against their plain versions")
+        log("[2/7] kernels against their plain versions")
         results["flash_attention_fwd"] = phase_kernels(torch)
         results.update(phase_kernels_bwd(torch))
+        results.update(phase_kernels_ssm(torch))
     model = None
     if "model" in phases:
-        log("[3/5] flagship model, one window batch")
+        log("[3/7] flagship model, one window batch")
         model = flagship_model(torch)
-        phase_model(torch, model)
+        phase_model(torch, model, plain_attention(), "flagship")
     if "decode" in phases:
-        log("[4/5] 20-minute streaming greedy decode (the serving path)")
+        log("[4/7] 20-minute streaming greedy decode (the serving path)")
         model = model or flagship_model(torch)
-        launches, _ = phase_decode(torch, model)
+        launches, _ = phase_decode(torch, model, {"flash_attention_fwd": EXPECTED_LAUNCHES},
+                                   "flagship", "decode_profile.txt")
         results.setdefault("flash_attention_fwd", {"name": "flash_attention_fwd"})[
             "launches"] = launches["flash_attention_fwd"]
     del model
     if "train" in phases:
-        log("[5/5] training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1 "
+        log("[5/7] training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1 "
             "(the training path)")
-        workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_train")
         os.makedirs(workdir, exist_ok=True)
         try:
             ladder, banded = phase_train(torch, workdir)
@@ -900,6 +1270,28 @@ def main() -> int:
             entry["launches_ladder"] = ladder[key]
         results.setdefault("flash_attention_fwd", {"name": "flash_attention_fwd"})[
             "launches_ladder"] = ladder["flash_attention_fwd"]
+    if "mamba_decode" in phases:
+        log("[6/7] Mamba: one window batch, then the 20-minute streaming greedy decode")
+        model = mamba_model(torch)
+        phase_model(torch, model, plain_scan(torch.float32), "Mamba")
+        launches, _ = phase_decode(torch, model,
+                                   {"selective_scan_fwd": MAMBA_EXPECTED_DECODE_LAUNCHES},
+                                   "Mamba", "mamba_decode_profile.txt")
+        del model
+        results.setdefault("selective_scan_fwd", {"name": "selective_scan_fwd"})[
+            "launches"] = launches["selective_scan_fwd"]
+    if "mamba_train" in phases:
+        log("[7/7] Mamba training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1")
+        os.makedirs(workdir, exist_ok=True)
+        try:
+            ladder = phase_mamba_train(torch, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        # K7 runs only in training: its count is the ladder run's
+        results.setdefault("selective_scan_bwd", {"name": "selective_scan_bwd"})[
+            "launches"] = ladder["selective_scan_bwd"]
+        results.setdefault("selective_scan_fwd", {"name": "selective_scan_fwd"})[
+            "launches_ladder"] = ladder["selective_scan_fwd"]
     name, power = [s.strip() for s in gpu.split(",", 1)]
     for entry in results.values():
         entry.update(gpu=name, power_limit=power)

@@ -25,7 +25,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "lcasr_torch_kernels"
-SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu")
+SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "selective_scan.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -42,6 +42,8 @@ launch_counts: Dict[str, int] = {
     "flash_attention_bwd_fused": 0,
     "flash_attention_bwd_dq": 0,
     "flash_attention_bwd_dkv": 0,
+    "selective_scan_fwd": 0,
+    "selective_scan_bwd": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -119,6 +121,12 @@ def _bind(src: str, lib: ctypes.CDLL) -> ctypes.CDLL:
             [i] + [p] * 10 + [i] * 6 + [ll] * 12 + [i] * 4 + [p]
         )
         lib.lcasr_flash_attn_bwd.restype = i
+    elif src == "selective_scan.cu":
+        tail = [i] * 5 + [ll] * 8 + [p]  # sizes, B/C dtype flag, strides, stream
+        lib.lcasr_selective_scan_fwd.argtypes = [p] * 7 + tail
+        lib.lcasr_selective_scan_fwd.restype = i
+        lib.lcasr_selective_scan_bwd.argtypes = [p] * 12 + tail
+        lib.lcasr_selective_scan_bwd.restype = i
     lib.lcasr_cuda_error_string.argtypes = [i]
     lib.lcasr_cuda_error_string.restype = ctypes.c_char_p
     return lib

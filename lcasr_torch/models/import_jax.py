@@ -1,4 +1,5 @@
-"""Flax variables of lcasr_tpu's SCConformerXL <-> the port's state_dict.
+"""Flax variables of lcasr_tpu's SCConformerXL and Mamba <-> the port's
+state_dict.
 
 The inverse direction of lcasr_tpu/models/import_torch.py, for the port's
 own module tree (whose names follow the flax tree one to one):
@@ -8,8 +9,10 @@ own module tree (whose names follow the flax tree one to one):
   * Conv kernel HWIO -> OIHW;
   * depthwise conv kernel (K, C) -> (C, 1, K);
   * norm `scale` / `bias`, BatchRenorm `weight` / `bias` and its
-    `batch_stats` (`running_mean`, `running_std`, `num_batches_tracked`)
-    are carried over as they are.
+    `batch_stats` (`running_mean`, `running_std`, `num_batches_tracked`),
+    and the Mamba mixer's raw parameters (`conv1d_fwd_kernel` (K, C),
+    `dt_proj_kernel` (dt_rank, C), `A_log`, `D`, ...) are carried over as
+    they are.
 
 It takes numpy arrays (convert jax arrays with `np.asarray` first), so the
 port needs no JAX.  Any leaf or module name it does not know raises: a
@@ -31,10 +34,13 @@ import torch
 _MODULE = re.compile(
     r"^(subsampling|conv_in|(dw|pw)_conv_\d+|out|norm_out|layers_\d+|"
     r"(ff1|ff2|attn|conv)_norm(_out)?|ff1|ff2|fc1|fc2|attend|qkv_proj|out_proj|"
-    r"conv|pointwise_conv[12]|norm|decoder|ff|reprojection|rotary_pos_emb)$"
+    r"conv|pointwise_conv[12]|norm|decoder|ff|reprojection|rotary_pos_emb|"
+    r"pre_norm|proj_out|mixer|in_proj|x_proj|y_out)$"
 )
 _PARAM_LEAVES = {"kernel", "bias", "scale", "weight", "depthwise_kernel",
-                 "depthwise_bias", "inv_freq"}
+                 "depthwise_bias", "inv_freq",
+                 "conv1d_fwd_kernel", "conv1d_fwd_bias", "conv1d_rvse_kernel",
+                 "conv1d_rvse_bias", "dt_proj_kernel", "dt_proj_bias", "A_log", "D"}
 _STAT_LEAVES = {"running_mean", "running_std", "num_batches_tracked"}
 
 

@@ -3,15 +3,15 @@ lcasr_tpu/models/registry.py `load_model`)."""
 from __future__ import annotations
 
 import inspect
-from typing import Any, Dict
+from typing import Any, Dict, Union
 
 import torch
 
 from lcasr_torch.config import Config
-from lcasr_torch.models import sconformer_xl
+from lcasr_torch.models.mamba import Mamba
 from lcasr_torch.models.sconformer_xl import SCConformerXL
 
-_REGISTRY = {"SCConformerXL": SCConformerXL}
+_REGISTRY = {"SCConformerXL": SCConformerXL, "Mamba": Mamba}
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
 
@@ -23,8 +23,9 @@ def get_model_class(config: Config | Dict[str, Any] | None = None):
     return _REGISTRY[name]
 
 
-def load_model(config: Config, vocab_size: int, device=None) -> SCConformerXL:
-    """Build the model from config.model plus the tokenizer's vocab size.
+def load_model(config: Config, vocab_size: int, device=None) -> Union[SCConformerXL, Mamba]:
+    """Build the model `config.model_class` names (SCConformerXL by default,
+    or Mamba) from config.model plus the tokenizer's vocab size.
     `training.dtype` sets the compute dtype when `model.dtype` does not;
     parameters stay fp32 (an fp32 master with bf16 compute).  Keys the JAX
     model does not know are ignored, as the JAX registry ignores them.
@@ -38,6 +39,8 @@ def load_model(config: Config, vocab_size: int, device=None) -> SCConformerXL:
         del cfg["dtype"]
     elif isinstance(cfg["dtype"], str):
         cfg["dtype"] = _DTYPES[cfg["dtype"]]
-    known = set(inspect.signature(cls).parameters) | set(sconformer_xl._NOT_PORTED)
+    # the class's own options, and those of its JAX counterpart that it
+    # accepts at their default and refuses otherwise
+    known = set(inspect.signature(cls).parameters) | set(cls.NOT_PORTED)
     kwargs = {k: v for k, v in cfg.items() if k in known and k != "device"}
     return cls(**kwargs, device=device)

@@ -202,6 +202,8 @@ class SCConformerXL(nn.Module):
 
     `device=None` means the GPU and raises without one."""
 
+    NOT_PORTED = _NOT_PORTED
+
     def __init__(
         self,
         vocab_size: int = 128,

@@ -1,5 +1,5 @@
 """Convolution ops (counterpart of lcasr_tpu/ops/conv.py): batch renorm,
-the conformer conv module and conv subsampling.
+the conformer conv module, conv subsampling and frame-stacking subsampling.
 
 The running statistics of BatchRenorm are buffers.  In training it
 normalises with masked batch statistics, corrected by the r/d factors of
@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lcasr_torch.ops.dense import Dense
+from lcasr_torch.ops.mlp import ConformerFeedForward
 from lcasr_torch.ops.norms import LayerNorm
 from lcasr_torch.ops.subsampling import ACTS, dw_striding_chain
 
@@ -227,3 +228,34 @@ class ConvSubsampling(nn.Module):
         if self.norm_out is not None:
             h = self.norm_out(h)
         return h, new_lengths
+
+
+class StackingSubsampling(nn.Module):
+    """Frame-stacking subsampling: pad T to a multiple of the factor, an
+    optional LayerNorm over the features, stack `factor` consecutive frames,
+    then an MLP (4 x feat_out hidden, no biases) to feat_out.  `norm` and
+    `norm_out` are independent, as in the JAX module."""
+
+    def __init__(self, subsampling_factor: int, feat_in: int, feat_out: int,
+                 norm: bool = True, norm_out: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.subsampling_factor = subsampling_factor
+        self.pre_norm = LayerNorm(feat_in) if norm else None
+        self.proj_out = ConformerFeedForward(feat_in * subsampling_factor, feat_out * 4,
+                                             feat_out, dtype=dtype)
+        self.norm_out = LayerNorm(feat_out) if norm_out else None
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        b, t, h = x.shape
+        sf = self.subsampling_factor
+        pad = (sf - t % sf) % sf
+        x = F.pad(x, (0, 0, 0, pad))
+        if self.pre_norm is not None:
+            x = self.pre_norm(x)
+        x = self.proj_out(x.reshape(b, (t + pad) // sf, h * sf))
+        lengths = torch.clamp((lengths + pad) // sf, min=1).to(torch.int32)
+        if self.norm_out is not None:
+            x = self.norm_out(x)
+        return x, lengths

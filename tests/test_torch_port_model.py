@@ -176,11 +176,13 @@ def test_port_imports_no_jax_and_no_lcasr_tpu():
         "for m in pkgutil.walk_packages(lcasr_torch.__path__, 'lcasr_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'lcasr_tpu', 'yaml'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'lcasr_tpu', 'yaml', 'triton'))\n"
+        "for name in ('lcasr_torch.ops.ssm', 'lcasr_torch.models.mamba'):\n"
+        "    assert name in sys.modules, name\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('lcasr_torch')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=str(__import__("pathlib").Path(__file__).parents[1]))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 38  # every module was imported
+    assert int(out.stdout.strip()) >= 40  # every module was imported (ops.ssm, models.mamba too)
