@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases kernels # build + kernel checks only
     python3 chip_smoke.py --phases train   # build + the training path only
     python3 chip_smoke.py --phases mamba_decode,mamba_train  # the Mamba family only
+    python3 chip_smoke.py --phases decode_opt,train_opt  # the opt-in configuration only
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -14,8 +15,9 @@ Phases, in order; any failure raises and exits non-zero:
               limit;
   2. kernels  hold each kernel against its plain PyTorch version on the card
               at the main paths' shapes and on small edge cases: the
-              attention forward K1 and backward K3 (one pass) and K4 + K5
-              (split), the selective scan K6 and its backward K7; time each
+              attention forward K1, its double-buffered variant K2, the
+              backward K3 (one pass) and K4 + K5 (split), the selective scan
+              K6 and its backward K7, the fused 8x subsampling K8; time each
               against its bound, the plain version and, where there is one, a
               library call doing the same work (the yardstick; the port never
               calls it);
@@ -44,7 +46,18 @@ Phases, in order; any failure raises and exits non-zero:
               corpus as phase 5: launch counts (K6 twice per layer and micro
               step under full remat, K7 once), save / resume, one 16384 x 4
               step with the kernels against the plain scan (loss and whole
-              gradient), a profile of that step, one 120,000 x 1 step.
+              gradient), a profile of that step, one 120,000 x 1 step;
+  8. decode_opt  the flagship's opt-in decode configuration
+              (LCASR_ATTN_FWD_DB=1, LCASR_FUSED_SUB=1; both set and restored
+              inside the phase): the 20-minute decode through K2 and K8 (36
+              and 4 launches, K1 none), one window batch with the flags
+              against without, RTFx with and without; then, flags off, the
+              decoder's options: int8 and int4 upload, pipeline_upload,
+              cache_upload; then the Mamba's decode with LCASR_FUSED_SUB=1
+              (24 K6 and 4 K8 launches);
+  9. train_opt  one 16384 x 4 flagship training step under both flags (K2,
+              K3 on K2's lse, K8 and its recomputing backward) against the
+              same step without them (loss and whole gradient).
 
 The line before the last two is one JSON object with each kernel's numbers;
 the last line is the device record.  Without a GPU, or without the repo
@@ -53,6 +66,7 @@ beside this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -60,7 +74,8 @@ import subprocess
 import sys
 import time
 
-PHASES = ("kernels", "model", "decode", "train", "mamba_decode", "mamba_train")
+PHASES = ("kernels", "model", "decode", "train", "mamba_decode", "mamba_train",
+          "decode_opt", "train_opt")
 
 # configs/ladder_9l_768d_6h.yaml, written out: the machine with the card is
 # not promised pyyaml (tests/test_torch_port_train.py holds the two equal)
@@ -143,6 +158,28 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+OPT_FLAGS = {"LCASR_ATTN_FWD_DB": "1", "LCASR_FUSED_SUB": "1"}
+
+
+@contextlib.contextmanager
+def env_flags(**flags):
+    """Set environment flags (None: unset) and restore them on the way out."""
+    old = {k: os.environ.get(k) for k in flags}
+    try:
+        for k, v in flags.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def time_ms(torch, fn, n: int, warmup: int = 2) -> float:
     """Median of n CUDA-event timings of fn() after warmup calls."""
     import numpy as np
@@ -212,45 +249,69 @@ def valid_pairs(lengths, B, T, window, q_off, kv_off) -> int:
     return total
 
 
+def check_attention_case(torch, case, gen, kernel: str):
+    """One case of the forward through the wrapper, which must launch `kernel`
+    once and nothing else, against `flash_attention_ref`.  Returns (max |do|,
+    max |dlse|, the output)."""
+    from lcasr_torch import kernels
+    from lcasr_torch.ops.flash_attention import flash_attention_ref, flash_attention_with_lse
+
+    (name, B, T, H, D, dtype, lengths, window, qo, ko, views) = case
+    q, k, v = make_qkv(torch, B, T, H, D, dtype, views, gen)
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    kernels.reset_launch_counts()
+    o, lse = flash_attention_with_lse(q, k, v, lens, window, None, qo, ko)
+    torch.cuda.synchronize()
+    launched = {k_: n for k_, n in kernels.launch_counts.items() if n}
+    if launched != {kernel: 1}:
+        raise AssertionError(f"{name}: launched {launched}, expected one {kernel}")
+    o_ref, lse_ref = flash_attention_ref(q, k, v, lens, window, None, qo, ko)
+    if dtype == torch.bfloat16:
+        # the kernel rounds P to bf16 before P.V (as the Pallas kernel
+        # does) and both round o to bf16: ~2^-8 relative on O(1) values
+        tol_o, tol_lse = 2e-2, 2e-3  # lse: fp32 sums of exact bf16 products
+    else:
+        # fp32 on both sides, TF32 off: summation order only
+        tol_o, tol_lse = 1e-4, 1e-4
+    err_o = (o.float() - o_ref.float()).abs().max().item()
+    err_lse = (lse - lse_ref).abs().max().item()
+    bad_o = ((o.float() - o_ref.float()).abs() > tol_o + tol_o * o_ref.float().abs()).sum().item()
+    log(f"  {name:26s} max|do| {err_o:.3e} (tol {tol_o:g} + {tol_o:g}|o|)  "
+        f"max|dlse| {err_lse:.3e} (tol {tol_lse:g})")
+    if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
+        raise AssertionError(f"{name}: non-finite kernel output")
+    if bad_o or err_lse > tol_lse:
+        raise AssertionError(f"{name}: kernel disagrees with the plain version")
+    if lengths is not None and 0 in lengths:
+        zero = [i for i, ln in enumerate(lengths) if ln == 0]
+        if not ((o[zero] == 0).all() and (lse[zero] == -1e30).all()):
+            raise AssertionError(f"{name}: zero-length rows must give o=0, lse=-1e30")
+    return err_o, err_lse, o
+
+
+def attention_bound(B, T, H, D):
+    """(bound ms, bound_by, flops) of one full-length bf16 forward: 4 T^2 D
+    operations per (b, h) at the bf16 peak against q, k, v, o, lse and the
+    lengths at the memory rate."""
+    flops = 4 * H * D * valid_pairs(None, B, T, (-1, -1), 0, 0)
+    nbytes = 2 * 4 * B * T * H * D + 4 * B * H * T + 4 * B
+    t_ops = flops / PEAK_FLOPS["bf16"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
+
+
 def phase_kernels(torch):
     import torch.nn.functional as F
 
     from lcasr_torch.ops.flash_attention import flash_attention_ref, flash_attention_with_lse
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {"o": 0.0, "lse": 0.0}
-    for (name, B, T, H, D, dtype, lengths, window, qo, ko, views) in attention_cases(torch):
-        q, k, v = make_qkv(torch, B, T, H, D, dtype, views, gen)
-        lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device="cuda")
-        o, lse = flash_attention_with_lse(q, k, v, lens, window, None, qo, ko)
-        torch.cuda.synchronize()
-        o_ref, lse_ref = flash_attention_ref(q, k, v, lens, window, None, qo, ko)
-        if dtype == torch.bfloat16:
-            # the kernel rounds P to bf16 before P.V (as the Pallas kernel
-            # does) and both round o to bf16: ~2^-8 relative on O(1) values
-            tol_o, tol_lse = 2e-2, 2e-3  # lse: fp32 sums of exact bf16 products
-        else:
-            # fp32 on both sides, TF32 off: summation order only
-            tol_o, tol_lse = 1e-4, 1e-4
-        err_o = (o.float() - o_ref.float()).abs().max().item()
-        err_lse = (lse - lse_ref).abs().max().item()
-        bad_o = ((o.float() - o_ref.float()).abs() > tol_o + tol_o * o_ref.float().abs()).sum().item()
-        log(f"  {name:26s} max|do| {err_o:.3e} (tol {tol_o:g} + {tol_o:g}|o|)  "
-            f"max|dlse| {err_lse:.3e} (tol {tol_lse:g})")
-        if not (torch.isfinite(o).all() and torch.isfinite(lse).all()):
-            raise AssertionError(f"{name}: non-finite kernel output")
-        if bad_o or err_lse > tol_lse:
-            raise AssertionError(f"{name}: kernel disagrees with the plain version")
-        if lengths is not None and 0 in lengths:
-            zero = [i for i, ln in enumerate(lengths) if ln == 0]
-            if not ((o[zero] == 0).all() and (lse[zero] == -1e30).all()):
-                raise AssertionError(f"{name}: zero-length rows must give o=0, lse=-1e30")
-        if dtype == torch.bfloat16:
+    for case in attention_cases(torch):
+        err_o, err_lse, _ = check_attention_case(torch, case, gen, "flash_attention_fwd")
+        if case[5] == torch.bfloat16:
             worst["o"] = max(worst["o"], err_o)
             worst["lse"] = max(worst["lse"], err_lse)
-        del q, k, v, o, lse, o_ref, lse_ref
 
     # timing at the decode's shape, full lengths, where all three compute
     # the same function
@@ -260,14 +321,11 @@ def phase_kernels(torch):
     plain_ms = time_ms(torch, lambda: flash_attention_ref(q, k, v), n=5, warmup=1)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), n=30)
-    flops = 4 * H * D * valid_pairs(None, B, T, (-1, -1), 0, 0)
-    nbytes = 2 * 4 * B * T * H * D + 4 * B * H * T + 4 * B
-    t_ops = flops / PEAK_FLOPS["bf16"] * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ms, bound_by, flops = attention_bound(B, T, H, D)
     log(f"  decode shape (16, 2048, 6, 128) bf16: kernel {kernel_ms:.4f} ms "
         f"({flops / kernel_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
         f"scaled_dot_product_attention {library_ms:.4f} ms, "
-        f"bound {max(t_ops, t_bytes):.4f} ms")
+        f"bound {bound_ms:.4f} ms")
     return {
         "name": "flash_attention_fwd",
         "route": "cuda",
@@ -282,8 +340,80 @@ def phase_kernels(torch):
         "kernel_ms": kernel_ms,
         "plain_ms": plain_ms,
         "library_ms": library_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 2a': the double-buffered forward (K2) against the same plain version
+# ---------------------------------------------------------------------------
+def phase_kernels_db(torch):
+    """K2 under LCASR_ATTN_FWD_DB=1 on every attention case that is not banded
+    on both sides (a two-sided band is K1's route under the flag too), on the
+    two offset cases of tests/test_flash_attention.py (a kv shard wholly
+    behind a one-sided window must give exactly 0), and against K1 at the
+    decode shape; then its time beside K1's and the library's."""
+    import torch.nn.functional as F
+
+    from lcasr_torch.ops.flash_attention import flash_attention_ref, flash_attention_with_lse
+
+    bf, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = [c for c in attention_cases(torch) if not (c[7][0] >= 0 and c[7][1] >= 0)]
+    shard = [  # q rows at global 512.. (128..) with a left window of 64, kv shard at 0.. (64..)
+        ("shard_out_of_band_fp32", 1, 128, 2, 64, f32, [1024], (64, -1), 512, 0, False),
+        ("shard_out_of_band_bf16", 1, 128, 2, 64, bf, [1024], (64, -1), 512, 0, False),
+        ("shard_partly_in_band_fp32", 1, 128, 2, 64, f32, [1024], (64, -1), 128, 64, False),
+        ("band_right_only", 2, 300, 2, 128, bf, [300, 211], (-1, 5), 0, 0, False),
+    ]
+    worst = {"o": 0.0, "lse": 0.0}
+    with env_flags(LCASR_ATTN_FWD_DB="1"):
+        for case in cases + shard:
+            err_o, err_lse, o = check_attention_case(torch, case, gen, "flash_attention_fwd_db")
+            if case[0].startswith("shard_out_of_band") and not (o == 0).all():
+                raise AssertionError(f"{case[0]}: a shard wholly out of band must give exactly 0")
+            if case[5] == bf:
+                worst["o"] = max(worst["o"], err_o)
+                worst["lse"] = max(worst["lse"], err_lse)
+        for c in attention_cases(torch):  # a two-sided band stays on K1 under the flag
+            if c[7][0] >= 0 and c[7][1] >= 0:
+                check_attention_case(torch, c, gen, "flash_attention_fwd")
+
+    B, T, H, D = 16, 2048, 6, 128
+    q, k, v = make_qkv(torch, B, T, H, D, bf, True, gen)
+    k1 = lambda: flash_attention_with_lse(q, k, v)
+
+    def k2():
+        with env_flags(LCASR_ATTN_FWD_DB="1"):
+            return flash_attention_with_lse(q, k, v)
+
+    (o1, lse1), (o2, lse2) = k1(), k2()
+    d_o, d_lse = (o1.float() - o2.float()).abs().max().item(), (lse1 - lse2).abs().max().item()
+    # the two kernels do the same arithmetic in the same order within a tile
+    if d_o > 2e-2 or d_lse > 2e-3:
+        raise AssertionError(f"K2 against K1 at the decode shape: max|do| {d_o}, max|dlse| {d_lse}")
+    # in turns: K1, K2, K2, K1
+    t1a, t2a = time_ms(torch, k1, n=30), time_ms(torch, k2, n=30)
+    t2b, t1b = time_ms(torch, k2, n=30), time_ms(torch, k1, n=30)
+    kernel_ms, k1_ms = min(t2a, t2b), min(t1a, t1b)
+    plain_ms = time_ms(torch, lambda: flash_attention_ref(q, k, v), n=3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), n=30)
+    bound_ms, bound_by, flops = attention_bound(B, T, H, D)
+    log(f"  K2 at (16, 2048, 6, 128) bf16 against K1: max|do| {d_o:.3e}, max|dlse| {d_lse:.3e}; "
+        f"K2 {t2a:.4f} / {t2b:.4f} ms ({flops / kernel_ms / 1e9:.1f} TFLOP/s), K1 in the same "
+        f"turns {t1a:.4f} / {t1b:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention {library_ms:.4f} ms, bound {bound_ms:.4f} ms")
+    return {
+        "name": "flash_attention_fwd_db", "route": "cuda",
+        "source": "lcasr_torch/csrc/flash_attn_fwd_db.cu",
+        "replaces": "lcasr_tpu/ops/flash_attention.py:117",
+        "replaces_fn": "lcasr_tpu/ops/flash_attention.py:_fwd_kernel_db",
+        "launches": None, "max_abs_err": max(worst["o"], worst["lse"]),
+        "max_err_o": worst["o"], "max_err_lse": worst["lse"], "max_diff_from_k1": d_o,
+        "ms": kernel_ms, "k1_ms_same_turns": k1_ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
     }
 
 
@@ -302,15 +432,8 @@ def run_bwd(torch, fused: bool, *args):
     """flash_attention_bwd through K3 (fused) or K4 + K5."""
     from lcasr_torch.ops.flash_attention import flash_attention_bwd
 
-    old = os.environ.get("LCASR_FUSED_ATTN_BWD")
-    os.environ["LCASR_FUSED_ATTN_BWD"] = "1" if fused else "0"
-    try:
+    with env_flags(LCASR_FUSED_ATTN_BWD="1" if fused else "0"):
         return flash_attention_bwd(*args)
-    finally:
-        if old is None:
-            del os.environ["LCASR_FUSED_ATTN_BWD"]
-        else:
-            os.environ["LCASR_FUSED_ATTN_BWD"] = old
 
 
 def kernel_device_ms(torch, fn, names, n: int = 10):
@@ -617,6 +740,134 @@ def phase_kernels_ssm(torch):
 
 
 # ---------------------------------------------------------------------------
+# phase 2d: the fused 8x subsampling (K8) against the conv chain
+# ---------------------------------------------------------------------------
+SUB_DECODE_SHAPE = (16, 16_384, 80, 256)  # (B, T, F, C): one window batch
+# every shape the main paths launch K8 at: the decode's window batch, the
+# ladder's two buckets, the 120,000-frame step
+SUB_MAIN_SHAPES = [(16, 16_384, 80), (8, 8_192, 80), (4, 16_384, 80), (1, 120_000, 80)]
+SUB_SMALL_CASES = [  # tests/test_subsampling_fused.py:29-37, every activation once
+    (2, 256, 80, "silu"), (1, 512, 80, "gelu"), (2, 328, 80, "relu"), (1, 256, 64, "none")]
+SUB_TOL_FP32 = 2e-5  # fp32 accumulation in another order than cuDNN's
+# bf16: the kernel against the fp32 conv chain may err at most this many times
+# what the bf16 conv chain itself errs against it (maximum and mean), and
+# nowhere by more than 2e-2 + 2e-2 |y|
+SUB_BF16_YARDSTICK_FACTOR, SUB_TOL_BF16 = 1.5, 2e-2
+
+
+def sub_params(torch, gen, C, dtype):
+    """A random 3-stage chain in the module's layout (OIHW), as
+    tests/test_subsampling_fused.py draws it."""
+    r = lambda *shape, scale=0.2: (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+    params = [r(C, 1, 3, 3), r(C)]
+    for _ in range(2):
+        params += [r(C, 1, 3, 3), r(C), r(C, C, 1, 1, scale=0.06), r(C)]
+    return params
+
+
+def sub_bound(B, T, F, C, elem_bytes, dtype_name):
+    """(bound ms, bound_by, flops): the chain's operations at the peak of its
+    type against x read once, the output written once and the weights."""
+    T0, T1, T8, F0, F1, F8 = T // 2, T // 4, T // 8, F // 2, F // 4, F // 8
+    flops = 2 * B * (T0 * F0 * C * 9 + T1 * F1 * C * (9 + C) + T8 * F8 * C * (9 + C))
+    nbytes = elem_bytes * (B * T * F + B * T8 * F8 * C + 3 * 10 * C + 2 * C * C)
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops
+
+
+def phase_kernels_sub(torch):
+    from lcasr_torch import kernels
+    from lcasr_torch.ops import subsampling as sub
+
+    bf, f32 = torch.bfloat16, torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst = {"fp32": 0.0, "bf16": 0.0}
+
+    def check(B, T, F, C, dtype, act, tile=None):
+        x = torch.randn((B, T, F), generator=gen, device="cuda").to(dtype)
+        params = sub_params(torch, gen, C, dtype)
+        kernels.reset_launch_counts()
+        with env_flags(LCASR_SUB_TILE=None if tile is None else str(tile)):
+            y = sub.fused_dw_striding(x, params, act)
+        torch.cuda.synchronize()
+        if kernels.launch_counts["subsampling_fused"] != 1:
+            raise AssertionError("fused_dw_striding did not launch its kernel")
+        if tuple(y.shape) != (B, T // 8, F // 8, C) or y.dtype != dtype:
+            raise AssertionError(f"K8 output {tuple(y.shape)} {y.dtype}")
+        if not torch.isfinite(y).all():
+            raise AssertionError("K8: non-finite output")
+        ref = sub.dw_striding_chain(x.float()[:, None], [p.float() for p in params], act)
+        ref = ref.permute(0, 2, 3, 1)
+        err = (y.float() - ref).abs()
+        what = f"({B}, {T}, {F}) -> {C} {str(dtype)[6:]} {act}" + (f" tile {tile}" if tile else "")
+        if dtype == f32:
+            bad = (err > SUB_TOL_FP32 + SUB_TOL_FP32 * ref.abs()).sum().item()
+            log(f"  {what:44s} max|dy| {err.max().item():.3e} (tol {SUB_TOL_FP32:g} + "
+                f"{SUB_TOL_FP32:g}|y|)")
+            worst["fp32"] = max(worst["fp32"], err.max().item())
+        else:
+            chain = sub.dw_striding_chain(x[:, None], params, act).permute(0, 2, 3, 1)
+            yard = (chain.float() - ref).abs()
+            bad = (err > SUB_TOL_BF16 + SUB_TOL_BF16 * ref.abs()).sum().item()
+            log(f"  {what:44s} max|dy| {err.max().item():.3e} mean {err.mean().item():.3e}; the "
+                f"bf16 conv chain (the yardstick) max {yard.max().item():.3e} mean "
+                f"{yard.mean().item():.3e}; tolerance {SUB_BF16_YARDSTICK_FACTOR:g} x the "
+                f"yardstick and {SUB_TOL_BF16:g} + {SUB_TOL_BF16:g}|y| everywhere")
+            if (err.max() > SUB_BF16_YARDSTICK_FACTOR * yard.max()
+                    or err.mean() > SUB_BF16_YARDSTICK_FACTOR * yard.mean()):
+                raise AssertionError(f"K8 {what}: further from the fp32 chain than "
+                                     f"{SUB_BF16_YARDSTICK_FACTOR} x the bf16 chain is")
+            worst["bf16"] = max(worst["bf16"], err.max().item())
+        if bad:
+            raise AssertionError(f"K8 {what}: {bad} values disagree with the conv chain")
+
+    for B, T, F, act in SUB_SMALL_CASES:
+        check(B, T, F, 128, f32, act)
+    # tiles of 1 and 2 output frames: many tile edges, the first tile's zero
+    # rows, a ragged last tile (T/8 = 41)
+    check(2, 328, 80, 128, f32, "silu", tile=1)
+    check(2, 328, 80, 256, bf, "silu", tile=2)
+    check(2, 328, 80, 128, bf, "gelu")
+    for B, T, F in SUB_MAIN_SHAPES:
+        check(B, T, F, 256, bf, "silu")
+        check(B, T, F, 256, f32, "silu")
+
+    # times at the decode's window batch.  No single PyTorch call computes
+    # the chain: the comparison is the conv chain itself (five cuDNN
+    # convolutions and three activations), which is also the plain version.
+    B, T, F, C = SUB_DECODE_SHAPE
+    out, times = {}, {}
+    for dtype, name in ((bf, "bf16"), (f32, "fp32")):
+        x = torch.randn((B, T, F), generator=gen, device="cuda").to(dtype)
+        params = sub_params(torch, gen, C, dtype)
+        fused = lambda: sub.fused_dw_striding(x, params, "silu")
+        chain = lambda: sub.dw_striding_chain(x[:, None], params, "silu").permute(0, 2, 3, 1)
+        chain_copy = lambda: chain().contiguous()  # as `out` reads it: C minor
+        ta, tc = time_ms(torch, fused, n=10), time_ms(torch, chain, n=5)
+        tb, tcc = time_ms(torch, fused, n=10), time_ms(torch, chain_copy, n=5)
+        bound_ms, bound_by, flops = sub_bound(B, T, F, C, 2 if dtype == bf else 4, name)
+        times[name] = (min(ta, tb), tc, tcc, bound_ms, bound_by)
+        log(f"  K8 at (16, 16384, 80) -> 256 {name}: {ta:.4f} / {tb:.4f} ms "
+            f"({flops / min(ta, tb) / 1e9:.1f} TFLOP/s), the conv chain {tc:.4f} ms (with the "
+            f"copy to C minor {tcc:.4f} ms), bound {bound_ms:.4f} ms by {bound_by}; no single "
+            f"library call computes it")
+        del x, params
+    ms, plain_ms, chain_copy_ms, bound_ms, bound_by = times["bf16"]
+    return {
+        "name": "subsampling_fused", "route": "cuda",
+        "source": "lcasr_torch/csrc/subsampling_fused.cu",
+        "replaces": "lcasr_tpu/ops/subsampling_pallas.py:281",
+        "replaces_fn": "lcasr_tpu/ops/subsampling_pallas.py:_fused_kernel",
+        "launches": None, "max_abs_err": worst["bf16"], "max_abs_err_fp32": worst["fp32"],
+        "ms": ms, "plain_ms": plain_ms, "conv_chain_with_copy_ms": chain_copy_ms,
+        "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+        "ms_fp32": times["fp32"][0], "plain_ms_fp32": times["fp32"][1],
+        "bound_ms_fp32": times["fp32"][3],
+    }
+
+
+# ---------------------------------------------------------------------------
 # phases 3 and 6 (first half): one full-width window batch, kernel against plain
 # ---------------------------------------------------------------------------
 def flagship_model(torch):
@@ -651,6 +902,23 @@ def plain_attention(bf16: bool = False):
     return mock.patch.object(sx, "flash_attention", plain_bf16_attention if bf16 else plain)
 
 
+def fp32_subsampling():
+    """Context in which the subsampling's conv chain runs in fp32 on the bf16
+    model's input and weights, its result rounded to the model's dtype (this
+    script only): the yardstick of what the bf16 rounding inside the chain
+    alone does to a training step."""
+    from unittest import mock
+
+    import lcasr_torch.ops.conv as conv
+
+    real = conv.dw_striding_chain
+
+    def chain(h, params, act="silu", causal=False):
+        return real(h.float(), [p.float() for p in params], act, causal).to(h.dtype)
+
+    return mock.patch.object(conv, "dw_striding_chain", chain)
+
+
 def plain_scan(dtype):
     """Context in which `selective_scan` runs the plain versions of K6 and K7
     in `dtype`, on any device (this script only)."""
@@ -682,18 +950,42 @@ def require_launches(some: bool, what: str) -> None:
                              f"{'some' if some else 'none'} ({dict(kernels.launch_counts)})")
 
 
-def phase_model(torch, model, plain, what: str):
-    """One (16, 80, 16384) window batch with ragged lengths: finite,
-    normalised fp32 log-probs of the right shape, close to those of the same
-    model inside the `plain` context (the kernels' plain versions)."""
+def window_batch(torch):
+    """One (16, 80, 16384) window batch with ragged lengths, from a numpy seed."""
     import numpy as np
-
-    from lcasr_torch import kernels
 
     rng = np.random.default_rng(1)
     audio = torch.from_numpy(rng.normal(size=(16, 80, SEQ_LEN)).astype(np.float32)).to(DEVICE)
     lengths = torch.tensor([SEQ_LEN] * 10 + [15_552, 12_000, 8_191, 4_096, 1_000, 0],
                            dtype=torch.int32, device=DEVICE)
+    return audio, lengths
+
+
+def logprob_agreement(torch, lp, lp_other, out_len, what: str):
+    """(argmax agreement, max and mean |d log-prob|) over the valid frames of
+    two runs of one bf16 model that differ only in where a kernel rounds
+    (attention: P to bf16; the scan: the last bit of an fp32 y that is then
+    cast to bf16; the fused subsampling: fp32 sums in another order); the
+    random layers amplify that into small log-prob shifts and flip near-tied
+    argmaxes among 4,096 classes.  Gate: agreement >= 0.9, max <= 1.0, mean
+    <= 0.05."""
+    valid = torch.arange(lp.shape[1], device=DEVICE)[None, :] < out_len[:, None]
+    diff = (lp - lp_other).abs()[valid]
+    agree = (lp.argmax(-1) == lp_other.argmax(-1))[valid].float().mean().item()
+    max_d, mean_d = diff.max().item(), diff.mean().item()
+    if not (agree >= 0.9 and max_d <= 1.0 and mean_d <= 0.05):
+        raise AssertionError(f"{what}: argmax agreement {agree:.5f}, max|dlogp| {max_d:.4f}, "
+                             f"mean|dlogp| {mean_d:.2e}")
+    return agree, max_d, mean_d
+
+
+def phase_model(torch, model, plain, what: str):
+    """One (16, 80, 16384) window batch with ragged lengths: finite,
+    normalised fp32 log-probs of the right shape, close to those of the same
+    model inside the `plain` context (the kernels' plain versions)."""
+    from lcasr_torch import kernels
+
+    audio, lengths = window_batch(torch)
     with torch.no_grad():
         kernels.reset_launch_counts()
         out = model(audio, length=lengths)
@@ -712,26 +1004,43 @@ def phase_model(torch, model, plain, what: str):
             lp_plain = model(audio, length=lengths)["final_posteriors"]
             require_launches(False, f"{what} forward inside its plain context")
         fwd_ms = time_ms(torch, lambda: model(audio, length=lengths), n=3, warmup=1)
-    valid = torch.arange(lp.shape[1], device=DEVICE)[None, :] < out_len[:, None]
-    diff = (lp - lp_plain).abs()[valid]
-    agree = (lp.argmax(-1) == lp_plain.argmax(-1))[valid].float().mean().item()
-    max_d, mean_d = diff.max().item(), diff.mean().item()
+    agree, max_d, mean_d = logprob_agreement(
+        torch, lp, lp_plain, out_len, f"{what} with the kernels against its plain version")
     n_params = sum(p.numel() for p in model.parameters())
     log(f"  {what} ({n_params / 1e6:.1f}M parameters) forward (16, 80, {SEQ_LEN}) bf16: "
         f"{fwd_ms:.2f} ms; vs its plain version: argmax agreement {agree:.5f}, max|dlogp| "
         f"{max_d:.4f}, mean|dlogp| {mean_d:.2e}, normalisation error {norm_err:.1e}")
-    # both runs are bf16 end to end and differ only in where the kernel rounds
-    # (attention: P to bf16; the scan: the last bit of an fp32 y that is then
-    # cast to bf16); the random layers amplify that into small log-prob shifts
-    # and flip near-tied argmaxes among 4,096 classes
-    if not (agree >= 0.9 and max_d <= 1.0 and mean_d <= 0.05):
-        raise AssertionError(f"{what} with the kernels disagrees with its plain version")
     return fwd_ms
 
 
 # ---------------------------------------------------------------------------
 # phases 4 and 6 (second half): the main path, a 20-minute streaming greedy decode
 # ---------------------------------------------------------------------------
+def expect_launches(expected: dict, what: str) -> dict:
+    """The launch counts since they were last zeroed must be `expected` and 0
+    of every other kernel."""
+    from lcasr_torch import kernels
+
+    launches = dict(kernels.launch_counts)
+    if launches != dict(dict.fromkeys(launches, 0), **expected):
+        raise AssertionError(f"{what} launched {launches}, expected {expected} and 0 of "
+                             f"every other kernel")
+    return launches
+
+
+def timed_decodes(decoder, spec, n: int = 3, warm: bool = True):
+    """(ids, seconds of each of n decodes, after a warm one unless the caller
+    has decoded already)."""
+    if warm:
+        decoder.greedy(spec, seq_len=SEQ_LEN, overlap=OVERLAP)
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        ids = decoder.greedy(spec, seq_len=SEQ_LEN, overlap=OVERLAP)
+        times.append(time.perf_counter() - t0)
+    return ids, times
+
+
 def phase_decode(torch, model, expected: dict, what: str, profile_file: str):
     """`expected`: the launch counts one decode must show (every other
     kernel 0)."""
@@ -747,20 +1056,13 @@ def phase_decode(torch, model, expected: dict, what: str, profile_file: str):
                                transfer_dtype=torch.bfloat16, device=DEVICE)
     kernels.reset_launch_counts()
     ids = decoder.greedy(spec, seq_len=SEQ_LEN, overlap=OVERLAP)
-    launches = dict(kernels.launch_counts)
-    if launches != dict(dict.fromkeys(launches, 0), **expected):
-        raise AssertionError(f"{what} decode launched {launches}, expected {expected} "
-                             f"and 0 of every other kernel")
+    launches = expect_launches(expected, f"{what} decode")
     if ids.ndim != 1 or ids.shape[0] < TOTAL_FRAMES // 8 - 8:
         raise AssertionError(f"decode gave {ids.shape} ids")
     if ids.min() < 0 or ids.max() >= n_classes:
         raise AssertionError("ids out of range")
     tokens = GreedyCTCDecoder(blank_id=n_classes - 1)(ids, decode=False)
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        again = decoder.greedy(spec, seq_len=SEQ_LEN, overlap=OVERLAP)
-        times.append(time.perf_counter() - t0)
+    again, times = timed_decodes(decoder, spec, warm=False)
     if not np.array_equal(again, ids):
         raise AssertionError("repeated decodes differ")
     audio_s = TOTAL_FRAMES / FRAMES_PER_SECOND
@@ -1068,10 +1370,14 @@ def grad_error(g, ref, names):
     return (num / den) ** 0.5, cos[worst], worst
 
 
-def gradient_gate(what, ref_name, yard_name, one_step, ref_ctx, yard_ctx, floors=(0.0, 0.0)):
-    """One 16384 x 4 micro step with the kernels, again (the step may not be
-    reproducible), inside `yard_ctx` (the yardstick) and inside `ref_ctx`
-    (the reference), on the same weights and batch.  The loss must lie
+def gradient_gate(what, ref_name, yard_name, one_step, ref_ctx, yard_ctx, floors=(0.0, 0.0),
+                  kernel_ctx=None, plain_contexts: bool = True):
+    """One 16384 x 4 micro step with the kernels (inside `kernel_ctx`, when
+    given), again (the step may not be reproducible), inside `yard_ctx` (the
+    yardstick) and inside `ref_ctx` (the reference), on the same weights and
+    batch.  `plain_contexts`: the yardstick and the reference must launch no
+    kernel (they are plain versions); False when the reference is another
+    configuration of the kernels, whose launches the caller checks.  The loss must lie
     within LOSS_REL_MAX of the reference's; the gradient's relative L2 error
     and worst per-tensor cosine deficit (1 - cos) against the reference within
     `floors` + YARDSTICK_FACTOR times the yardstick's, and never past the
@@ -1079,15 +1385,17 @@ def gradient_gate(what, ref_name, yard_name, one_step, ref_ctx, yard_ctx, floors
     from lcasr_torch import kernels
 
     kernels.reset_launch_counts()
-    loss_k, g_k = one_step()
-    require_launches(True, f"{what} step")
-    g_k2 = one_step()[1]
+    with kernel_ctx or contextlib.nullcontext():
+        loss_k, g_k = one_step()
+        require_launches(True, f"{what} step")
+        g_k2 = one_step()[1]
     kernels.reset_launch_counts()
     with yard_ctx:
         loss_y, g_y = one_step()
     with ref_ctx:
         loss_r, g_r = one_step()
-    require_launches(False, f"{what} step inside {yard_name} and {ref_name}")
+    if plain_contexts:
+        require_launches(False, f"{what} step inside {yard_name} and {ref_name}")
     den = sum((g_r[n] ** 2).sum().item() for n in g_r)
     # cosines over the tensors whose gradient is not ~0 by construction (a
     # bias before BatchRenorm gets only rounding noise)
@@ -1172,6 +1480,176 @@ def phase_train(torch, workdir: str):
     return launches, band_launches
 
 
+# ---------------------------------------------------------------------------
+# phases 8 and 9: the opt-in configuration (K2, K8) and the decoder's options
+# ---------------------------------------------------------------------------
+OPT_DECODE_LAUNCHES = {"flash_attention_fwd_db": EXPECTED_LAUNCHES,  # 9 layers x 4 batches
+                       "subsampling_fused": 4}  # one per window batch
+OPT_MAMBA_LAUNCHES = {"selective_scan_fwd": MAMBA_EXPECTED_DECODE_LAUNCHES,
+                      "subsampling_fused": 4}
+# one 16384 x 4 micro step under both flags: per layer K2 in the forward and
+# again in the recompute, K3 once; the subsampling is checkpointed too
+# (`remat_subsampling`), so K8 runs in the forward and again when the backward
+# recomputes the subsampling's forward; its own backward is the conv chain's
+OPT_TRAIN_LAUNCHES = {"flash_attention_fwd_db": 18, "flash_attention_bwd_fused": 9,
+                      "subsampling_fused": 2}
+PLAIN_ATTENTION_AGREEMENT = 0.94563  # K1 against plain attention on this batch (PERF.md)
+
+
+def phase_decode_opt(torch):
+    import numpy as np
+
+    from lcasr_torch import kernels
+    from lcasr_torch.evaluation.streaming import StreamingDecoder
+
+    n_classes = 4096
+    audio_s = TOTAL_FRAMES / FRAMES_PER_SECOND
+    rtfx = lambda times: audio_s / float(np.median(times))
+    spec = np.random.default_rng(2).normal(size=(1, 80, TOTAL_FRAMES)).astype(np.float32)
+    model = flagship_model(torch)  # the weights of phase `decode`
+    n_layers = len(model.layers)
+    make = lambda **kw: StreamingDecoder(model, n_classes, window_batch_size=WINDOW_BATCH,
+                                         device=DEVICE, **kw)
+    decoder = make(transfer_dtype=torch.bfloat16)
+
+    # the main path of this slice: the decode with both flags on
+    with env_flags(**OPT_FLAGS):
+        kernels.reset_launch_counts()
+        ids_opt = decoder.greedy(spec, seq_len=SEQ_LEN, overlap=OVERLAP)
+        launches = expect_launches(OPT_DECODE_LAUNCHES, "the decode under both flags")
+    if ids_opt.ndim != 1 or ids_opt.shape[0] < TOTAL_FRAMES // 8 - 8:
+        raise AssertionError(f"decode gave {ids_opt.shape} ids")
+    if ids_opt.min() < 0 or ids_opt.max() >= n_classes:
+        raise AssertionError("ids out of range")
+
+    # one window batch, with the flags against without
+    audio, lengths = window_batch(torch)
+    with torch.no_grad():
+        with env_flags(**OPT_FLAGS):
+            kernels.reset_launch_counts()
+            out = model(audio, length=lengths)
+            expect_launches({"flash_attention_fwd_db": n_layers, "subsampling_fused": 1},
+                            "one window batch under both flags")
+        kernels.reset_launch_counts()
+        lp_base = model(audio, length=lengths)["final_posteriors"]
+        expect_launches({"flash_attention_fwd": n_layers}, "one window batch without the flags")
+    if not torch.isfinite(out["final_posteriors"]).all():
+        raise AssertionError("non-finite log-probs under the flags")
+    agree, max_d, mean_d = logprob_agreement(torch, out["final_posteriors"], lp_base,
+                                             out["length"], "both flags against none")
+    log(f"  one window batch, both flags against none: argmax agreement {agree:.5f} (the "
+        f"kernel against plain attention gave {PLAIN_ATTENTION_AGREEMENT}), max|dlogp| {max_d:.4f}, "
+        f"mean|dlogp| {mean_d:.2e}; gate: agreement >= 0.9, max <= 1.0, mean <= 0.05")
+    del audio, out, lp_base
+
+    # RTFx without and with the flags, in turns
+    ids_base, t_base = timed_decodes(decoder, spec)
+    with env_flags(**OPT_FLAGS):
+        ids_again, t_opt = timed_decodes(decoder, spec)
+        profile_run(torch, lambda: decoder.greedy(spec, seq_len=SEQ_LEN, overlap=OVERLAP),
+                    "decode_opt_profile.txt", "one decode under both flags")
+    if not np.array_equal(ids_again, ids_opt):
+        raise AssertionError("repeated decodes under the flags differ")
+    same = float((ids_opt == ids_base).mean())
+    log(f"  20-minute decode under both flags: launches {launches}; decode s "
+        f"{[round(t, 4) for t in t_opt]}, RTFx (median of 3) {rtfx(t_opt):.1f}; without the "
+        f"flags {[round(t, 4) for t in t_base]}, RTFx {rtfx(t_base):.1f}; ids agree at "
+        f"{same:.5f}")
+
+    # the decoder's options, flags off
+    results = {"rtfx_flags": rtfx(t_opt), "rtfx_no_flags": rtfx(t_base), "ids_agreement": same}
+    for kind in ("int8", "int4"):
+        kernels.reset_launch_counts()
+        ids_q, t_q = timed_decodes(make(transfer_dtype=kind), spec)
+        results[f"{kind}_agreement"] = float((ids_q == ids_base).mean())
+        log(f"  {kind} upload: ids agree with the bf16-upload decode at "
+            f"{results[f'{kind}_agreement']:.5f}; decode s {[round(t, 4) for t in t_q]}, RTFx "
+            f"{rtfx(t_q):.1f}")
+        if ids_q.shape != ids_base.shape:
+            raise AssertionError(f"the {kind} decode gave {ids_q.shape} ids")
+    ids_p, t_p = timed_decodes(make(transfer_dtype=torch.bfloat16, pipeline_upload=True), spec)
+    if not np.array_equal(ids_p, ids_base):
+        raise AssertionError("pipeline_upload changed the ids")
+    log(f"  pipeline_upload: ids equal to the single-upload decode; decode s "
+        f"{[round(t, 4) for t in t_p]}, RTFx {rtfx(t_p):.1f}")
+    cached = make(transfer_dtype=torch.bfloat16, cache_upload=True)
+    t0 = time.perf_counter()
+    ids_c1 = cached.greedy(spec, seq_len=SEQ_LEN, overlap=OVERLAP)
+    t_first = time.perf_counter() - t0
+    ids_c2, t_c = timed_decodes(cached, spec)
+    if not (np.array_equal(ids_c1, ids_base) and np.array_equal(ids_c2, ids_base)):
+        raise AssertionError("cache_upload changed the ids")
+    log(f"  cache_upload on one array: first decode {t_first:.4f} s, later ones (no upload) "
+        f"{[round(t, 4) for t in t_c]} s, RTFx {rtfx(t_c):.1f}")
+    results.update(rtfx_pipeline=rtfx(t_p), rtfx_cached=rtfx(t_c))
+    del model, decoder, cached
+
+    # the Mamba family shares ConvSubsampling: its decode under LCASR_FUSED_SUB=1
+    mamba = mamba_model(torch)
+    mdec = StreamingDecoder(mamba, n_classes, window_batch_size=WINDOW_BATCH,
+                            transfer_dtype=torch.bfloat16, device=DEVICE)
+    ids_m, t_m = timed_decodes(mdec, spec)
+    with env_flags(LCASR_FUSED_SUB="1"):
+        kernels.reset_launch_counts()
+        ids_mf = mdec.greedy(spec, seq_len=SEQ_LEN, overlap=OVERLAP)
+        mamba_launches = expect_launches(OPT_MAMBA_LAUNCHES, "the Mamba decode under LCASR_FUSED_SUB=1")
+        _, t_mf = timed_decodes(mdec, spec)
+        profile_run(torch, lambda: mdec.greedy(spec, seq_len=SEQ_LEN, overlap=OVERLAP),
+                    "mamba_decode_opt_profile.txt", "one Mamba decode under LCASR_FUSED_SUB=1")
+    log(f"  Mamba 20-minute decode under LCASR_FUSED_SUB=1: launches {mamba_launches}; decode s "
+        f"{[round(t, 4) for t in t_mf]}, RTFx {rtfx(t_mf):.1f}; without the flag "
+        f"{[round(t, 4) for t in t_m]}, RTFx {rtfx(t_m):.1f}; ids agree at "
+        f"{float((ids_mf == ids_m).mean()):.5f}")
+    results.update(rtfx_mamba_flag=rtfx(t_mf), rtfx_mamba_no_flag=rtfx(t_m))
+    return launches, mamba_launches, results
+
+
+def phase_train_opt(torch, workdir: str):
+    """One 16384 x 4 flagship training step under both flags against the same
+    step without them.  K2 repeats K1's arithmetic, so what differs is the
+    subsampling's output: K8 rounds where the bf16 conv chain rounds but sums
+    in fp32 in another order.  The reference is the unflagged step; the
+    yardstick is the unflagged step with the conv chain in fp32, a
+    perturbation of the same kind at the same place."""
+    from lcasr_torch import kernels
+    from lcasr_torch.models.registry import load_model
+    from lcasr_torch.models.sconformer_xl import init_weights_
+    from lcasr_torch.training.trainer import Trainer
+
+    def fresh_model(seed, config):
+        return init_weights_(load_model(config, 4095, device=DEVICE), seed=seed)
+
+    run = TrainRun(torch, workdir, LADDER_CONFIG, fresh_model, OPT_TRAIN_LAUNCHES, "flagship")
+    model = fresh_model(0, run.cfg)
+    trainer = Trainer(run.cfg, model, run.tok, device=DEVICE)
+    trainer.init_state()
+    _, chunk = run.chunk_16384x4()
+    stats = [b.clone() for b in trainer._stat_buffers()]
+
+    def one_step():
+        trainer.zero_pending()
+        loss, _ = trainer.micro_step(chunk)
+        for b, old in zip(trainer._stat_buffers(), stats):
+            b.copy_(old)
+        return float(loss), flat_grads(model)
+
+    with env_flags(**OPT_FLAGS):
+        kernels.reset_launch_counts()
+        one_step()
+        launches = expect_launches(OPT_TRAIN_LAUNCHES, "one micro step under both flags")
+    kernels.reset_launch_counts()
+    one_step()
+    expect_launches({"flash_attention_fwd": OPT_TRAIN_LAUNCHES["flash_attention_fwd_db"],
+                     "flash_attention_bwd_fused": OPT_TRAIN_LAUNCHES["flash_attention_bwd_fused"]},
+                    "one micro step without the flags")
+    log(f"  one 16384x4 micro step under both flags: launches {launches}")
+    gradient_gate("flagship under both flags", "the same step without the flags",
+                  "the conv chain in fp32", one_step, contextlib.nullcontext(),
+                  fp32_subsampling(), kernel_ctx=env_flags(**OPT_FLAGS), plain_contexts=False)
+    trainer.zero_pending()
+    return launches
+
+
 # one 16384 x 4 Mamba step: kernel and plain scan are both fp32 scans inside a
 # bf16 model, so the reference is the plain scan in fp64 and the yardstick the
 # plain scan in fp32; these floors keep the gate meaningful where the
@@ -1222,9 +1700,12 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from lcasr_torch import kernels  # fails when the repo is not beside this file
 
+    # fp32 references are fp32: no TF32 in matrix products or convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     gpu = gpu_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
-    log("[1/7] build")
+    log("[1/9] build")
     build_s = kernels.build()
     log(f"  build {build_s:.2f} s into {kernels.BUILD_DIR}")
     for src, text in kernels.build_log.items():
@@ -1236,17 +1717,19 @@ def main() -> int:
     results = {}
     workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_train")
     if "kernels" in phases:
-        log("[2/7] kernels against their plain versions")
+        log("[2/9] kernels against their plain versions")
         results["flash_attention_fwd"] = phase_kernels(torch)
+        results["flash_attention_fwd_db"] = phase_kernels_db(torch)
         results.update(phase_kernels_bwd(torch))
         results.update(phase_kernels_ssm(torch))
+        results["subsampling_fused"] = phase_kernels_sub(torch)
     model = None
     if "model" in phases:
-        log("[3/7] flagship model, one window batch")
+        log("[3/9] flagship model, one window batch")
         model = flagship_model(torch)
         phase_model(torch, model, plain_attention(), "flagship")
     if "decode" in phases:
-        log("[4/7] 20-minute streaming greedy decode (the serving path)")
+        log("[4/9] 20-minute streaming greedy decode (the serving path)")
         model = model or flagship_model(torch)
         launches, _ = phase_decode(torch, model, {"flash_attention_fwd": EXPECTED_LAUNCHES},
                                    "flagship", "decode_profile.txt")
@@ -1254,7 +1737,7 @@ def main() -> int:
             "launches"] = launches["flash_attention_fwd"]
     del model
     if "train" in phases:
-        log("[5/7] training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1 "
+        log("[5/9] training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1 "
             "(the training path)")
         os.makedirs(workdir, exist_ok=True)
         try:
@@ -1271,7 +1754,7 @@ def main() -> int:
         results.setdefault("flash_attention_fwd", {"name": "flash_attention_fwd"})[
             "launches_ladder"] = ladder["flash_attention_fwd"]
     if "mamba_decode" in phases:
-        log("[6/7] Mamba: one window batch, then the 20-minute streaming greedy decode")
+        log("[6/9] Mamba: one window batch, then the 20-minute streaming greedy decode")
         model = mamba_model(torch)
         phase_model(torch, model, plain_scan(torch.float32), "Mamba")
         launches, _ = phase_decode(torch, model,
@@ -1281,7 +1764,7 @@ def main() -> int:
         results.setdefault("selective_scan_fwd", {"name": "selective_scan_fwd"})[
             "launches"] = launches["selective_scan_fwd"]
     if "mamba_train" in phases:
-        log("[7/7] Mamba training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1")
+        log("[7/9] Mamba training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1")
         os.makedirs(workdir, exist_ok=True)
         try:
             ladder = phase_mamba_train(torch, workdir)
@@ -1292,6 +1775,22 @@ def main() -> int:
             "launches"] = ladder["selective_scan_bwd"]
         results.setdefault("selective_scan_fwd", {"name": "selective_scan_fwd"})[
             "launches_ladder"] = ladder["selective_scan_fwd"]
+    if "decode_opt" in phases:
+        log("[8/9] the opt-in decode configuration (K2, K8) and the decoder's options")
+        launches, mamba_launches, numbers = phase_decode_opt(torch)
+        for key in ("flash_attention_fwd_db", "subsampling_fused"):
+            results.setdefault(key, {"name": key})["launches"] = launches[key]
+        results["subsampling_fused"]["launches_mamba_decode"] = mamba_launches["subsampling_fused"]
+        results["subsampling_fused"].update(numbers)
+    if "train_opt" in phases:
+        log("[9/9] one training step under both flags against the same step without")
+        os.makedirs(workdir, exist_ok=True)
+        try:
+            launches = phase_train_opt(torch, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        for key in ("flash_attention_fwd_db", "subsampling_fused"):
+            results.setdefault(key, {"name": key})["launches_train_step"] = launches[key]
     name, power = [s.strip() for s in gpu.split(",", 1)]
     for entry in results.values():
         entry.update(gpu=name, power_limit=power)

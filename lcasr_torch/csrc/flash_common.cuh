@@ -1,7 +1,7 @@
-// Device helpers shared by the flash-attention kernels (flash_attn_fwd.cu,
-// flash_attn_bwd.cu): cp.async copies, bf16 mma.sync m16n8k16 with fp32
-// accumulation, ldmatrix, and the tile loader that reads a (b, h) slice
-// through its row stride and zero-fills past the ragged T edge.
+// Device helpers shared by the kernels (flash_attn_fwd.cu, flash_attn_fwd_db.cu,
+// flash_attn_bwd.cu, subsampling_fused.cu): cp.async copies, bf16 mma.sync
+// m16n8k16 with fp32 accumulation, ldmatrix, and the tile loader that reads a
+// (b, h) slice through its row stride and zero-fills past the ragged T edge.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -30,6 +30,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
+template <int N>  // wait until at most N committed groups are still in flight
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -44,6 +49,16 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// Four 8x8 b16 matrices as they lie in memory (an m16k16 A fragment when lane
+// l points at row l % 16, column 8 * (l / 16) of a row-major tile).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(s));
 }

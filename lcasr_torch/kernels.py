@@ -25,7 +25,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "lcasr_torch_kernels"
-SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu", "selective_scan.cu")
+SOURCES = ("flash_attn_fwd.cu", "flash_attn_fwd_db.cu", "flash_attn_bwd.cu",
+           "selective_scan.cu", "subsampling_fused.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -39,11 +40,13 @@ NVCC_FLAGS = (
 
 launch_counts: Dict[str, int] = {
     "flash_attention_fwd": 0,
+    "flash_attention_fwd_db": 0,
     "flash_attention_bwd_fused": 0,
     "flash_attention_bwd_dq": 0,
     "flash_attention_bwd_dkv": 0,
     "selective_scan_fwd": 0,
     "selective_scan_bwd": 0,
+    "subsampling_fused": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -111,11 +114,10 @@ def build() -> float:
 
 def _bind(src: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    if src == "flash_attn_fwd.cu":
-        lib.lcasr_flash_attn_fwd.argtypes = (
-            [p] * 6 + [i] * 6 + [ll] * 9 + [i] * 4 + [p]
-        )
-        lib.lcasr_flash_attn_fwd.restype = i
+    if src in ("flash_attn_fwd.cu", "flash_attn_fwd_db.cu"):  # one signature
+        fn = lib.lcasr_flash_attn_fwd if src == "flash_attn_fwd.cu" else lib.lcasr_flash_attn_fwd_db
+        fn.argtypes = [p] * 6 + [i] * 6 + [ll] * 9 + [i] * 4 + [p]
+        fn.restype = i
     elif src == "flash_attn_bwd.cu":
         lib.lcasr_flash_attn_bwd.argtypes = (
             [i] + [p] * 10 + [i] * 6 + [ll] * 12 + [i] * 4 + [p]
@@ -127,6 +129,10 @@ def _bind(src: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.lcasr_selective_scan_fwd.restype = i
         lib.lcasr_selective_scan_bwd.argtypes = [p] * 12 + tail
         lib.lcasr_selective_scan_bwd.restype = i
+    elif src == "subsampling_fused.cu":
+        # x, out, 10 parameters; B, T, F, C, fp32 flag, activation, tile; stream
+        lib.lcasr_subsampling_fused.argtypes = [p] * 12 + [i] * 7 + [p]
+        lib.lcasr_subsampling_fused.restype = i
     lib.lcasr_cuda_error_string.argtypes = [i]
     lib.lcasr_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -8,8 +8,9 @@ own module tree (whose names follow the flax tree one to one):
   * Dense kernel (in, out) -> weight (out, in);
   * Conv kernel HWIO -> OIHW;
   * depthwise conv kernel (K, C) -> (C, 1, K);
-  * norm `scale` / `bias`, BatchRenorm `weight` / `bias` and its
-    `batch_stats` (`running_mean`, `running_std`, `num_batches_tracked`),
+  * norm `scale` / `bias`, BatchRenorm and BatchNorm `weight` / `bias` and
+    their `batch_stats` (`running_mean`, `running_std` or `running_var`,
+    `num_batches_tracked`), the Fourier positions' `w_r`,
     and the Mamba mixer's raw parameters (`conv1d_fwd_kernel` (K, C),
     `dt_proj_kernel` (dt_rank, C), `A_log`, `D`, ...) are carried over as
     they are.
@@ -32,16 +33,17 @@ import numpy as np
 import torch
 
 _MODULE = re.compile(
-    r"^(subsampling|conv_in|(dw|pw)_conv_\d+|out|norm_out|layers_\d+|"
+    r"^(subsampling|conv_in|(dw|pw)_conv_\d+|conv_\d+|vgg_conv_\d+_[01]|out|norm_out|"
+    r"layers_\d+|fourier_pos_enc|mlp_[01]|"
     r"(ff1|ff2|attn|conv)_norm(_out)?|ff1|ff2|fc1|fc2|attend|qkv_proj|out_proj|"
     r"conv|pointwise_conv[12]|norm|decoder|ff|reprojection|rotary_pos_emb|"
     r"pre_norm|proj_out|mixer|in_proj|x_proj|y_out)$"
 )
 _PARAM_LEAVES = {"kernel", "bias", "scale", "weight", "depthwise_kernel",
-                 "depthwise_bias", "inv_freq",
+                 "depthwise_bias", "inv_freq", "w_r",
                  "conv1d_fwd_kernel", "conv1d_fwd_bias", "conv1d_rvse_kernel",
                  "conv1d_rvse_bias", "dt_proj_kernel", "dt_proj_bias", "A_log", "D"}
-_STAT_LEAVES = {"running_mean", "running_std", "num_batches_tracked"}
+_STAT_LEAVES = {"running_mean", "running_std", "running_var", "num_batches_tracked"}
 
 
 def _walk(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()

@@ -1,0 +1,44 @@
+"""Learnable Fourier positional encoding (counterpart of
+lcasr_tpu/models/positional.py `LearnableFourierPosEnc`), the `fourier`
+arm of the paper's positional-encoding ablations.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from lcasr_torch.ops.dense import Dense
+
+
+class LearnableFourierPosEnc(nn.Module):
+    """x + learnable Fourier features of the absolute position: a
+    gamma-scaled Gaussian projection `w_r` of the scalar position into
+    d_model / 2 cos / sin pairs, scaled by d_model^-1/2.  `gamma=None` means
+    d_model // 2.  With `hidden_dim` the features pass a Linear-GELU-Linear
+    MLP before they are added (the conformer uses none).  `offsets` (B,)
+    shifts each sample's positions."""
+
+    def __init__(self, d_model: int, gamma: Optional[float] = 1.0,
+                 hidden_dim: Optional[int] = None, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.d_model, self.dtype = d_model, dtype
+        gamma = gamma if gamma is not None else d_model // 2
+        self.w_r = nn.Parameter(torch.randn(1, d_model // 2) * gamma ** -0.5)
+        self.hidden_dim = hidden_dim
+        if hidden_dim is not None:
+            self.mlp_0 = Dense(d_model, hidden_dim, dtype=dtype)
+            self.mlp_1 = Dense(hidden_dim, d_model, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
+        T = x.shape[1]
+        pos = torch.arange(T, dtype=torch.float32, device=x.device)[None, :, None]
+        if offsets is not None:
+            pos = pos + offsets[:, None, None].float()
+        proj = pos @ self.w_r  # (B or 1, T, d_model // 2)
+        pe = torch.cat([torch.cos(proj), torch.sin(proj)], dim=-1) * self.d_model ** -0.5
+        if self.hidden_dim is not None:
+            pe = self.mlp_1(F.gelu(self.mlp_0(pe.to(self.dtype)), approximate="none"))
+        return x + pe.to(x.dtype)

@@ -1,7 +1,8 @@
 """SCConformerXL: self-conditioned CTC conformer (counterpart of
 lcasr_tpu/models/sconformer_xl.py).
 
-  subsampling (8x dw_striding) -> n x ConformerLayer -> CTC decoder, with
+  subsampling (conv, 8x dw_striding by default, or frame stacking) ->
+  [learnable Fourier positions] -> n x ConformerLayer -> CTC decoder, with
   self-conditioning after every layer but the last and the legacy double
   norm before the output projection.
 
@@ -37,7 +38,9 @@ from torch.utils.checkpoint import checkpoint
 from lcasr_torch.device import resolve_device
 from lcasr_torch.models.decoder import ASRLinearSCDecoder
 from lcasr_torch.ops.attention import length_mask
-from lcasr_torch.ops.conv import ConformerConvolution, ConvSubsampling, recomputing
+from lcasr_torch.models.positional import LearnableFourierPosEnc
+from lcasr_torch.ops.conv import (
+    ConformerConvolution, ConvSubsampling, StackingSubsampling, recomputing)
 from lcasr_torch.ops.dense import Dense
 from lcasr_torch.ops.flash_attention import flash_attention
 from lcasr_torch.ops.mlp import ConformerFeedForward
@@ -68,7 +71,6 @@ _NOT_PORTED = {
     "longconv_ma_smoothing": (False, "longconv"),
     "longconv_ma_window_len": (7, "longconv"),
     "longconv_smooth_freq": (False, "longconv"),
-    "fourier_pos_enc": (False, "models/positional.py"),
     "return_attention_weights": (False, "attention capture (analysis)"),
     "capture_qkv": (False, "attention capture (analysis)"),
     "seq_axis_name": (None, "context parallelism"),
@@ -228,6 +230,7 @@ class SCConformerXL(nn.Module):
         conv_norm: str = "batch_renorm",
         decoder_norm: bool = False,
         use_rotary: bool = False,
+        fourier_pos_enc: bool = False,
         rotary_base_freq: float = 10000.0,
         rotary_interpolation_factor: float = 1.0,
         learned_rotary: bool = False,
@@ -262,6 +265,7 @@ class SCConformerXL(nn.Module):
         self.self_conditioning = self_conditioning
         self.legasee_double_norm = legasee_double_norm
         self.use_rotary = use_rotary
+        self.use_fourier = fourier_pos_enc
         self.checkpoint_every_n_layers = checkpoint_every_n_layers
         self.remat_subsampling = remat_subsampling
         self.dropout_rates = (dropout_ff, dropout_conv, dropout_attn)
@@ -272,18 +276,25 @@ class SCConformerXL(nn.Module):
                  else attention_window_size)
         self.window = (left, right)
 
-        self.subsampling = ConvSubsampling(
-            subsampling_factor=subsampling_factor, feat_in=feat_in, feat_out=d_model,
-            conv_channels=(subsampling_conv_channels if subsampling_conv_channels != -1
-                           else d_model),
-            activation=subsampling_act, norm_out=subsampling_norm_out,
-            subsampling=subsampling, dtype=dtype,
-        )
+        if subsampling == "stacking":
+            self.subsampling = StackingSubsampling(
+                subsampling_factor=subsampling_factor, feat_in=feat_in, feat_out=d_model,
+                norm=not subsampling_norm_out, norm_out=subsampling_norm_out, dtype=dtype)
+        else:
+            self.subsampling = ConvSubsampling(
+                subsampling_factor=subsampling_factor, feat_in=feat_in, feat_out=d_model,
+                conv_channels=(subsampling_conv_channels if subsampling_conv_channels != -1
+                               else d_model),
+                activation=subsampling_act, norm_out=subsampling_norm_out,
+                subsampling=subsampling, dtype=dtype,
+            )
         if use_rotary:
             self.rotary_pos_emb = RotaryEmbedding(
                 head_dim, base=rotary_base_freq, learned_freq=learned_rotary,
                 interpolation_factor=rotary_interpolation_factor,
             )
+        if fourier_pos_enc:
+            self.fourier_pos_enc = LearnableFourierPosEnc(d_model, dtype=dtype)
         self.layers = nn.ModuleList(
             ConformerLayer(
                 d_model, n_heads, head_dim, conv_kernel_size=conv_kernel_size,
@@ -316,6 +327,8 @@ class SCConformerXL(nn.Module):
         lengths_arg = length if have_lengths else None
         pad_mask = ~length_mask(length, N) if have_lengths else None
         rotary = self.rotary_pos_emb(N, dtype=torch.float32) if self.use_rotary else None
+        if self.use_fourier:
+            x = self.fourier_pos_enc(x)
 
         dec = self.decoder
         draw = train and max(self.dropout_rates) > 0.0

@@ -1,5 +1,7 @@
-"""Convolution ops (counterpart of lcasr_tpu/ops/conv.py): batch renorm,
-the conformer conv module, conv subsampling and frame-stacking subsampling.
+"""Convolution ops (counterpart of lcasr_tpu/ops/conv.py): batch renorm and
+batch norm, the conformer conv module with each of its norms, conv
+subsampling in its three modes (causal or not) and frame-stacking
+subsampling.
 
 The running statistics of BatchRenorm are buffers.  In training it
 normalises with masked batch statistics, corrected by the r/d factors of
@@ -24,7 +26,9 @@ from torch import nn
 from lcasr_torch.ops.dense import Dense
 from lcasr_torch.ops.mlp import ConformerFeedForward
 from lcasr_torch.ops.norms import LayerNorm
-from lcasr_torch.ops.subsampling import ACTS, dw_striding_chain
+from lcasr_torch.ops.subsampling import (
+    ACTS, dw_striding_chain, fused_dw_striding, fused_eligible, fused_subsampling_enabled,
+    strided_conv)
 
 _STATE = threading.local()
 
@@ -65,15 +69,7 @@ class BatchRenorm(nn.Module):
         if not train:
             y = (xf - self.running_mean) / self.running_std
             return (self.weight * y + self.bias).to(x.dtype)
-        if pad_mask is not None:
-            w = (~pad_mask).to(xf.dtype)[..., None]  # (B, T, 1)
-            count = w.sum((0, 1)).clamp_min(1.0)
-            mean = (xf * w).sum((0, 1)) / count
-            var = ((xf - mean) ** 2 * w).sum((0, 1)) / count
-        else:
-            count = float(xf.shape[0] * xf.shape[1])
-            mean = xf.sum((0, 1)) / count
-            var = ((xf - mean) ** 2).sum((0, 1)) / count
+        mean, var, _ = _masked_moments(xf, pad_mask)
         std = torch.sqrt(var) + self.eps
 
         if is_recomputing():
@@ -96,6 +92,71 @@ class BatchRenorm(nn.Module):
         return (self.weight * y + self.bias).to(x.dtype)
 
 
+def _masked_moments(xf: torch.Tensor, pad_mask: Optional[torch.Tensor]):
+    """(mean, biased variance, frame count) over (B, T), padded frames out."""
+    if pad_mask is not None:
+        w = (~pad_mask).to(xf.dtype)[..., None]  # (B, T, 1)
+        count = w.sum((0, 1)).clamp_min(1.0)
+        mean = (xf * w).sum((0, 1)) / count
+        var = ((xf - mean) ** 2 * w).sum((0, 1)) / count
+    else:
+        count = float(xf.shape[0] * xf.shape[1])
+        mean = xf.sum((0, 1)) / count
+        var = ((xf - mean) ** 2).sum((0, 1)) / count
+    return mean, var, count
+
+
+class BatchNorm(nn.Module):
+    """Plain batch norm over (B, T, C).  Eval: the running statistics.
+    Train: masked batch statistics; the running mean moves by momentum 0.1
+    and the running variance takes the unbiased batch variance, as torch's
+    BatchNorm1d does.  A checkpointed recompute updates nothing."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
+        super().__init__()
+        self.eps, self.momentum = eps, momentum
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
+                train: bool = False) -> torch.Tensor:
+        xf = x.float()
+        if train:
+            mean, var, n = _masked_moments(xf, pad_mask)
+            if not is_recomputing():
+                with torch.no_grad():
+                    n = torch.as_tensor(n, dtype=xf.dtype, device=xf.device)
+                    unbias = n / (n - 1.0).clamp_min(1.0)
+                    self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+                    self.running_var.mul_(1 - self.momentum).add_(self.momentum * var * unbias)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        return (self.weight * y + self.bias).to(x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """Group norm over (B, T, C): 32 groups, statistics over a group's
+    channels and all frames of a sample (padded ones included, as in the
+    JAX module), eps 1e-5."""
+
+    def __init__(self, num_features: int, num_groups: int = 32, eps: float = 1e-5):
+        super().__init__()
+        self.num_groups, self.eps = num_groups, eps
+        self.scale = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.group_norm(x.float().transpose(1, 2), self.num_groups, self.scale, self.bias,
+                         self.eps)
+        return y.transpose(1, 2).to(x.dtype)
+
+
+CONV_NORMS = ("batch_renorm", "batch_norm", "layer_norm", "group_norm", "none")
+
+
 def depthwise_conv1d(x: torch.Tensor, kernel: torch.Tensor,
                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Depthwise 1-D conv with 'same' padding.  x: (B, T, C); kernel:
@@ -108,7 +169,8 @@ def depthwise_conv1d(x: torch.Tensor, kernel: torch.Tensor,
 
 class ConformerConvolution(nn.Module):
     """pointwise (2x) -> GLU -> zero padded frames -> depthwise (K) ->
-    BatchRenorm -> SiLU -> pointwise, on (B, T, D)."""
+    norm -> SiLU -> pointwise, on (B, T, D).  `norm_type`: batch_renorm (the
+    default), batch_norm, layer_norm, group_norm or none."""
 
     def __init__(self, d_model: int, kernel_size: int = 9,
                  norm_type: str = "batch_renorm", exp_factor: float = 1.0,
@@ -116,18 +178,19 @@ class ConformerConvolution(nn.Module):
         super().__init__()
         if (kernel_size - 1) % 2:
             raise ValueError(f"kernel_size must be odd, got {kernel_size}")
-        if norm_type != "batch_renorm":
-            raise NotImplementedError(
-                f"conv_norm_type={norm_type!r} is not ported yet (batch_renorm is)"
-            )
+        if norm_type not in CONV_NORMS:
+            raise ValueError(f"conv_norm_type={norm_type} is not valid")
         inner = int(d_model * exp_factor)
         self.dtype = dtype
+        self.norm_type = norm_type
         self.pointwise_conv1 = Dense(d_model, inner * 2, dtype=dtype)
         self.depthwise_kernel = nn.Parameter(
             torch.randn(inner, 1, kernel_size) * kernel_size ** -0.5
         )
         self.depthwise_bias = nn.Parameter(torch.zeros(inner))
-        self.norm = BatchRenorm(inner)
+        if norm_type != "none":
+            self.norm = {"batch_renorm": BatchRenorm, "batch_norm": BatchNorm,
+                         "layer_norm": LayerNorm, "group_norm": GroupNorm}[norm_type](inner)
         self.pointwise_conv2 = Dense(inner, d_model, dtype=dtype)
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
@@ -139,9 +202,12 @@ class ConformerConvolution(nn.Module):
             x = x.masked_fill(pad_mask[..., None], 0.0)
         x = depthwise_conv1d(x, self.depthwise_kernel.to(x.dtype),
                              self.depthwise_bias.to(x.dtype))
-        stat_mask = _stat_mask(pad_mask) if train and pad_mask is not None else None
-        x = F.silu(self.norm(x, pad_mask=stat_mask, train=train))
-        return self.pointwise_conv2(x)
+        if self.norm_type in ("batch_renorm", "batch_norm"):
+            stat_mask = _stat_mask(pad_mask) if train and pad_mask is not None else None
+            x = self.norm(x, pad_mask=stat_mask, train=train)
+        elif self.norm_type != "none":
+            x = self.norm(x)
+        return self.pointwise_conv2(F.silu(x))
 
 
 def _stat_mask(pad_mask: torch.Tensor) -> torch.Tensor:
@@ -171,10 +237,21 @@ def calc_length(lengths: torch.Tensor, all_paddings: int, kernel_size: int,
 
 
 class ConvSubsampling(nn.Module):
-    """(B, T, feat_in) -> (B, T/factor, feat_out), mode dw_striding,
-    non-causal.  The conv output (B, C, T', F') is permuted to
-    (B, T', F', C) before flattening, so F'·C has C minor as in the JAX
-    package's NHWC layout and the `out` weights line up."""
+    """(B, T, feat_in) -> (B, T/factor, feat_out).
+
+    Modes: `dw_striding` (one full 3x3 stride-2 conv to C channels, then per
+    remaining stage a 3x3 stride-2 depthwise and a 1x1 pointwise conv),
+    `striding` (full 3x3 stride-2 convs) and `vggnet` (per stage two 3x3
+    convs and a 2x2 max pool in ceil mode), the activation after every conv
+    stage.  `is_causal` pads the strided convs (2, 1) on both axes instead
+    of (1, 1).  The conv output (B, C, T', F') is permuted to (B, T', F', C)
+    before flattening, so F'·C has C minor as in the JAX package's NHWC
+    layout and the `out` weights line up.
+
+    With LCASR_FUSED_SUB=1 the 8x non-causal dw_striding chain runs as one
+    fused kernel on shapes it takes (T and feat_in multiples of 8, C a
+    multiple of 128): see `ops/subsampling.py`.  A CUDA tensor then launches
+    the kernel or raises; there is no quiet return to the conv chain."""
 
     def __init__(self, subsampling_factor: int = 8, feat_in: int = 80,
                  feat_out: int = 768, conv_channels: int = 256,
@@ -182,49 +259,95 @@ class ConvSubsampling(nn.Module):
                  subsampling: str = "dw_striding", is_causal: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if subsampling != "dw_striding" or is_causal:
-            raise NotImplementedError(
-                f"subsampling={subsampling!r} causal={is_causal} is not ported "
-                f"yet (non-causal dw_striding is)"
-            )
+        if subsampling not in ("dw_striding", "striding", "vggnet"):
+            raise ValueError(f"Not valid sub-sampling: {subsampling}!")
         if activation not in ACTS:
             raise ValueError(f"unknown subsampling activation {activation!r}")
         self.sampling_num = int(math.log2(subsampling_factor))
         self.activation = activation
+        self.mode, self.is_causal = subsampling, is_causal
+        self.feat_in, self.conv_channels = feat_in, conv_channels
         self.dtype = dtype
         C = conv_channels
-        self.conv_in = nn.Conv2d(1, C, 3)
-        nn.init.uniform_(self.conv_in.weight, -1 / 3, 1 / 3)
-        nn.init.uniform_(self.conv_in.bias, -1 / 3, 1 / 3)
-        for i in range(self.sampling_num - 1):
-            dw = nn.Conv2d(C, C, 3, groups=C)
-            pw = nn.Conv2d(C, C, 1)
-            for p in (dw.weight, dw.bias):
-                nn.init.uniform_(p, -1 / 3, 1 / 3)
-            for p in (pw.weight, pw.bias):
-                nn.init.uniform_(p, -C ** -0.5, C ** -0.5)
-            self.add_module(f"dw_conv_{i}", dw)
-            self.add_module(f"pw_conv_{i}", pw)
+
+        def conv(name, cin, bound, **kw):
+            m = nn.Conv2d(cin, C, **kw)
+            if bound is not None:
+                for p in (m.weight, m.bias):
+                    nn.init.uniform_(p, -bound, bound)
+            else:  # flax's defaults: lecun-normal kernel, zero bias
+                nn.init.normal_(m.weight, std=(cin * 9) ** -0.5)
+                nn.init.zeros_(m.bias)
+            self.add_module(name, m)
+
+        if subsampling == "dw_striding":
+            conv("conv_in", 1, 1 / 3, kernel_size=3)
+            for i in range(self.sampling_num - 1):
+                conv(f"dw_conv_{i}", C, 1 / 3, kernel_size=3, groups=C)
+                conv(f"pw_conv_{i}", C, C ** -0.5, kernel_size=1)
+        elif subsampling == "striding":
+            # torch's default bound 1/sqrt(fan_in): 1/3 for stage 0 (fan_in
+            # 9), 1/sqrt(9 C) for the C-channel stages
+            for i in range(self.sampling_num):
+                conv(f"conv_{i}", 1 if i == 0 else C, 1 / 3 if i == 0 else (9 * C) ** -0.5,
+                     kernel_size=3)
+        else:
+            for i in range(self.sampling_num):
+                conv(f"vgg_conv_{i}_0", 1 if i == 0 else C, None, kernel_size=3)
+                conv(f"vgg_conv_{i}_1", C, None, kernel_size=3)
         f = float(feat_in)
         for _ in range(self.sampling_num):
-            f = math.floor((f - 3 + 2) / 2 + 1)
+            if subsampling == "vggnet":
+                f = math.ceil((f - 2) / 2 + 1)
+            else:
+                f = math.floor((f - 3 + (3 if is_causal else 2)) / 2 + 1)
         self.out = Dense(int(f) * C, feat_out, bias=norm_out, dtype=dtype)
         self.norm_out = LayerNorm(feat_out) if norm_out else None
 
+    def _params(self, *names):
+        return [t.to(self.dtype) for n in names
+                for t in (getattr(self, n).weight, getattr(self, n).bias)]
+
     def _conv_params(self):
-        mods = [self.conv_in]
-        for i in range(self.sampling_num - 1):
-            mods += [getattr(self, f"dw_conv_{i}"), getattr(self, f"pw_conv_{i}")]
-        return [t.to(self.dtype) for m in mods for t in (m.weight, m.bias)]
+        """(k0, b0, [kd, bd, kp, bp] x stages) of the dw_striding chain."""
+        return self._params("conv_in", *(f"{kind}_conv_{i}" for i in range(self.sampling_num - 1)
+                                         for kind in ("dw", "pw")))
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        new_lengths = calc_length(lengths, all_paddings=2, kernel_size=3, stride=2,
-                                  ceil_mode=False, repeat_num=self.sampling_num)
-        h = x.to(self.dtype)[:, None]  # (B, 1, T, F)
-        h = dw_striding_chain(h, self._conv_params(), self.activation)
-        B, C, T, Fo = h.shape
-        h = self.out(h.permute(0, 2, 3, 1).reshape(B, T, Fo * C))
+        if self.mode == "vggnet":
+            new_lengths = calc_length(lengths, all_paddings=0, kernel_size=2, stride=2,
+                                      ceil_mode=True, repeat_num=self.sampling_num)
+        else:
+            new_lengths = calc_length(lengths, all_paddings=3 if self.is_causal else 2,
+                                      kernel_size=3, stride=2, ceil_mode=False,
+                                      repeat_num=self.sampling_num)
+        x = x.to(self.dtype)
+        act = ACTS[self.activation]
+        if self.mode == "dw_striding":
+            if fused_subsampling_enabled() and fused_eligible(
+                    x.shape[1], self.feat_in, self.conv_channels, self.sampling_num,
+                    self.is_causal):
+                h = fused_dw_striding(x, self._conv_params(), self.activation)
+            else:
+                h = dw_striding_chain(x[:, None], self._conv_params(), self.activation,
+                                      causal=self.is_causal).permute(0, 2, 3, 1)
+        elif self.mode == "striding":
+            h = x[:, None]  # (B, 1, T, F)
+            for i in range(self.sampling_num):
+                h = act(strided_conv(h, *self._params(f"conv_{i}"), causal=self.is_causal))
+            h = h.permute(0, 2, 3, 1)
+        else:
+            h = x[:, None]
+            for i in range(self.sampling_num):
+                for j in (0, 1):
+                    k, b = self._params(f"vgg_conv_{i}_{j}")
+                    h = act(F.conv2d(h, k, b, padding=1))
+                # ceil mode pads the odd edge with -inf, as the JAX module does
+                h = F.max_pool2d(h, 2, 2, ceil_mode=True)
+            h = h.permute(0, 2, 3, 1)
+        B, T, Fo, C = h.shape  # (B, T', F', C): C minor
+        h = self.out(h.reshape(B, T, Fo * C))
         if self.norm_out is not None:
             h = self.norm_out(h)
         return h, new_lengths

@@ -12,7 +12,11 @@ every key is masked.  The band and the lengths are in global coordinates,
 shifted by `q_offset` / `kv_offset` (context parallelism).
 
 On a CUDA tensor the forward launches the kernel in
-`lcasr_torch/csrc/flash_attn_fwd.cu` (K1) and the backward the kernels in
+`lcasr_torch/csrc/flash_attn_fwd.cu` (K1) or, with `LCASR_ATTN_FWD_DB=1`
+(read at call time) and an attention that is not banded on both sides, the
+double-buffered one in `csrc/flash_attn_fwd_db.cu` (K2), as the JAX `_fwd`
+chooses; both compute the same function and `flash_attention_ref` is the
+plain version of both.  The backward launches the kernels in
 `csrc/flash_attn_bwd.cu`: the one-pass K3 when the attention is not banded
 on both sides, else K4 (dq) and K5 (dk, dv), as `_bwd_impl` chooses; with
 `LCASR_FUSED_ATTN_BWD=0` the split pair runs always.  All take bf16 or
@@ -33,6 +37,7 @@ from lcasr_torch.ops.attention import NEG_INF, length_mask, window_mask
 KERNEL_HEAD_DIMS = (32, 64, 128)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _SRC = "flash_attn_fwd.cu"
+_DB_SRC = "flash_attn_fwd_db.cu"
 _BWD_SRC = "flash_attn_bwd.cu"
 
 
@@ -75,9 +80,9 @@ def flash_attention_ref(
     q_offset: int = 0,
     kv_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the kernel: eager fp32 math on the same pre-scaled q,
-    the same masks and lse conventions.  Returns (o in q's dtype,
-    lse (B, H, Tq) fp32)."""
+    """Plain version of the forward kernels K1 and K2: eager fp32 math on
+    the same pre-scaled q, the same masks and lse conventions.  Returns
+    (o in q's dtype, lse (B, H, Tq) fp32)."""
     valid = _valid_pairs(q, k, lengths, window, q_offset, kv_offset)
     s = torch.einsum("bthd,bshd->bhts", _scaled(q, scale).float(), k.float())
     s = s.masked_fill(~valid[:, None], float("-inf"))
@@ -128,6 +133,13 @@ def _check_kernel_inputs(q, k, v, do=None):
         raise ValueError(f"flash_attention: do {do.shape} is not shaped like q {q.shape}")
 
 
+def _double_buffered_fwd(window: Tuple[int, int]) -> bool:
+    """K2 under LCASR_ATTN_FWD_DB=1 unless the band is two-sided (the gate of
+    the JAX `_fwd`)."""
+    banded = window[0] >= 0 and window[1] >= 0
+    return not banded and os.environ.get("LCASR_ATTN_FWD_DB", "0") == "1"
+
+
 def flash_attention_with_lse(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -149,9 +161,14 @@ def flash_attention_with_lse(
     lens = _lengths(lengths, B, Tk, q.device).contiguous()
     o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    lib = kernels.library(_SRC)
+    if _double_buffered_fwd(window):
+        name, lib = "flash_attention_fwd_db", kernels.library(_DB_SRC)
+        launch = lib.lcasr_flash_attn_fwd_db
+    else:
+        name, lib = "flash_attention_fwd", kernels.library(_SRC)
+        launch = lib.lcasr_flash_attn_fwd
     with torch.cuda.device(q.device):
-        err = lib.lcasr_flash_attn_fwd(
+        err = launch(
             qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), lens.data_ptr(), B, H, Tq, Tk, D,
             int(q.dtype == torch.float32),
@@ -159,8 +176,8 @@ def flash_attention_with_lse(
             int(q_offset), int(kv_offset), int(window[0]), int(window[1]),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    kernels.check(lib, err, "flash_attention_fwd")
-    kernels.launch_counts["flash_attention_fwd"] += 1
+    kernels.check(lib, err, name)
+    kernels.launch_counts[name] += 1
     return o, lse
 
 
@@ -261,7 +278,7 @@ def flash_attention_bwd(
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward: K1 (saves q, k, v, o, lse).  Backward: K3, or K4 + K5."""
+    """Forward: K1 or K2 (saves q, k, v, o, lse).  Backward: K3, or K4 + K5."""
 
     @staticmethod
     def forward(ctx, q, k, v, lengths, window, softmax_scale, q_offset, kv_offset):

@@ -65,6 +65,29 @@ def test_tiny_model_matches_jax(variant):
     _compare(jm, variables, port, audio, lengths)
 
 
+@pytest.mark.parametrize("option", [
+    dict(fourier_pos_enc=True, use_rotary=False), dict(fourier_pos_enc=True),
+    dict(subsampling="stacking"), dict(subsampling="stacking", subsampling_norm_out=True),
+    dict(subsampling="striding"), dict(subsampling="vggnet", subsampling_act="relu"),
+    dict(conv_norm="batch_norm"), dict(conv_norm="layer_norm"), dict(conv_norm="group_norm"),
+    dict(conv_norm="none"),
+], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
+def test_model_options_match_jax(option):
+    """The options of the decode slice, through flax init -> randomize ->
+    state_dict_from_flax -> strict load -> compare."""
+    cfg = dict(TINY, **option)
+    jm, variables, port = _pair(cfg, 300, seed=7)
+    for tree in (variables.get("batch_stats", {}),):
+        for layer in tree.values():  # BatchNorm keeps a variance: positive
+            norm = layer.get("conv", {}).get("norm", {})
+            if "running_var" in norm:
+                norm["running_var"] = np.abs(norm["running_var"]) + 0.5
+    port.load_state_dict(state_dict_from_flax(variables), strict=True)
+    rng = np.random.default_rng(8)
+    audio = rng.normal(size=(3, 80, 300)).astype(np.float32)
+    _compare(jm, variables, port, audio, np.array([300, 211, 97], np.int32))
+
+
 def test_flagship_widths_match_jax():
     from lcasr_torch.models.sconformer_xl import FLAGSHIP
 
@@ -108,12 +131,15 @@ def test_unported_options_raise():
     small = dict(vocab_size=8, d_model=32, n_layers=1, n_heads=1, head_dim=32,
                  subsampling_conv_channels=8, device="cpu")
     for kw in (dict(seq_axis_name="seq"), dict(quant_w8a8=True), dict(conv_type="longconv"),
-               dict(capture_qkv=True), dict(remat_policy="dots"),
-               dict(subsampling="stacking"), dict(conv_norm="batch_norm")):
+               dict(capture_qkv=True), dict(remat_policy="dots")):
         with pytest.raises(NotImplementedError):
             SCConformerXL(**small, **kw)
     with pytest.raises(TypeError):
         SCConformerXL(**small, no_such_option=1)
+    # names that do not exist raise as in the JAX model
+    for kw in (dict(subsampling="conv1d"), dict(conv_norm="instance_norm")):
+        with pytest.raises(ValueError):
+            SCConformerXL(**small, **kw)
 
 
 def test_model_without_device_raises_when_no_gpu():
@@ -177,7 +203,9 @@ def test_port_imports_no_jax_and_no_lcasr_tpu():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'lcasr_tpu', 'yaml', 'triton'))\n"
-        "for name in ('lcasr_torch.ops.ssm', 'lcasr_torch.models.mamba'):\n"
+        "for name in ('lcasr_torch.ops.ssm', 'lcasr_torch.models.mamba',\n"
+        "             'lcasr_torch.ops.subsampling', 'lcasr_torch.models.positional',\n"
+        "             'lcasr_torch.evaluation.streaming'):\n"
         "    assert name in sys.modules, name\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('lcasr_torch')]))\n"
@@ -185,4 +213,4 @@ def test_port_imports_no_jax_and_no_lcasr_tpu():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=str(__import__("pathlib").Path(__file__).parents[1]))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 40  # every module was imported (ops.ssm, models.mamba too)
+    assert int(out.stdout.strip()) >= 41  # every module was imported (models.positional too)

@@ -171,12 +171,52 @@ def test_conv_subsampling_matches_jax_with_ragged_lengths():
 
 
 def test_conv_subsampling_other_modes_raise():
+    """striding, vggnet and causal are ported (the next test); a mode or an
+    activation that does not exist raises, as in the JAX module."""
     from lcasr_torch.ops.conv import ConvSubsampling
 
-    with pytest.raises(NotImplementedError):
-        ConvSubsampling(subsampling="striding")
-    with pytest.raises(NotImplementedError):
-        ConvSubsampling(is_causal=True)
+    with pytest.raises(ValueError, match="Not valid sub-sampling"):
+        ConvSubsampling(subsampling="conv1d")
+    with pytest.raises(ValueError, match="activation"):
+        ConvSubsampling(activation="swish")
+
+
+@pytest.mark.parametrize("mode,causal,act", [
+    ("striding", False, "silu"), ("striding", True, "relu"), ("vggnet", False, "gelu"),
+    ("dw_striding", True, "silu"), ("vggnet", True, "silu"),
+])
+def test_conv_subsampling_modes_match_jax(mode, causal, act):
+    """T = 203 and feat_in = 80 give odd intermediate sizes (vggnet's ceil-mode
+    pool pads them with -inf); causal pads (2, 1) on both axes."""
+    from lcasr_tpu.ops.conv import ConvSubsampling as JSub
+    from lcasr_torch.ops.conv import ConvSubsampling
+
+    rng = np.random.default_rng(21)
+    x = rng.normal(size=(3, 203, 80)).astype(np.float32)
+    lengths = np.array([203, 150, 9], np.int32)
+    kw = dict(feat_in=80, feat_out=48, conv_channels=16, subsampling=mode, is_causal=causal,
+              activation=act, norm_out=mode == "striding")
+    jm = JSub(**kw, use_pallas=False)
+    variables = randomize(jm.init(jax.random.PRNGKey(0), x, lengths), seed=22)
+    want, want_len = jm.apply(variables, x, lengths)
+    port = load_port(ConvSubsampling(**kw), variables)
+    got, got_len = port(t(x), t(lengths))
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got_len.numpy(), np.asarray(want_len))
+    assert_close(got, want, atol=1e-4)  # sums over 9*16 and up to 176 terms of O(1)
+
+
+def test_striding_initialiser_bounds():
+    """Stage 0 draws from U(-1/3, 1/3), the C-channel stages from
+    U(-1/sqrt(9 C), 1/sqrt(9 C)) (torch's default for their fan-in)."""
+    from lcasr_torch.ops.conv import ConvSubsampling
+
+    torch.manual_seed(0)
+    m = ConvSubsampling(conv_channels=16, subsampling="striding")
+    assert 0.3 < m.conv_0.weight.abs().max() <= 1 / 3
+    bound = (9 * 16) ** -0.5
+    assert 0.9 * bound < m.conv_1.weight.abs().max() <= bound
+    assert 0.8 * bound < m.conv_2.bias.abs().max() <= bound
 
 
 def test_calc_length_matches_jax():
@@ -207,6 +247,36 @@ def test_conformer_convolution_eval_matches_jax_with_pad_mask():
     # against JAX); here: it runs and moves the statistics once
     port(t(x), pad_mask=t(pad_mask), train=True)
     assert int(port.norm.num_batches_tracked) == 1
+
+
+@pytest.mark.parametrize("norm_type", ["batch_norm", "layer_norm", "group_norm", "none"])
+def test_conformer_convolution_norms_match_jax(norm_type):
+    """Each conv norm in eval and in train form (batch_norm: masked batch
+    statistics, then the moved running statistics).  group_norm needs a
+    width that 32 groups divide."""
+    from lcasr_tpu.ops.conv import ConformerConvolution as JConv
+    from lcasr_torch.models.import_jax import flax_from_state_dict
+    from lcasr_torch.ops.conv import ConformerConvolution
+
+    rng = np.random.default_rng(23)
+    x = rng.normal(size=(3, 30, 64)).astype(np.float32)
+    lengths = np.array([30, 17, 0])
+    pad_mask = np.arange(30)[None, :] >= lengths[:, None]
+    jm = JConv(d_model=64, kernel_size=9, norm_type=norm_type)
+    variables = randomize(jm.init(jax.random.PRNGKey(0), x, pad_mask=pad_mask), seed=24)
+    if norm_type == "batch_norm":  # a variance, not a deviation: keep it positive
+        stats = variables["batch_stats"]["norm"]
+        stats["running_var"] = np.abs(stats["running_var"]) + 0.5
+    port = load_port(ConformerConvolution(64, 9, norm_type), variables)
+    assert_close(port(t(x), pad_mask=t(pad_mask)),
+                 jm.apply(variables, x, pad_mask=pad_mask, train=False))
+    want, updates = jm.apply(variables, x, pad_mask=pad_mask, train=True,
+                             mutable=["batch_stats"])
+    assert_close(port(t(x), pad_mask=t(pad_mask), train=True), want)
+    if norm_type == "batch_norm":
+        moved = flax_from_state_dict(port.state_dict())["batch_stats"]["norm"]
+        for name in ("running_mean", "running_var"):
+            assert_close(moved[name], updates["batch_stats"]["norm"][name])
 
 
 # ---------------------------------------------------------------------------
@@ -277,6 +347,56 @@ def test_flash_attention_ref_matches_pallas_interpret(case):
     if lengths is not None and (lengths == 0).any():
         zero = np.flatnonzero(lengths == 0)
         assert (o_t[zero] == 0).all() and (lse_t[zero] == -1e30).all()
+
+
+DB_CASES = {
+    "lengths": dict(lengths=[200, 131, 0]),
+    "left_band": dict(lengths=[200, 131, 60], window=(16, -1)),
+    "right_band": dict(lengths=[200, 77, 150], window=(-1, 5)),
+    # tests/test_flash_attention.py::test_double_buffered_forward_out_of_band_shard
+    "shard_out_of_band": dict(lengths=[1024, 1024, 1024], window=(64, -1), q_offset=512),
+    "shard_partly_in_band": dict(lengths=[1024, 1024, 1024], window=(64, -1), q_offset=128,
+                                 kv_offset=64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DB_CASES))
+def test_flash_attention_matches_pallas_double_buffered(case, monkeypatch):
+    """The JAX forward under LCASR_ATTN_FWD_DB=1 (its double-buffered Pallas
+    kernel, in the interpreter) against the port's forward, which on the CPU
+    is the plain version under either setting of the flag: fp32, atol 1e-5.
+    A kv shard wholly behind a one-sided window contributes nothing."""
+    from lcasr_tpu.ops.flash_attention import flash_attention_with_lse as pallas_fwd
+    from lcasr_torch.ops.flash_attention import flash_attention_with_lse
+
+    monkeypatch.setenv("LCASR_ATTN_FWD_DB", "1")
+    kw = DB_CASES[case]
+    rng = np.random.default_rng(15)
+    B, T, H, D = 3, 200, 2, 32
+    q, k, v = (rng.normal(size=(B, T, H, D)).astype(np.float32) for _ in range(3))
+    lengths = np.asarray(kw["lengths"], np.int32)
+    window = kw.get("window", (-1, -1))
+    qo, ko = kw.get("q_offset", 0), kw.get("kv_offset", 0)
+    o_j, lse_j = pallas_fwd(
+        q, k, v, lengths=jnp.asarray(lengths), window=window,
+        q_offset=jnp.int32(qo) if qo else None, kv_offset=jnp.int32(ko) if ko else None,
+    )
+    o_t, lse_t = flash_attention_with_lse(t(q), t(k), t(v), t(lengths), window, None, qo, ko)
+    assert_close(o_t, o_j)
+    assert_close(lse_t, lse_j)
+    if case == "shard_out_of_band":
+        assert (o_t == 0).all() and np.abs(np.asarray(o_j)).max() == 0.0
+
+
+def test_double_buffered_route_follows_the_flag(monkeypatch):
+    """K2 only under the flag and never for a band on both sides."""
+    from lcasr_torch.ops.flash_attention import _double_buffered_fwd
+
+    monkeypatch.delenv("LCASR_ATTN_FWD_DB", raising=False)
+    assert not _double_buffered_fwd((-1, -1))
+    monkeypatch.setenv("LCASR_ATTN_FWD_DB", "1")
+    assert _double_buffered_fwd((-1, -1)) and _double_buffered_fwd((64, -1))
+    assert _double_buffered_fwd((-1, 5)) and not _double_buffered_fwd((16, 16))
 
 
 def test_flash_attention_ref_matches_reference_attention_bf16():

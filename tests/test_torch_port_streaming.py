@@ -104,23 +104,52 @@ def test_bf16_upload_and_greedy_collapse(decoders):
 
 
 def test_single_window_mode_equals_forward(decoders):
-    """seq_len past the recording: one window over all of it."""
+    """seq_len past the recording: one window over all of it, widened to
+    4096 frames with the tail masked.  At a length that is a multiple of 8
+    the widened window equals the direct forward (at other lengths the last
+    frames read act(bias) rows past the true extent: the next test)."""
     _, tdec, _ = decoders
-    spec = np.random.default_rng(3).normal(size=(1, 80, 300)).astype(np.float32)
+    spec = np.random.default_rng(3).normal(size=(1, 80, 296)).astype(np.float32)
     got = tdec.logits(spec, seq_len=4096, overlap=0)
     with torch.no_grad():
         want = tdec.model(torch.from_numpy(spec))["final_posteriors"][0].numpy()
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("spec_n", [296, 301, 303])
+def test_single_window_mode_matches_jax(decoders, spec_n):
+    """Both decoders widen the single window to the next multiple of 4096
+    frames; when spec_n is not a multiple of 8 the last output frames then
+    differ from a window of the exact width by up to 8e-3, so the port must
+    widen as the reference does.  fp32, atol 1e-4 as test_logits_match_jax;
+    ids equal except at near-ties."""
+    jdec, tdec, _ = decoders
+    spec = np.random.default_rng(spec_n).normal(size=(1, 80, spec_n)).astype(np.float32)
+    want = jdec.logits(spec, seq_len=4096, overlap=0)
+    got = tdec.logits(spec, seq_len=4096, overlap=0)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    top2 = np.sort(want, axis=-1)[:, -2:]
+    close = (top2[:, 1] - top2[:, 0]) < 1e-5
+    ids_j = np.asarray(jdec.greedy(spec, seq_len=4096, overlap=0))
+    ids_t = tdec.greedy(spec, seq_len=4096, overlap=0)
+    np.testing.assert_array_equal(ids_t[~close], ids_j[~close])
+
+
 def test_unported_options_raise(decoders):
+    """Only the mesh (data-parallel) decode is still refused; an integer
+    upload type other than int8 / int4 is refused as in the reference."""
     from lcasr_torch.evaluation.streaming import StreamingDecoder
 
     model = decoders[1].model
+    with pytest.raises(NotImplementedError):
+        StreamingDecoder(model, N_CLASSES, device="cpu", mesh=object())
+    for bad in ("int16", torch.int32, np.uint8, object()):
+        with pytest.raises(ValueError):
+            StreamingDecoder(model, N_CLASSES, device="cpu", transfer_dtype=bad)
     for kw in (dict(transfer_dtype="int8"), dict(transfer_dtype="int4"),
-               dict(pipeline_upload=True), dict(cache_upload=True), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            StreamingDecoder(model, N_CLASSES, device="cpu", **kw)
+               dict(pipeline_upload=True), dict(cache_upload=True)):
+        StreamingDecoder(model, N_CLASSES, device="cpu", **kw)
 
 
 def test_decoder_without_device_raises_when_no_gpu(decoders):
