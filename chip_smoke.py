@@ -20,7 +20,10 @@ Phases, in order; any failure raises and exits non-zero:
               K6 and its backward K7, the fused 8x subsampling K8; time each
               against its bound, the plain version and, where there is one, a
               library call doing the same work (the yardstick; the port never
-              calls it);
+              calls it).  K1 and K2 are timed by their device work (launches
+              of the wrapper's launch function back to back between two events) and by
+              whole wrapper calls; the build fails on serialised wgmma or
+              spills in their bf16 entries;
   3. model    the flagship SCConformerXL (9L-768D-6H, bf16, random weights
               from a numpy seed) on one (16, 80, 16384) window batch: finite,
               normalised log-probs, compared with the same model whose
@@ -56,8 +59,11 @@ Phases, in order; any failure raises and exits non-zero:
               cache_upload; then the Mamba's decode with LCASR_FUSED_SUB=1
               (24 K6 and 4 K8 launches);
   9. train_opt  one 16384 x 4 flagship training step under both flags (K2,
-              K3 on K2's lse, K8 and its recomputing backward) against the
-              same step without them (loss and whole gradient).
+              K3 on K2's lse, K8 and its recomputing backward), and under
+              each flag alone, against the same step without them (loss and
+              whole gradient): K2 alone within a rerun's difference, the
+              steps with K8 within that of two other computations of the
+              conv chain.
 
 The line before the last two is one JSON object with each kernel's numbers;
 the last line is the device record.  Without a GPU, or without the repo
@@ -199,6 +205,107 @@ def time_ms(torch, fn, n: int, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+def device_ms(torch, fn, n: int = 50, warmup: int = 3) -> float:
+    """Device time per call of fn: n calls back to back between two CUDA
+    events, no synchronisation inside, divided by n.  fn must enqueue device
+    work only (inputs and outputs made once, outside), so the window holds
+    the kernels' own time and not the host's."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def device_kernel_totals(torch, fn, n: int = 10) -> dict:
+    """{kernel name: (device microseconds, launches)} over n calls of fn
+    (torch.profiler), after one warm call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+# the bf16 forward kernels' template (csrc/flash_fwd_hopper.cuh), as ptxas
+# and the profiler name it
+HOPPER_FWD_SYMBOL = "flash_fwd_hopper"
+HOPPER_FWD_SOURCES = ("flash_attn_fwd.cu", "flash_attn_fwd_db.cu")
+
+
+def ptxas_entries(text: str) -> dict:
+    """{function: {"registers": n, "spill_stores": b, "spill_loads": b}} from
+    nvcc's -Xptxas=-v output."""
+    import re
+
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, {})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[fn].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+    return out
+
+
+def check_hopper_build(build_log: dict) -> dict:
+    """Fail if ptxas serialised the wgmma of K1 or K2, ignored their
+    setmaxnreg, or spilled in their bf16 (Hopper) entries; returns those
+    entries' registers and spills."""
+    report = {}
+    for src in HOPPER_FWD_SOURCES:
+        text = build_log.get(src, "")
+        if text == "(cached)":
+            raise AssertionError(f"{src}: built before this run; its ptxas report is not here")
+        for bad in ("wgmma.mma_async instructions are serialized", "setmaxnreg ignored"):
+            if bad in text:
+                lines = [ln.strip() for ln in text.splitlines() if bad in ln]
+                raise AssertionError(f"{src}: ptxas reports '{bad}': {lines[:3]}")
+        entries = {fn: e for fn, e in ptxas_entries(text).items() if HOPPER_FWD_SYMBOL in fn}
+        if not entries:
+            raise AssertionError(f"{src}: no {HOPPER_FWD_SYMBOL} entry in ptxas's report")
+        for fn, e in entries.items():
+            if e.get("spill_stores", 0) or e.get("spill_loads", 0):
+                raise AssertionError(f"{src}: {fn} spills: {e}")
+        report[src] = entries
+    return report
+
+
+def fwd_entry(torch, q, k, v, db: bool = False):
+    """A launch of K1 (db: K2) through the wrapper's own launch function on
+    inputs prepared once: q scaled, full lengths and the outputs made
+    outside, so that a timing window holds the launches and nothing else of
+    the wrapper.  Not counted: these are the comparison's launches, not the
+    main path's."""
+    from lcasr_torch.ops import flash_attention as fa
+
+    B, Tq, H, D = q.shape
+    qs = fa._scaled(q, None)
+    lens = fa._lengths(None, B, k.shape[1], q.device).contiguous()
+    o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    return lambda: fa._launch_fwd(qs, k, v, o, lse, lens, (-1, -1), 0, 0, db)
+
+
 # ---------------------------------------------------------------------------
 # phase 2: flash-attention forward against its plain version
 # ---------------------------------------------------------------------------
@@ -220,7 +327,39 @@ def attention_cases(torch):
         ("fp32_D128", 2, 333, 2, 128, f32, [333, 120], (-1, -1), 0, 0, True),
         ("fp32_D64_band", 2, 300, 2, 64, f32, [300, 0], (32, 8), 5, 0, False),
         ("fp32_D32", 2, 130, 2, 32, f32, [130, 129], (-1, -1), 0, 0, False),
+        # the edges of the bf16 kernels' 128 x 128 tiles
+        ("T127", 2, 127, 2, 128, bf, [127, 100], (-1, -1), 0, 0, False),
+        ("T129", 2, 129, 2, 128, bf, [129, 128], (-1, -1), 0, 0, False),
+        ("T255", 2, 255, 2, 128, bf, [255, 129], (-1, -1), 0, 0, True),
+        ("T257", 2, 257, 2, 128, bf, [257, 256], (-1, -1), 0, 0, True),
+        ("T2049", 2, 2049, 2, 128, bf, [2049, 1025], (-1, -1), 0, 0, True),
+        # rows 256.. visit tiles from local key 128 on: the first tile starts
+        # exactly on a tile edge
+        ("left_window_on_tile_edge", 2, 512, 2, 128, bf, [512, 400], (128, -1), 0, 0, False),
+        ("shard_offsets_128", 2, 300, 2, 128, bf, [428, 350], (64, -1), 128, 128, False),
+        ("decode_last_batch_D64", 16, 2048, 6, 64, bf, decode_last, (-1, -1), 0, 0, True),
+        ("decode_last_batch_D32", 16, 2048, 6, 32, bf, decode_last, (-1, -1), 0, 0, True),
+        # a 16384 x 4 training micro step's shape, with ragged lengths
+        ("train_ragged", 4, 2048, 6, 128, bf, [2048, 1901, 1500, 777], (-1, -1), 0, 0, True),
     ]
+
+
+def check_layout_refused(torch, kernel: str):
+    """A bf16 view whose H stride is odd (not a multiple of 16 bytes) cannot
+    be read by a TMA tensor map: the wrapper must raise and launch nothing."""
+    from lcasr_torch import kernels
+    from lcasr_torch.ops.flash_attention import flash_attention_with_lse
+
+    x = torch.randn((2, 64, 2, 129), device="cuda").to(torch.bfloat16)[..., :128]
+    kernels.reset_launch_counts()
+    try:
+        flash_attention_with_lse(x, x, x)
+    except ValueError as e:
+        if any(kernels.launch_counts.values()):
+            raise AssertionError(f"a refused layout launched {kernels.launch_counts}")
+        log(f"  odd H stride {x.stride()} refused by the wrapper ({kernel} route): {e}")
+        return
+    raise AssertionError(f"{kernel}: a view with H stride {x.stride(2)} was not refused")
 
 
 def make_qkv(torch, B, T, H, D, dtype, views, gen):
@@ -247,6 +386,30 @@ def valid_pairs(lengths, B, T, window, q_off, kv_off) -> int:
             ok &= cols[None, :] >= rows[:, None] - window[0]
         total += int(ok.sum())
     return total
+
+
+def require_k2_equals_k1(torch, case, gen):
+    """K2 repeats K1's arithmetic in the same order (the products of one tile
+    are issued earlier, not changed): on the same inputs its o and lse must
+    be bit-equal to K1's."""
+    from lcasr_torch import kernels
+    from lcasr_torch.ops.flash_attention import flash_attention_with_lse
+
+    (name, B, T, H, D, dtype, lengths, window, qo, ko, views) = case
+    q, k, v = make_qkv(torch, B, T, H, D, dtype, views, gen)
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    kernels.reset_launch_counts()
+    o1, lse1 = flash_attention_with_lse(q, k, v, lens, window, None, qo, ko)
+    with env_flags(LCASR_ATTN_FWD_DB="1"):
+        o2, lse2 = flash_attention_with_lse(q, k, v, lens, window, None, qo, ko)
+    launched = {k_: n for k_, n in kernels.launch_counts.items() if n}
+    if launched != {"flash_attention_fwd": 1, "flash_attention_fwd_db": 1}:
+        raise AssertionError(f"{name}: launched {launched}, expected one K1 and one K2")
+    if not (torch.equal(o1, o2) and torch.equal(lse1, lse2)):
+        raise AssertionError(
+            f"{name}: K2 differs from K1: max|do| "
+            f"{(o1.float() - o2.float()).abs().max().item():.3e}, max|dlse| "
+            f"{(lse1 - lse2).abs().max().item():.3e}")
 
 
 def check_attention_case(torch, case, gen, kernel: str):
@@ -313,18 +476,25 @@ def phase_kernels(torch):
             worst["o"] = max(worst["o"], err_o)
             worst["lse"] = max(worst["lse"], err_lse)
 
+    check_layout_refused(torch, "flash_attention_fwd")
+
     # timing at the decode's shape, full lengths, where all three compute
-    # the same function
+    # the same function: the kernels' own device time (launches back to
+    # back), then the time of a whole wrapper call
     B, T, H, D = 16, 2048, 6, 128
     q, k, v = make_qkv(torch, B, T, H, D, torch.bfloat16, True, gen)
-    kernel_ms = time_ms(torch, lambda: flash_attention_with_lse(q, k, v), n=30)
-    plain_ms = time_ms(torch, lambda: flash_attention_ref(q, k, v), n=5, warmup=1)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), n=30)
+    k1 = fwd_entry(torch, q, k, v)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)
+    kernel_ms, library_ms = device_ms(torch, k1), device_ms(torch, sdpa)
+    wrapper_ms = time_ms(torch, lambda: flash_attention_with_lse(q, k, v), n=30)
+    library_call_ms = time_ms(torch, sdpa, n=30)
+    plain_ms = time_ms(torch, lambda: flash_attention_ref(q, k, v), n=5, warmup=1)
     bound_ms, bound_by, flops = attention_bound(B, T, H, D)
-    log(f"  decode shape (16, 2048, 6, 128) bf16: kernel {kernel_ms:.4f} ms "
-        f"({flops / kernel_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-        f"scaled_dot_product_attention {library_ms:.4f} ms, "
+    log(f"  decode shape (16, 2048, 6, 128) bf16: kernel {kernel_ms:.4f} ms of device time "
+        f"({flops / kernel_ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / kernel_ms:.1f}% of its bound), "
+        f"scaled_dot_product_attention {library_ms:.4f} ms; one call each: wrapper "
+        f"{wrapper_ms:.4f} ms, library {library_call_ms:.4f} ms; plain {plain_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms")
     return {
         "name": "flash_attention_fwd",
@@ -337,9 +507,10 @@ def phase_kernels(torch):
         "max_err_o": worst["o"],
         "max_err_lse": worst["lse"],
         "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
+        "wrapper_ms": wrapper_ms,
         "plain_ms": plain_ms,
         "library_ms": library_ms,
+        "library_call_ms": library_call_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
     }
@@ -352,8 +523,9 @@ def phase_kernels_db(torch):
     """K2 under LCASR_ATTN_FWD_DB=1 on every attention case that is not banded
     on both sides (a two-sided band is K1's route under the flag too), on the
     two offset cases of tests/test_flash_attention.py (a kv shard wholly
-    behind a one-sided window must give exactly 0), and against K1 at the
-    decode shape; then its time beside K1's and the library's."""
+    behind a one-sided window must give exactly 0); bit-equal to K1 on every
+    bf16 case it takes and at the decode shape; then its time beside K1's and
+    the library's."""
     import torch.nn.functional as F
 
     from lcasr_torch.ops.flash_attention import flash_attention_ref, flash_attention_with_lse
@@ -379,6 +551,11 @@ def phase_kernels_db(torch):
         for c in attention_cases(torch):  # a two-sided band stays on K1 under the flag
             if c[7][0] >= 0 and c[7][1] >= 0:
                 check_attention_case(torch, c, gen, "flash_attention_fwd")
+    equal = [c for c in cases + shard if c[5] == bf]
+    for case in equal:
+        require_k2_equals_k1(torch, case, gen)
+    log(f"  K2 bit-equal to K1 (o and lse) on the {len(equal)} bf16 cases K2 takes: "
+        + ", ".join(c[0] for c in equal))
 
     B, T, H, D = 16, 2048, 6, 128
     q, k, v = make_qkv(torch, B, T, H, D, bf, True, gen)
@@ -388,31 +565,36 @@ def phase_kernels_db(torch):
         with env_flags(LCASR_ATTN_FWD_DB="1"):
             return flash_attention_with_lse(q, k, v)
 
-    (o1, lse1), (o2, lse2) = k1(), k2()
-    d_o, d_lse = (o1.float() - o2.float()).abs().max().item(), (lse1 - lse2).abs().max().item()
-    # the two kernels do the same arithmetic in the same order within a tile
-    if d_o > 2e-2 or d_lse > 2e-3:
-        raise AssertionError(f"K2 against K1 at the decode shape: max|do| {d_o}, max|dlse| {d_lse}")
-    # in turns: K1, K2, K2, K1
+    require_k2_equals_k1(torch, ("decode_shape", B, T, H, D, bf, None, (-1, -1), 0, 0, True), gen)
+    with env_flags(LCASR_ATTN_FWD_DB="1"):
+        check_layout_refused(torch, "flash_attention_fwd_db")
+    # device time in turns: K1, K2, K2, K1, the library between; then whole
+    # wrapper calls in the same order
+    e1, e2 = fwd_entry(torch, q, k, v), fwd_entry(torch, q, k, v, db=True)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)
+    d1a, d2a = device_ms(torch, e1), device_ms(torch, e2)
+    library_ms = device_ms(torch, sdpa)
+    d2b, d1b = device_ms(torch, e2), device_ms(torch, e1)
     t1a, t2a = time_ms(torch, k1, n=30), time_ms(torch, k2, n=30)
     t2b, t1b = time_ms(torch, k2, n=30), time_ms(torch, k1, n=30)
-    kernel_ms, k1_ms = min(t2a, t2b), min(t1a, t1b)
+    kernel_ms, k1_ms = min(d2a, d2b), min(d1a, d1b)
     plain_ms = time_ms(torch, lambda: flash_attention_ref(q, k, v), n=3, warmup=1)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt), n=30)
     bound_ms, bound_by, flops = attention_bound(B, T, H, D)
-    log(f"  K2 at (16, 2048, 6, 128) bf16 against K1: max|do| {d_o:.3e}, max|dlse| {d_lse:.3e}; "
-        f"K2 {t2a:.4f} / {t2b:.4f} ms ({flops / kernel_ms / 1e9:.1f} TFLOP/s), K1 in the same "
-        f"turns {t1a:.4f} / {t1b:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"scaled_dot_product_attention {library_ms:.4f} ms, bound {bound_ms:.4f} ms")
+    log(f"  K2 at (16, 2048, 6, 128) bf16, bit-equal to K1: "
+        f"device time K2 {d2a:.4f} / {d2b:.4f} ms ({flops / kernel_ms / 1e9:.1f} TFLOP/s), K1 in "
+        f"the same turns {d1a:.4f} / {d1b:.4f} ms, scaled_dot_product_attention "
+        f"{library_ms:.4f} ms; wrapper calls K2 {t2a:.4f} / {t2b:.4f} ms, K1 {t1a:.4f} / "
+        f"{t1b:.4f} ms; plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms")
     return {
         "name": "flash_attention_fwd_db", "route": "cuda",
         "source": "lcasr_torch/csrc/flash_attn_fwd_db.cu",
         "replaces": "lcasr_tpu/ops/flash_attention.py:117",
         "replaces_fn": "lcasr_tpu/ops/flash_attention.py:_fwd_kernel_db",
         "launches": None, "max_abs_err": max(worst["o"], worst["lse"]),
-        "max_err_o": worst["o"], "max_err_lse": worst["lse"], "max_diff_from_k1": d_o,
-        "ms": kernel_ms, "k1_ms_same_turns": k1_ms, "plain_ms": plain_ms,
+        "max_err_o": worst["o"], "max_err_lse": worst["lse"], "max_diff_from_k1": 0.0,
+        "ms": kernel_ms, "k1_ms_same_turns": k1_ms, "wrapper_ms": min(t2a, t2b),
+        "k1_wrapper_ms_same_turns": min(t1a, t1b), "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
     }
 
@@ -439,19 +621,11 @@ def run_bwd(torch, fused: bool, *args):
 def kernel_device_ms(torch, fn, names, n: int = 10):
     """Mean device time per launch of each kernel whose name starts with one
     of `names`, over n calls of fn (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.key_averages():
+    for key, (us, count) in device_kernel_totals(torch, fn, n).items():
         for want in names:
-            if want.replace(" ", "") in e.key.replace(" ", "") and e.count:
-                out[want] = e.self_device_time_total / e.count / 1e3
+            if want.replace(" ", "") in key.replace(" ", "") and count:
+                out[want] = us / count / 1e3
     missing = [w for w in names if w not in out]
     if missing:
         raise AssertionError(f"profiler recorded no device time for {missing}")
@@ -528,7 +702,19 @@ def phase_kernels_bwd(torch):
     def sdpa_fwd_bwd():
         torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt), (qt, kt, vt), dot)
 
-    library_ms = time_ms(torch, sdpa_fwd_bwd, n=20) - time_ms(torch, sdpa_fwd, n=20)
+    # the library's backward: the device time of the kernels that a forward
+    # and backward runs and a forward alone does not, from profiler windows
+    n_prof = 10
+    fwd_only = device_kernel_totals(torch, sdpa_fwd, n_prof)
+    fwd_bwd = device_kernel_totals(torch, sdpa_fwd_bwd, n_prof)
+    bwd_kernels = {name: us / n_prof / 1e3 for name, (us, _) in fwd_bwd.items()
+                   if name not in fwd_only}
+    if not bwd_kernels:
+        raise AssertionError("the profiler recorded no backward kernel of scaled_dot_product_attention")
+    library_ms = sum(bwd_kernels.values())
+    log(f"  scaled_dot_product_attention backward at (4, 2048, 6, 128): {library_ms:.4f} ms of "
+        f"device time in {len(bwd_kernels)} kernels: " + ", ".join(
+            f"{name[:60]} {ms:.4f}" for name, ms in sorted(bwd_kernels.items(), key=lambda kv: -kv[1])))
     pairs = valid_pairs(None, B, T, (-1, -1), 0, 0)
     elems = B * T * H * D
     stats = 2 * 4 * B * H * T  # lse and delta, fp32
@@ -558,7 +744,7 @@ def phase_kernels_bwd(torch):
         }
     log(f"  wrappers at (4, 2048, 6, 128): K3 path {fused_ms:.4f} ms, K4+K5 path "
         f"{split_ms:.4f} ms (delta, dq scale and casts included); plain {plain_ms:.4f} ms; "
-        f"scaled_dot_product_attention backward (fwd+bwd - fwd) {library_ms:.4f} ms")
+        f"scaled_dot_product_attention backward {library_ms:.4f} ms of device time")
     for key in out:
         out[key]["wrapper_ms"] = fused_ms if key.endswith("fused") else split_ms
     return out
@@ -919,6 +1105,28 @@ def fp32_subsampling():
     return mock.patch.object(conv, "dw_striding_chain", chain)
 
 
+def subsampling_without_cudnn():
+    """Context in which the subsampling's bf16 conv chain gives the value that
+    PyTorch's own convolution kernels compute with cuDNN off (the same
+    roundings, another order of summation), its gradient staying the
+    chain's, as K8's does (this script only)."""
+    from unittest import mock
+
+    import torch
+
+    import lcasr_torch.ops.conv as conv
+
+    real = conv.dw_striding_chain
+
+    def chain(h, params, act="silu", causal=False):
+        y = real(h, params, act, causal)
+        with torch.no_grad(), torch.backends.cudnn.flags(enabled=False):
+            other = real(h, params, act, causal)
+        return (y.float() + (other.float() - y.float()).detach()).to(y.dtype)
+
+    return mock.patch.object(conv, "dw_striding_chain", chain)
+
+
 def plain_scan(dtype):
     """Context in which `selective_scan` runs the plain versions of K6 and K7
     in `dtype`, on any device (this script only)."""
@@ -1070,15 +1278,16 @@ def phase_decode(torch, model, expected: dict, what: str, profile_file: str):
     log(f"  {what} 20-minute decode: {ids.shape[0]} frame ids, {len(tokens)} tokens after "
         f"collapse, launches {launches}, decode s {[round(t, 4) for t in times]}, "
         f"RTFx (median of 3) {rtfx:.1f}")
-    profile_run(torch, lambda: decoder.greedy(spec, seq_len=SEQ_LEN, overlap=OVERLAP),
-                profile_file, f"one {what} decode")
-    return launches, rtfx
+    rows = profile_run(torch, lambda: decoder.greedy(spec, seq_len=SEQ_LEN, overlap=OVERLAP),
+                       profile_file, f"one {what} decode")
+    return launches, rtfx, rows
 
 
 def profile_run(torch, run, filename: str, what: str):
     """Device time by kernel over one run (torch.profiler), and the
     device's idle share of the wall time.  The full table goes to
-    build/<filename> beside this script."""
+    build/<filename> beside this script.  Returns the rows, [(device us,
+    launches, kernel name)], largest first."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1103,11 +1312,12 @@ def profile_run(torch, run, filename: str, what: str):
             f.write(f"{dev_us:14.1f} {count:8d} {key}\n")
     if not rows:
         log("  profile: no device time recorded (device breakdown not measured)")
-        return
+        return rows
     log(f"  profile of {what} (profiler on): wall {wall_us / 1e3:.2f} ms, device "
         f"busy {busy_us / 1e3:.2f} ms, idle share {1 - busy_us / wall_us:.3f}")
     for dev_us, count, key in rows[:15]:
         log(f"    {dev_us / 1e3:10.3f} ms {100 * dev_us / busy_us:5.1f}% x{count:<6d} {key[:100]}")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1370,18 +1580,18 @@ def grad_error(g, ref, names):
     return (num / den) ** 0.5, cos[worst], worst
 
 
-def gradient_gate(what, ref_name, yard_name, one_step, ref_ctx, yard_ctx, floors=(0.0, 0.0),
+def gradient_gate(what, ref_name, one_step, ref_ctx, yardsticks: dict, floors=(0.0, 0.0),
                   kernel_ctx=None, plain_contexts: bool = True):
     """One 16384 x 4 micro step with the kernels (inside `kernel_ctx`, when
-    given), again (the step may not be reproducible), inside `yard_ctx` (the
-    yardstick) and inside `ref_ctx` (the reference), on the same weights and
-    batch.  `plain_contexts`: the yardstick and the reference must launch no
-    kernel (they are plain versions); False when the reference is another
-    configuration of the kernels, whose launches the caller checks.  The loss must lie
-    within LOSS_REL_MAX of the reference's; the gradient's relative L2 error
-    and worst per-tensor cosine deficit (1 - cos) against the reference within
-    `floors` + YARDSTICK_FACTOR times the yardstick's, and never past the
-    absolute caps."""
+    given), again (the step may not be reproducible), inside each context of
+    `yardsticks` ({name: context}) and inside `ref_ctx` (the reference), on
+    the same weights and batch.  `plain_contexts`: the yardsticks and the
+    reference must launch no kernel (they are plain versions); False when the
+    reference is another configuration of the kernels, whose launches the
+    caller checks.  The loss must lie within LOSS_REL_MAX of the reference's;
+    the gradient's relative L2 error and worst per-tensor cosine deficit
+    (1 - cos) against the reference within `floors` + YARDSTICK_FACTOR times
+    the largest of the yardsticks', and never past the absolute caps."""
     from lcasr_torch import kernels
 
     kernels.reset_launch_counts()
@@ -1390,35 +1600,43 @@ def gradient_gate(what, ref_name, yard_name, one_step, ref_ctx, yard_ctx, floors
         require_launches(True, f"{what} step")
         g_k2 = one_step()[1]
     kernels.reset_launch_counts()
-    with yard_ctx:
-        loss_y, g_y = one_step()
+    yard_steps = {}
+    for name, ctx in yardsticks.items():
+        with ctx:
+            yard_steps[name] = one_step()
     with ref_ctx:
         loss_r, g_r = one_step()
     if plain_contexts:
-        require_launches(False, f"{what} step inside {yard_name} and {ref_name}")
+        require_launches(False, f"{what} step inside {', '.join(yardsticks)} and {ref_name}")
     den = sum((g_r[n] ** 2).sum().item() for n in g_r)
     # cosines over the tensors whose gradient is not ~0 by construction (a
     # bias before BatchRenorm gets only rounding noise)
     names = [n for n in g_r if g_r[n].norm().item() > 1e-4 * den ** 0.5]
     kr, kc, kn = grad_error(g_k, g_r, names)
-    yr, yc, yn = grad_error(g_y, g_r, names)
-    rerun = grad_error(g_k2, g_k, names)[0]
-    kl, yl = abs(loss_k - loss_r) / abs(loss_r), abs(loss_y - loss_r) / abs(loss_r)
+    rerun, rerun_c, _ = grad_error(g_k2, g_k, names)
+    kl = abs(loss_k - loss_r) / abs(loss_r)
+    yard = {name: (abs(loss - loss_r) / abs(loss_r), *grad_error(g, g_r, names))
+            for name, (loss, g) in yard_steps.items()}
+    yr = max(y[1] for y in yard.values())
+    yd = max(1 - y[2] for y in yard.values())
     l2_max = min(GRAD_REL_L2_MAX, floors[0] + YARDSTICK_FACTOR * yr)
-    cos_max = min(1 - GRAD_COS_MIN, floors[1] + YARDSTICK_FACTOR * (1 - yc))
+    cos_max = min(1 - GRAD_COS_MIN, floors[1] + YARDSTICK_FACTOR * yd)
     verdict = (f"16384x4 {what} step against {ref_name} (loss {loss_r:.4f}; cosines over "
                f"{len(names)} of {len(g_r)} tensors above 1e-4 of the global gradient norm): "
                f"kernels: loss rel {kl:.2e}, gradient rel L2 {kr:.3e} (a rerun of the kernel step "
-               f"differs by {rerun:.3e}), worst cosine deficit {1 - kc:.3e} ({kn}); {yard_name} "
-               f"(the yardstick): loss rel {yl:.2e}, gradient rel L2 {yr:.3e}, worst cosine "
-               f"deficit {1 - yc:.3e} ({yn}); gates: loss rel <= {LOSS_REL_MAX:g}, rel L2 <= "
-               f"{l2_max:.3e} = min({GRAD_REL_L2_MAX:g}, {floors[0]:g} + {YARDSTICK_FACTOR:g} x "
-               f"yardstick), 1 - cos <= {cos_max:.3e} = min({1 - GRAD_COS_MIN:g}, {floors[1]:g} + "
-               f"{YARDSTICK_FACTOR:g} x yardstick)")
+               f"differs by {rerun:.3e}, worst cosine deficit {1 - rerun_c:.3e}), worst cosine "
+               f"deficit {1 - kc:.3e} ({kn}); " + "; ".join(
+                   f"{name} (yardstick): loss rel {yl:.2e}, gradient rel L2 {r:.3e}, worst cosine "
+                   f"deficit {1 - c:.3e} ({n})" for name, (yl, r, c, n) in yard.items())
+               + f"; gates: loss rel <= {LOSS_REL_MAX:g}, rel L2 <= {l2_max:.3e} = "
+               f"min({GRAD_REL_L2_MAX:g}, {floors[0]:g} + {YARDSTICK_FACTOR:g} x the largest "
+               f"yardstick's), 1 - cos <= {cos_max:.3e} = min({1 - GRAD_COS_MIN:g}, "
+               f"{floors[1]:g} + {YARDSTICK_FACTOR:g} x the largest yardstick's)")
     log("  " + verdict)
     if not (kl <= LOSS_REL_MAX and kr <= l2_max and 1 - kc <= cos_max):
         raise AssertionError(f"{what} training step with the kernels disagrees with "
                              f"{ref_name}: " + verdict)
+    return {"rel_l2": kr, "cos_deficit": 1 - kc, "rel_l2_max": l2_max, "cos_deficit_max": cos_max}
 
 
 def phase_train(torch, workdir: str):
@@ -1449,8 +1667,8 @@ def phase_train(torch, workdir: str):
             b.copy_(old)
         return float(loss), flat_grads(model)
 
-    gradient_gate("flagship", "plain fp32 attention", "plain bf16 attention", one_step,
-                  plain_attention(), plain_attention(bf16=True))
+    gradient_gate("flagship", "plain fp32 attention", one_step, plain_attention(),
+                  {"plain bf16 attention": plain_attention(bf16=True)})
     trainer.zero_pending()  # kept, the gradients would count in the 120000-frame step's peak
 
     t0 = time.perf_counter()
@@ -1605,12 +1823,14 @@ def phase_decode_opt(torch):
 
 
 def phase_train_opt(torch, workdir: str):
-    """One 16384 x 4 flagship training step under both flags against the same
-    step without them.  K2 repeats K1's arithmetic, so what differs is the
-    subsampling's output: K8 rounds where the bf16 conv chain rounds but sums
-    in fp32 in another order.  The reference is the unflagged step; the
-    yardstick is the unflagged step with the conv chain in fp32, a
-    perturbation of the same kind at the same place."""
+    """One 16384 x 4 flagship training step under both flags, and under each
+    flag alone, against the same step without them.  K2 is bit-equal to K1
+    (phase `kernels`), so the step under LCASR_ATTN_FWD_DB=1 alone may differ
+    from the unflagged step only as two runs of that step differ (K3's dq
+    leaves through fp32 atomics): its yardstick is a rerun.  K8 rounds where
+    the bf16 conv chain rounds but sums in another order; the steps with K8
+    are held against two other computations of the same chain: in fp32, and
+    in bf16 by PyTorch's own convolution kernels instead of cuDNN's."""
     from lcasr_torch import kernels
     from lcasr_torch.models.registry import load_model
     from lcasr_torch.models.sconformer_xl import init_weights_
@@ -1643,11 +1863,22 @@ def phase_train_opt(torch, workdir: str):
                      "flash_attention_bwd_fused": OPT_TRAIN_LAUNCHES["flash_attention_bwd_fused"]},
                     "one micro step without the flags")
     log(f"  one 16384x4 micro step under both flags: launches {launches}")
-    gradient_gate("flagship under both flags", "the same step without the flags",
-                  "the conv chain in fp32", one_step, contextlib.nullcontext(),
-                  fp32_subsampling(), kernel_ctx=env_flags(**OPT_FLAGS), plain_contexts=False)
+    unflagged = "the same step without the flags"
+    conv_chains = lambda: {"the conv chain in fp32": fp32_subsampling(),
+                           "the bf16 conv chain without cuDNN": subsampling_without_cudnn()}
+    gates = {
+        "K2": gradient_gate("flagship under LCASR_ATTN_FWD_DB=1", unflagged, one_step,
+                            contextlib.nullcontext(), {"a rerun": contextlib.nullcontext()},
+                            kernel_ctx=env_flags(LCASR_ATTN_FWD_DB="1"), plain_contexts=False),
+        "K8": gradient_gate("flagship under LCASR_FUSED_SUB=1", unflagged, one_step,
+                            contextlib.nullcontext(), conv_chains(),
+                            kernel_ctx=env_flags(LCASR_FUSED_SUB="1"), plain_contexts=False),
+        "both": gradient_gate("flagship under both flags", unflagged, one_step,
+                              contextlib.nullcontext(), conv_chains(),
+                              kernel_ctx=env_flags(**OPT_FLAGS), plain_contexts=False),
+    }
     trainer.zero_pending()
-    return launches
+    return launches, gates
 
 
 # one 16384 x 4 Mamba step: kernel and plain scan are both fp32 scans inside a
@@ -1672,8 +1903,8 @@ def phase_mamba_train(torch, workdir: str):
         loss, _ = trainer.micro_step(chunk)
         return float(loss), flat_grads(model)
 
-    gradient_gate("Mamba", "the plain scan in fp64", "the plain scan in fp32", one_step,
-                  plain_scan(torch.float64), plain_scan(torch.float32),
+    gradient_gate("Mamba", "the plain scan in fp64", one_step, plain_scan(torch.float64),
+                  {"the plain scan in fp32": plain_scan(torch.float32)},
                   floors=(MAMBA_REL_L2_FLOOR, MAMBA_COS_FLOOR))
     trainer.zero_pending()
     run.timed_step(trainer, chunk, "mamba_train_profile.txt")
@@ -1712,6 +1943,10 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {src}: {line.strip()}")
+    hopper_build = check_hopper_build(kernels.build_log)
+    for src, entries in hopper_build.items():
+        for fn, e in entries.items():
+            log(f"  {src}: {fn}: {e} (no serialised wgmma, setmaxnreg kept)")
     log(f"  gpu: {gpu}")
 
     results = {}
@@ -1731,10 +1966,17 @@ def main() -> int:
     if "decode" in phases:
         log("[4/9] 20-minute streaming greedy decode (the serving path)")
         model = model or flagship_model(torch)
-        launches, _ = phase_decode(torch, model, {"flash_attention_fwd": EXPECTED_LAUNCHES},
-                                   "flagship", "decode_profile.txt")
-        results.setdefault("flash_attention_fwd", {"name": "flash_attention_fwd"})[
-            "launches"] = launches["flash_attention_fwd"]
+        launches, _, rows = phase_decode(torch, model,
+                                         {"flash_attention_fwd": EXPECTED_LAUNCHES},
+                                         "flagship", "decode_profile.txt")
+        k1 = results.setdefault("flash_attention_fwd", {"name": "flash_attention_fwd"})
+        k1["launches"] = launches["flash_attention_fwd"]
+        # K1's device time per launch inside the decode, from its profile
+        rows = [r for r in rows if HOPPER_FWD_SYMBOL in r[2]]
+        k1["decode_profile_ms"] = (sum(r[0] for r in rows) / sum(r[1] for r in rows) / 1e3
+                                   if rows else None)
+        log(f"  K1 in the decode's profile: {k1['decode_profile_ms']} ms per launch "
+            f"(kernel phase, launches back to back: {k1.get('ms')} ms)")
     del model
     if "train" in phases:
         log("[5/9] training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1 "
@@ -1757,9 +1999,9 @@ def main() -> int:
         log("[6/9] Mamba: one window batch, then the 20-minute streaming greedy decode")
         model = mamba_model(torch)
         phase_model(torch, model, plain_scan(torch.float32), "Mamba")
-        launches, _ = phase_decode(torch, model,
-                                   {"selective_scan_fwd": MAMBA_EXPECTED_DECODE_LAUNCHES},
-                                   "Mamba", "mamba_decode_profile.txt")
+        launches, _, _ = phase_decode(torch, model,
+                                      {"selective_scan_fwd": MAMBA_EXPECTED_DECODE_LAUNCHES},
+                                      "Mamba", "mamba_decode_profile.txt")
         del model
         results.setdefault("selective_scan_fwd", {"name": "selective_scan_fwd"})[
             "launches"] = launches["selective_scan_fwd"]
@@ -1783,14 +2025,17 @@ def main() -> int:
         results["subsampling_fused"]["launches_mamba_decode"] = mamba_launches["subsampling_fused"]
         results["subsampling_fused"].update(numbers)
     if "train_opt" in phases:
-        log("[9/9] one training step under both flags against the same step without")
+        log("[9/9] one training step under both flags, and under each alone, against the "
+            "same step without")
         os.makedirs(workdir, exist_ok=True)
         try:
-            launches = phase_train_opt(torch, workdir)
+            launches, gates = phase_train_opt(torch, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
-        for key in ("flash_attention_fwd_db", "subsampling_fused"):
-            results.setdefault(key, {"name": key})["launches_train_step"] = launches[key]
+        for key, gate in (("flash_attention_fwd_db", "K2"), ("subsampling_fused", "K8")):
+            entry = results.setdefault(key, {"name": key})
+            entry["launches_train_step"] = launches[key]
+            entry["train_step_alone"] = gates[gate]
     name, power = [s.strip() for s in gpu.split(",", 1)]
     for entry in results.values():
         entry.update(gpu=name, power_limit=power)

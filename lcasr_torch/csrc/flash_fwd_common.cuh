@@ -1,17 +1,16 @@
 // What the two flash-attention forward kernels share (flash_attn_fwd.cu, K1,
 // and flash_attn_fwd_db.cu, K2): the parameters, the range of k/v tiles a
-// CTA visits, the masks, and one tile's worth of each step (scores, online
-// softmax with O += P V, the final write), for bf16 on the tensor cores and
-// for fp32 on the CUDA cores.  The kernels differ only in the order in which
-// they run these steps over the k/v tiles.
+// CTA visits, the masks, and, for fp32 on the CUDA cores, one tile's worth of
+// each step (scores, online softmax with O += P V, the final write).  The
+// bf16 kernels are in flash_fwd_hopper.cuh.
 #pragma once
 
 #include "flash_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per CTA
-constexpr int BK = 64;  // keys per k/v tile
+constexpr int BQ = 64;  // query rows per CTA of the fp32 kernels
+constexpr int BK = 64;  // keys per k/v tile of the fp32 kernels
 constexpr int NTHREADS = 128;
 constexpr float LSE_EMPTY = -1e30f;  // lse of a row with no valid key
 constexpr float LOG2E = 1.4426950408889634f;
@@ -30,14 +29,16 @@ struct Params {
   int q_off, kv_off, left, right;
 };
 
-// The CTA's bounds: valid global rows < q_hi, valid global cols < kv_hi, and
-// the half-open range [t_lo, t_hi) of local k/v tiles it must visit.  Tiles
-// outside the range are wholly masked for every row of the CTA and are never
-// loaded, scored or fed to the softmax.
+// The bounds of a CTA of TQ query rows from local row q0 that walks k/v tiles
+// of TK keys: valid global rows < q_hi, valid global cols < kv_hi, and the
+// half-open range [t_lo, t_hi) of local k/v tiles it must visit (empty when
+// t_hi <= t_lo).  Tiles outside the range are wholly masked for every row of
+// the CTA and are never loaded, scored or fed to the softmax.
 struct Bounds {
   int q_hi, kv_hi, t_lo, t_hi;
 };
 
+template <int TQ, int TK>
 __device__ __forceinline__ Bounds cta_bounds(const Params& p, int b, int q0) {
   Bounds r;
   const int len = p.lengths[b];
@@ -46,11 +47,11 @@ __device__ __forceinline__ Bounds cta_bounds(const Params& p, int b, int q0) {
   const int qg0 = p.q_off + q0;
   const int kv_valid = r.kv_hi - p.kv_off;  // local cols below this are valid
   r.t_lo = 0;
-  r.t_hi = kv_valid > 0 ? (kv_valid + BK - 1) / BK : 0;
+  r.t_hi = kv_valid > 0 ? (kv_valid + TK - 1) / TK : 0;
   if (qg0 >= r.q_hi) r.t_hi = 0;
-  if (p.left >= 0) r.t_lo = max(0, floordiv(qg0 - p.left - p.kv_off, BK));
+  if (p.left >= 0) r.t_lo = max(0, floordiv(qg0 - p.left - p.kv_off, TK));
   if (p.right >= 0)
-    r.t_hi = min(r.t_hi, floordiv(qg0 + BQ - 1 + p.right - p.kv_off, BK) + 1);
+    r.t_hi = min(r.t_hi, floordiv(qg0 + TQ - 1 + p.right - p.kv_off, TK) + 1);
   return r;
 }
 
@@ -60,148 +61,6 @@ __device__ __forceinline__ bool col_valid(const Params& p, const Bounds& bd,
   if (p.right >= 0) ok = ok && (col_g <= row_g + p.right);
   if (p.left >= 0) ok = ok && (col_g >= row_g - p.left);
   return ok;
-}
-
-// ---------------------------------------------------------------------------
-// bf16: one warp owns 16 query rows; a thread holds rows g and g + 8 of the
-// m16n8 C fragments (g = lane / 4, t = lane % 4)
-// ---------------------------------------------------------------------------
-
-// The warp's Q fragments (A operand of Q K^T) from the shared Q tile.
-template <int D, int LD>
-__device__ __forceinline__ void load_q_frags(uint32_t (*qa)[4],
-                                             const __nv_bfloat16* sQ, int warp,
-                                             int g, int t) {
-  const __nv_bfloat16* q_lo = sQ + (warp * 16 + g) * LD + t * 2;
-  const __nv_bfloat16* q_hi = q_lo + 8 * LD;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(q_lo + kk * 16);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(q_hi + kk * 16);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(q_lo + kk * 16 + 8);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(q_hi + kk * 16 + 8);
-  }
-}
-
-// S = Q K^T (16 x BK per warp), raw: no mask yet.
-template <int D, int LD>
-__device__ __forceinline__ void scores_bf16(float (*s)[4],
-                                            const uint32_t (*qa)[4],
-                                            const __nv_bfloat16* tK, int g,
-                                            int t) {
-#pragma unroll
-  for (int nt = 0; nt < BK / 8; ++nt) {
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    const __nv_bfloat16* krow = tK + (nt * 8 + g) * LD + t * 2;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
-      const uint32_t b1 =
-          *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
-      mma_bf16(s[nt], qa[kk], b0, b1);
-    }
-  }
-}
-
-// Tile kt's masks, the online softmax and O += P V.  s holds the tile's raw
-// scores and is overwritten with P; P goes to the tensor cores from these
-// registers as bf16 A fragments, V's B operand by ldmatrix .trans.
-template <int D, int LD>
-__device__ __forceinline__ void softmax_pv_bf16(
-    float (*s)[4], float (*acc)[4], float* m_i, float* l_i,
-    const __nv_bfloat16* tV, const Params& p, const Bounds& bd, int kt,
-    const int* row_g, int t, int lane) {
-  constexpr int NT = BK / 8;  // n-tiles of S per warp
-  constexpr int DT = D / 8;   // n-tiles of O per warp
-
-  // masks: only tiles that cross the length edge or meet a band
-  const int c0 = kt * BK;  // local col of the tile's first key
-  if (p.left >= 0 || p.right >= 0 || p.kv_off + c0 + BK > bd.kv_hi) {
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col_g = p.kv_off + c0 + nt * 8 + t * 2 + (i & 1);
-        if (!col_valid(p, bd, row_g[i >> 1], col_g)) s[nt][i] = -INFINITY;
-      }
-  }
-
-  // online softmax; each row is spread over the 4 threads of a quad
-  float m_new[2] = {m_i[0], m_i[1]};
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) m_new[i >> 1] = fmaxf(m_new[i >> 1], s[nt][i]);
-  float corr[2], m_use[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 1));
-    m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(0xffffffffu, m_new[r], 2));
-    m_use[r] = m_new[r] == -INFINITY ? 0.f : m_new[r];
-    corr[r] = exp2f((m_i[r] - m_use[r]) * LOG2E);  // 0 while m_i is -inf
-    m_i[r] = m_new[r];
-    l_i[r] *= corr[r];
-  }
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float e = exp2f((s[nt][i] - m_use[i >> 1]) * LOG2E);
-      s[nt][i] = e;
-      l_i[i >> 1] += e;
-    }
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    acc[dt][0] *= corr[0];
-    acc[dt][1] *= corr[0];
-    acc[dt][2] *= corr[1];
-    acc[dt][3] *= corr[1];
-  }
-
-#pragma unroll
-  for (int kc = 0; kc < BK / 16; ++kc) {
-    uint32_t pa[4];
-    pa[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-    pa[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-    pa[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-    pa[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-    const __nv_bfloat16* vrow = tV + (kc * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-#pragma unroll
-    for (int dt = 0; dt < DT; dt += 2) {
-      uint32_t vb4[4];
-      ldmatrix_x4_trans(vb4, vrow + dt * 8);
-      mma_bf16(acc[dt], pa, vb4[0], vb4[1]);
-      mma_bf16(acc[dt + 1], pa, vb4[2], vb4[3]);
-    }
-  }
-}
-
-// Full row sums across the quad, normalise, write o and lse.
-template <int D>
-__device__ __forceinline__ void finish_bf16(const Params& p, const Bounds& bd,
-                                            float (*acc)[4], const float* m_i,
-                                            const float* l_i, int b, int h,
-                                            const int* row_l, const int* row_g,
-                                            int t) {
-  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_i[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const bool live = l > 0.f && row_g[r] < bd.q_hi;
-    const float inv = live ? 1.f / l : 0.f;
-    if (row_l[r] >= p.Tq) continue;
-    __nv_bfloat16* orow = ob + (((long long)b * p.Tq + row_l[r]) * p.H + h) * D + t * 2;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(orow + dt * 8) =
-          pack_bf16(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
-    }
-    if (t == 0)
-      p.lse[((long long)b * p.H + h) * p.Tq + row_l[r]] =
-          live ? m_i[r] + logf(l) : LSE_EMPTY;
-  }
 }
 
 // ---------------------------------------------------------------------------

@@ -50,7 +50,9 @@ launch_counts: Dict[str, int] = {
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
-build_log: Dict[str, str] = {}  # nvcc's stderr per source (ptxas registers, spills)
+# nvcc's output per source (ptxas registers, spills, advisories), kept beside
+# the library so that a cached build still has it
+build_log: Dict[str, str] = {}
 
 
 def reset_launch_counts() -> None:
@@ -90,7 +92,8 @@ def build() -> float:
         if src in _libs:
             continue
         if out.exists():
-            build_log.setdefault(src, "(cached)")
+            log_file = out.with_suffix(".log")
+            build_log.setdefault(src, log_file.read_text() if log_file.exists() else "(cached)")
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
@@ -103,6 +106,7 @@ def build() -> float:
         if proc.returncode != 0:
             failed.append(f"{src}:\n{err_text}")
         else:
+            outputs[src].with_suffix(".log").write_text(build_log[src])
             os.replace(tmp, outputs[src])
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

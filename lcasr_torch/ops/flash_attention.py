@@ -96,6 +96,18 @@ def flash_attention_ref(
     return o.to(q.dtype), lse[..., 0]
 
 
+def _tma_layout_ok(shape, strides, dtype, data_ptr: int) -> bool:
+    """Whether a (B, T, H, D) tensor can be read by the bf16 kernels' TMA
+    tensor maps: unit stride on D, a 16-byte-aligned base, byte strides of
+    B, T and H that are multiples of 16 (a dimension of size 1 is never
+    stepped, and the kernel ignores its stride), and D rows whose byte
+    length is a multiple of 16."""
+    size = torch.empty((), dtype=dtype).element_size()
+    if len(shape) != 4 or strides[-1] != 1 or data_ptr % 16 or (shape[-1] * size) % 16:
+        return False
+    return all(n == 1 or (s * size) % 16 == 0 for n, s in zip(shape[:3], strides[:3]))
+
+
 def _check_kernel_inputs(q, k, v, do=None):
     named = (("q", q), ("k", k), ("v", v)) + ((("do", do),) if do is not None else ())
     for name, t in named:
@@ -110,13 +122,13 @@ def _check_kernel_inputs(q, k, v, do=None):
                 f"flash_attention: {name} needs a unit stride on D (got "
                 f"{t.stride()}); make it contiguous first"
             )
-        if t.dtype == torch.bfloat16 and (
-            t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])
+        if t.dtype == torch.bfloat16 and not _tma_layout_ok(
+            t.shape, t.stride(), t.dtype, t.data_ptr()
         ):
             raise ValueError(
-                f"flash_attention: bf16 {name} must be 16-byte aligned with "
-                f"strides that are multiples of 8 (got {t.stride()}); make it "
-                f"contiguous first"
+                f"flash_attention: bf16 {name} needs a 16-byte-aligned base and "
+                f"B, T, H strides that are multiples of 8 for the kernels' TMA and "
+                f"16-byte loads (got {t.stride()}); make it contiguous first"
             )
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"flash_attention kernel takes bf16 or fp32, not {q.dtype}")
@@ -156,29 +168,39 @@ def flash_attention_with_lse(
                                    int(q_offset), int(kv_offset))
     _check_kernel_inputs(q, k, v)
     B, Tq, H, D = q.shape
-    Tk = k.shape[1]
     qs = _scaled(q, softmax_scale)
-    lens = _lengths(lengths, B, Tk, q.device).contiguous()
+    lens = _lengths(lengths, B, k.shape[1], q.device).contiguous()
     o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    if _double_buffered_fwd(window):
+    name = _launch_fwd(qs, k, v, o, lse, lens, window, q_offset, kv_offset,
+                       _double_buffered_fwd(window))
+    kernels.launch_counts[name] += 1
+    return o, lse
+
+
+def _launch_fwd(qs, k, v, o, lse, lens, window, q_offset, kv_offset, db: bool) -> str:
+    """One launch of K1 (db: K2) on checked inputs: q already scaled, the
+    int32 lengths and the outputs made by the caller.  Raises on the
+    kernel's error; returns the kernel's launch-counter name, which the
+    caller counts."""
+    B, Tq, H, D = qs.shape
+    if db:
         name, lib = "flash_attention_fwd_db", kernels.library(_DB_SRC)
         launch = lib.lcasr_flash_attn_fwd_db
     else:
         name, lib = "flash_attention_fwd", kernels.library(_SRC)
         launch = lib.lcasr_flash_attn_fwd
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(qs.device):
         err = launch(
             qs.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), lens.data_ptr(), B, H, Tq, Tk, D,
-            int(q.dtype == torch.float32),
+            lse.data_ptr(), lens.data_ptr(), B, H, Tq, k.shape[1], D,
+            int(qs.dtype == torch.float32),
             *qs.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             int(q_offset), int(kv_offset), int(window[0]), int(window[1]),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            torch.cuda.current_stream(qs.device).cuda_stream,
         )
     kernels.check(lib, err, name)
-    kernels.launch_counts[name] += 1
-    return o, lse
+    return name
 
 
 def flash_attention_bwd_ref(

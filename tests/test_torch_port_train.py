@@ -437,3 +437,75 @@ def test_cli_train_runs_on_the_cpu_and_resumes(corpus, tmp_path):
     assert os.path.exists(tmp_path / "ckpt" / "step_4" / "meta.json")
     main(["-config", str(path), "--device", "cpu"])
     assert len(_losses(tmp_path / "ckpt")) == 2  # epoch 1 of 1 was done
+
+
+# the gradient gate chip_smoke.py holds the training steps to
+def _fake_step(base, state):
+    from lcasr_torch import kernels
+
+    def one_step():
+        kernels.launch_counts["flash_attention_fwd"] += 1  # the gate asks for a launch
+        gen = torch.Generator().manual_seed(state["draw"])
+        state["draw"] += 1
+        return 1.0 + state["noise"], {n: v + state["noise"] * torch.randn(v.shape, generator=gen)
+                                      for n, v in base.items()}
+    return one_step
+
+
+@pytest.mark.parametrize("kernel_noise,passes", [(1e-3, True), (2e-2, False)])
+def test_chip_smoke_gradient_gate_takes_the_largest_yardstick(kernel_noise, passes):
+    import contextlib
+
+    import chip_smoke
+
+    gen = torch.Generator().manual_seed(0)
+    base = {f"w{i}": torch.randn(64, generator=gen) for i in range(4)}
+    state = {"noise": 0.0, "draw": 0}
+
+    @contextlib.contextmanager
+    def noise(x):
+        old, state["noise"] = state["noise"], x
+        try:
+            yield
+        finally:
+            state["noise"] = old
+
+    # yardsticks at 1e-4 and 2e-3: the gate is 3x the larger
+    yardsticks = {"small": noise(1e-4), "large": noise(2e-3)}
+    run = lambda: chip_smoke.gradient_gate("fake", "the reference", _fake_step(base, state),
+                                           noise(0.0), yardsticks, kernel_ctx=noise(kernel_noise),
+                                           plain_contexts=False)
+    from lcasr_torch import kernels
+
+    try:
+        if passes:
+            got = run()
+            assert got["rel_l2"] <= got["rel_l2_max"] and 5e-3 < got["rel_l2_max"] < 7e-3
+        else:
+            with pytest.raises(AssertionError, match="disagrees"):
+                run()
+    finally:
+        kernels.reset_launch_counts()
+
+
+def test_chip_smoke_subsampling_without_cudnn_keeps_the_chains_gradient():
+    """On the CPU the other convolution kernels are the same ones: the value
+    and the gradient equal the plain chain's."""
+    import chip_smoke
+    import lcasr_torch.ops.conv as conv
+    from lcasr_torch.ops.subsampling import dw_striding_chain
+
+    gen = torch.Generator().manual_seed(1)
+    C = 8
+    shapes = [(C, 1, 3, 3), (C,)] + [(C, 1, 3, 3), (C,), (C, C, 1, 1), (C,)] * 2
+    params = [torch.randn(s, generator=gen).requires_grad_() for s in shapes]
+    h = torch.randn((2, 1, 32, 16), generator=gen)
+    with chip_smoke.subsampling_without_cudnn():
+        y = conv.dw_striding_chain(h, params)
+    assert conv.dw_striding_chain is dw_striding_chain
+    got = torch.autograd.grad(y.square().sum(), params)
+    y_ref = dw_striding_chain(h, params)
+    want = torch.autograd.grad(y_ref.square().sum(), params)
+    assert torch.equal(y, y_ref)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
