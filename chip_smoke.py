@@ -22,8 +22,10 @@ Phases, in order; any failure raises and exits non-zero:
               library call doing the same work (the yardstick; the port never
               calls it).  K1 and K2 are timed by their device work (launches
               of the wrapper's launch function back to back between two events) and by
-              whole wrapper calls; the build fails on serialised wgmma or
-              spills in their bf16 entries;
+              whole wrapper calls; K3, K4 and K5 by the profiler, in turns
+              with cuDNN's backward; dk and dv must be the same bits in two
+              runs, and K5's those of K3; the build fails on serialised wgmma
+              or spills in the bf16 entries of K1, K2, K3 and K5;
   3. model    the flagship SCConformerXL (9L-768D-6H, bf16, random weights
               from a numpy seed) on one (16, 80, 16384) window batch: finite,
               normalised log-probs, compared with the same model whose
@@ -238,10 +240,14 @@ def device_kernel_totals(torch, fn, n: int = 10) -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
 
 
-# the bf16 forward kernels' template (csrc/flash_fwd_hopper.cuh), as ptxas
-# and the profiler name it
+# the bf16 kernels on TMA, wgmma and warp specialisation, as ptxas and the
+# profiler name their templates: the forward K1 / K2
+# (csrc/flash_fwd_hopper.cuh) and the backward K3 / K5 (csrc/flash_attn_bwd.cu)
 HOPPER_FWD_SYMBOL = "flash_fwd_hopper"
-HOPPER_FWD_SOURCES = ("flash_attn_fwd.cu", "flash_attn_fwd_db.cu")
+HOPPER_BWD_SYMBOL = "flash_bwd_hopper"
+HOPPER_SOURCES = {"flash_attn_fwd.cu": HOPPER_FWD_SYMBOL,
+                  "flash_attn_fwd_db.cu": HOPPER_FWD_SYMBOL,
+                  "flash_attn_bwd.cu": HOPPER_BWD_SYMBOL}
 
 
 def ptxas_entries(text: str) -> dict:
@@ -267,12 +273,26 @@ def ptxas_entries(text: str) -> dict:
     return out
 
 
+def template_entries(text: str) -> dict:
+    """{"name<D>" or "name<D, true|false>": ptxas entry} of the template
+    kernels in one source's nvcc output (their mangled names demangled)."""
+    import re
+
+    out = {}
+    for fn, e in ptxas_entries(text).items():
+        m = re.search(r"\d(flash_\w+?)ILi(\d+)E(?:Lb([01])E)?E", fn)
+        if m:
+            flag = "" if m.group(3) is None else (", true" if m.group(3) == "1" else ", false")
+            out[f"{m.group(1)}<{m.group(2)}{flag}>"] = e
+    return out
+
+
 def check_hopper_build(build_log: dict) -> dict:
-    """Fail if ptxas serialised the wgmma of K1 or K2, ignored their
+    """Fail if ptxas serialised the wgmma of K1, K2, K3 or K5, ignored their
     setmaxnreg, or spilled in their bf16 (Hopper) entries; returns those
     entries' registers and spills."""
     report = {}
-    for src in HOPPER_FWD_SOURCES:
+    for src, symbol in HOPPER_SOURCES.items():
         text = build_log.get(src, "")
         if text == "(cached)":
             raise AssertionError(f"{src}: built before this run; its ptxas report is not here")
@@ -280,9 +300,9 @@ def check_hopper_build(build_log: dict) -> dict:
             if bad in text:
                 lines = [ln.strip() for ln in text.splitlines() if bad in ln]
                 raise AssertionError(f"{src}: ptxas reports '{bad}': {lines[:3]}")
-        entries = {fn: e for fn, e in ptxas_entries(text).items() if HOPPER_FWD_SYMBOL in fn}
+        entries = {fn: e for fn, e in ptxas_entries(text).items() if symbol in fn}
         if not entries:
-            raise AssertionError(f"{src}: no {HOPPER_FWD_SYMBOL} entry in ptxas's report")
+            raise AssertionError(f"{src}: no {symbol} entry in ptxas's report")
         for fn, e in entries.items():
             if e.get("spill_stores", 0) or e.get("spill_loads", 0):
                 raise AssertionError(f"{src}: {fn} spills: {e}")
@@ -341,6 +361,20 @@ def attention_cases(torch):
         ("decode_last_batch_D32", 16, 2048, 6, 32, bf, decode_last, (-1, -1), 0, 0, True),
         # a 16384 x 4 training micro step's shape, with ragged lengths
         ("train_ragged", 4, 2048, 6, 128, bf, [2048, 1901, 1500, 777], (-1, -1), 0, 0, True),
+        # the edges of the bf16 backward's tiles: 128 keys per CTA, a walk
+        # over 64-row q tiles
+        ("T63", 2, 63, 2, 128, bf, [63, 40], (-1, -1), 0, 0, False),
+        ("T65", 2, 65, 2, 128, bf, [65, 64], (-1, -1), 0, 0, False),
+        ("T191", 2, 191, 2, 128, bf, [191, 129], (-1, -1), 0, 0, True),
+        # band edges that cut 64-row q tiles: the two-sided band runs K4 + K5,
+        # the right-only band K3 too
+        ("band_edge_in_q_tile", 2, 320, 2, 128, bf, [320, 300], (40, 24), 0, 0, False),
+        ("band_right_edge_in_q_tile", 2, 320, 2, 128, bf, [320, 250], (-1, 24), 0, 0, False),
+        # rows 128.. begin their window at key 64.., a 64-row edge
+        ("left_window_on_q_tile_edge", 2, 384, 2, 128, bf, [384, 300], (64, -1), 0, 0, False),
+        ("shard_offsets_64", 2, 300, 2, 128, bf, [364, 280], (-1, -1), 64, 64, False),
+        ("D64_T65_band", 2, 65, 2, 64, bf, [65, 33], (16, 16), 0, 0, False),
+        ("D32_T191_shard", 2, 191, 3, 32, bf, [255, 100], (-1, 40), 64, 64, True),
     ]
 
 
@@ -603,9 +637,9 @@ def phase_kernels_db(torch):
 # phase 2b: flash-attention backward (K3, K4, K5) against its plain version
 # ---------------------------------------------------------------------------
 BWD_KERNELS = {  # launch-count name -> (kernel symbol, Pallas body it replaces)
-    "flash_attention_bwd_fused": ("flash_bwd_kv_bf16<128, true>", 666, "_bwd_fused_kernel"),
+    "flash_attention_bwd_fused": ("flash_bwd_hopper<128, true>", 666, "_bwd_fused_kernel"),
     "flash_attention_bwd_dq": ("flash_bwd_q_bf16<128>", 484, "_bwd_dq_kernel"),
-    "flash_attention_bwd_dkv": ("flash_bwd_kv_bf16<128, false>", 569, "_bwd_dkv_kernel"),
+    "flash_attention_bwd_dkv": ("flash_bwd_hopper<128, false>", 569, "_bwd_dkv_kernel"),
 }
 TRAIN_ATTN_SHAPE = (4, 2048, 6, 128)  # (B, T, H, D): a 16384-frame x 4 chunk
 
@@ -632,68 +666,73 @@ def kernel_device_ms(torch, fn, names, n: int = 10):
     return out
 
 
-def phase_kernels_bwd(torch):
+def bwd_case(torch, case, gen):
+    """One attention case through the backward: K3 and K4 + K5 (a
+    two-sided band: K4 + K5 only, as `_bwd_impl` chooses) against
+    `flash_attention_bwd_ref`, each launching its kernels once; each route
+    run twice, whose dk and dv must be the same bits; K5's dk and dv
+    bit-equal to K3's.  Returns {route: (max|d dq|, max|d dk|, max|d dv|)}."""
+    from lcasr_torch import kernels
     from lcasr_torch.ops.flash_attention import (
         flash_attention_bwd_ref, flash_attention_with_lse)
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    worst = {name: 0.0 for name in BWD_KERNELS}
-    for (name, B, T, H, D, dtype, lengths, window, qo, ko, views) in attention_cases(torch):
-        q, k, v = make_qkv(torch, B, T, H, D, dtype, views, gen)
-        lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device="cuda")
-        o, lse = flash_attention_with_lse(q, k, v, lens, window, None, qo, ko)
-        do = torch.randn((B, T, H, D), generator=gen, device="cuda").to(dtype)
-        args = (q, k, v, o, lse, do, lens, window, None, qo, ko)
-        want = flash_attention_bwd_ref(*args)
-        banded = window[0] >= 0 and window[1] >= 0
-        for fused in ((False,) if banded else (True, False)):
-            got = run_bwd(torch, fused, *args)
-            torch.cuda.synchronize()
-            errs = []
-            for g, w in zip(got, want):
-                if not torch.isfinite(g).all():
-                    raise AssertionError(f"{name}: non-finite gradient")
-                scale = w.float().abs().max().item()
-                err = (g.float() - w.float()).abs().max().item()
-                # bf16: the kernels round p and ds to bf16 before their
-                # products (as the Pallas kernels do) and dk, dv to bf16 on
-                # the way out, ~2^-8 relative; fp32: summation order only
-                # (and the order of dq's atomic adds)
-                tol = (2e-2 if dtype == torch.bfloat16 else 1e-4) * max(scale, 1.0)
-                if err > tol:
-                    raise AssertionError(f"{name} fused={fused}: max|d| {err:.3e} > {tol:.3e}")
-                errs.append(err)
-            if lengths is not None and 0 in lengths:
-                zero = [i for i, ln in enumerate(lengths) if ln == 0]
-                if not all((g[zero] == 0).all() for g in got):
-                    raise AssertionError(f"{name}: zero-length rows must get zero gradients")
-            log(f"  {name:26s} {'K3' if fused else 'K4+K5'}: max|d dq| {errs[0]:.3e} "
-                f"max|d dk| {errs[1]:.3e} max|d dv| {errs[2]:.3e}")
-            if dtype == torch.bfloat16:
-                keys = ["flash_attention_bwd_fused"] if fused else [
-                    "flash_attention_bwd_dq", "flash_attention_bwd_dkv"]
-                for key in keys:
-                    worst[key] = max(worst[key], *(errs if fused else
-                                     (errs[:1] if key.endswith("dq") else errs[1:])))
-        del q, k, v, o, lse, do, want
+    (name, B, T, H, D, dtype, lengths, window, qo, ko, views) = case
+    q, k, v = make_qkv(torch, B, T, H, D, dtype, views, gen)
+    lens = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    o, lse = flash_attention_with_lse(q, k, v, lens, window, None, qo, ko)
+    do = torch.randn((B, T, H, D), generator=gen, device="cuda").to(dtype)
+    args = (q, k, v, o, lse, do, lens, window, None, qo, ko)
+    want = flash_attention_bwd_ref(*args)
+    banded = window[0] >= 0 and window[1] >= 0
+    errs, got = {}, {}
+    for fused in ((False,) if banded else (True, False)):
+        route = "K3" if fused else "K4+K5"
+        expected = ({"flash_attention_bwd_fused": 1} if fused else
+                    {"flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1})
+        kernels.reset_launch_counts()
+        got[fused] = run_bwd(torch, fused, *args)
+        again = run_bwd(torch, fused, *args)
+        torch.cuda.synchronize()
+        launched = {k_: n // 2 for k_, n in kernels.launch_counts.items() if n}
+        if launched != expected:
+            raise AssertionError(f"{name} {route}: launched {launched} per call, expected {expected}")
+        errs[route] = []
+        for g, w in zip(got[fused], want):
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"{name} {route}: non-finite gradient")
+            scale = w.float().abs().max().item()
+            err = (g.float() - w.float()).abs().max().item()
+            # bf16: the kernels round p and ds to bf16 before their
+            # products (as the Pallas kernels do) and dk, dv to bf16 on
+            # the way out, ~2^-8 relative; fp32: summation order only
+            # (and the order of dq's adds across CTAs)
+            tol = (2e-2 if dtype == torch.bfloat16 else 1e-4) * max(scale, 1.0)
+            if err > tol:
+                raise AssertionError(f"{name} {route}: max|d| {err:.3e} > {tol:.3e}")
+            errs[route].append(err)
+        if lengths is not None and 0 in lengths:
+            zero = [i for i, ln in enumerate(lengths) if ln == 0]
+            if not all((g[zero] == 0).all() for g in got[fused]):
+                raise AssertionError(f"{name} {route}: zero-length rows must get zero gradients")
+        # dk and dv have one writer per element and a fixed order of products
+        if not (torch.equal(got[fused][1], again[1]) and torch.equal(got[fused][2], again[2])):
+            raise AssertionError(f"{name} {route}: dk or dv differs between two runs")
+        log(f"  {name:26s} {route}: max|d dq| {errs[route][0]:.3e} "
+            f"max|d dk| {errs[route][1]:.3e} max|d dv| {errs[route][2]:.3e}")
+    if dtype == torch.bfloat16 and not banded and not (
+            torch.equal(got[True][1], got[False][1]) and torch.equal(got[True][2], got[False][2])):
+        raise AssertionError(f"{name}: K5's dk, dv are not bit-equal to K3's")
+    return errs
 
-    # timing at a training shape, full lengths, qkv views as the model gives
-    B, T, H, D = TRAIN_ATTN_SHAPE
-    q, k, v = make_qkv(torch, B, T, H, D, torch.bfloat16, True, gen)
-    o, lse = flash_attention_with_lse(q, k, v)
-    do = torch.randn((B, T, H, D), generator=gen, device="cuda").to(torch.bfloat16)
-    args = (q, k, v, o, lse, do, None, (-1, -1), None, 0, 0)
-    dev = kernel_device_ms(torch, lambda: run_bwd(torch, True, *args),
-                           [BWD_KERNELS["flash_attention_bwd_fused"][0]])
-    dev.update(kernel_device_ms(torch, lambda: run_bwd(torch, False, *args),
-                                [BWD_KERNELS["flash_attention_bwd_dq"][0],
-                                 BWD_KERNELS["flash_attention_bwd_dkv"][0]]))
-    fused_ms = time_ms(torch, lambda: run_bwd(torch, True, *args), n=20)
-    split_ms = time_ms(torch, lambda: run_bwd(torch, False, *args), n=20)
-    plain_ms = time_ms(torch, lambda: flash_attention_bwd_ref(*args), n=3, warmup=1)
+
+def sdpa_backward_ms(torch, q, k, v, do, n_prof: int = 10):
+    """The library's backward: {kernel: device ms per call} of the kernels
+    that scaled_dot_product_attention's forward and backward runs and its
+    forward alone does not, from profiler windows."""
+    import torch.nn.functional as F
+
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
-    import torch.nn.functional as F
 
     def sdpa_fwd():
         with torch.no_grad():
@@ -702,19 +741,81 @@ def phase_kernels_bwd(torch):
     def sdpa_fwd_bwd():
         torch.autograd.grad(F.scaled_dot_product_attention(qt, kt, vt), (qt, kt, vt), dot)
 
-    # the library's backward: the device time of the kernels that a forward
-    # and backward runs and a forward alone does not, from profiler windows
-    n_prof = 10
     fwd_only = device_kernel_totals(torch, sdpa_fwd, n_prof)
     fwd_bwd = device_kernel_totals(torch, sdpa_fwd_bwd, n_prof)
-    bwd_kernels = {name: us / n_prof / 1e3 for name, (us, _) in fwd_bwd.items()
-                   if name not in fwd_only}
-    if not bwd_kernels:
+    bwd = {name: us / n_prof / 1e3 for name, (us, _) in fwd_bwd.items() if name not in fwd_only}
+    if not bwd:
         raise AssertionError("the profiler recorded no backward kernel of scaled_dot_product_attention")
-    library_ms = sum(bwd_kernels.values())
-    log(f"  scaled_dot_product_attention backward at (4, 2048, 6, 128): {library_ms:.4f} ms of "
-        f"device time in {len(bwd_kernels)} kernels: " + ", ".join(
-            f"{name[:60]} {ms:.4f}" for name, ms in sorted(bwd_kernels.items(), key=lambda kv: -kv[1])))
+    return bwd
+
+
+def phase_kernels_bwd(torch, registers: dict):
+    """K3 and K4 + K5 on every attention case (the forward's, the backward's
+    tile edges), bit-equality of dk and dv across runs and between K5 and
+    K3; then their device time per launch at a 16384 x 4 micro step's shape
+    in turns with cuDNN's backward (through scaled_dot_product_attention),
+    each beside its bound.  `registers`: ptxas's registers of each kernel
+    symbol, for the record."""
+    from lcasr_torch.ops.flash_attention import (
+        flash_attention_bwd_ref, flash_attention_with_lse)
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    worst = {name: 0.0 for name in BWD_KERNELS}
+    n_equal = 0
+    for case in attention_cases(torch):
+        errs = bwd_case(torch, case, gen)
+        if case[5] == torch.bfloat16:
+            worst["flash_attention_bwd_fused"] = max(worst["flash_attention_bwd_fused"],
+                                                     *errs.get("K3", [0.0]))
+            worst["flash_attention_bwd_dq"] = max(worst["flash_attention_bwd_dq"], errs["K4+K5"][0])
+            worst["flash_attention_bwd_dkv"] = max(worst["flash_attention_bwd_dkv"],
+                                                   *errs["K4+K5"][1:])
+            n_equal += "K3" in errs
+    log(f"  dk, dv the same bits in two runs of each route on every case; K5's bit-equal "
+        f"to K3's on the {n_equal} bf16 cases both take")
+
+    # device time per launch at a training shape, full lengths, qkv views as
+    # the model gives them, in turns: K3, K4 + K5, the library twice, K4 + K5, K3
+    B, T, H, D = TRAIN_ATTN_SHAPE
+    q, k, v = make_qkv(torch, B, T, H, D, torch.bfloat16, True, gen)
+    o, lse = flash_attention_with_lse(q, k, v)
+    do = torch.randn((B, T, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+    args = (q, k, v, o, lse, do, None, (-1, -1), None, 0, 0)
+    sym = {key: entry[0] for key, entry in BWD_KERNELS.items()}
+    fused = lambda: run_bwd(torch, True, *args)
+    split = lambda: run_bwd(torch, False, *args)
+    split_syms = [sym["flash_attention_bwd_dq"], sym["flash_attention_bwd_dkv"]]
+    turns = {key: [] for key in BWD_KERNELS}
+    library = []
+
+    def time_fused():
+        turns["flash_attention_bwd_fused"].append(
+            kernel_device_ms(torch, fused, [sym["flash_attention_bwd_fused"]])[
+                sym["flash_attention_bwd_fused"]])
+
+    def time_split():
+        dev = kernel_device_ms(torch, split, split_syms)
+        for key in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            turns[key].append(dev[sym[key]])
+
+    def time_library():
+        bwd = sdpa_backward_ms(torch, q, k, v, do)
+        library.append(sum(bwd.values()))
+        return bwd
+
+    time_fused()
+    time_split()
+    lib_kernels = time_library()
+    time_library()
+    time_split()
+    time_fused()
+    log(f"  scaled_dot_product_attention backward at (4, 2048, 6, 128): "
+        + " / ".join(f"{ms:.4f}" for ms in library) + f" ms of device time in "
+        f"{len(lib_kernels)} kernels: " + ", ".join(
+            f"{name[:60]} {ms:.4f}" for name, ms in sorted(lib_kernels.items(), key=lambda kv: -kv[1])))
+    fused_ms = time_ms(torch, fused, n=20)
+    split_ms = time_ms(torch, split, n=20)
+    plain_ms = time_ms(torch, lambda: flash_attention_bwd_ref(*args), n=3, warmup=1)
     pairs = valid_pairs(None, B, T, (-1, -1), 0, 0)
     elems = B * T * H * D
     stats = 2 * 4 * B * H * T  # lse and delta, fp32
@@ -723,28 +824,31 @@ def phase_kernels_bwd(torch):
         "flash_attention_bwd_dq": (3, 4 * 2 * elems + stats + 4 * elems),
         "flash_attention_bwd_dkv": (4, 4 * 2 * elems + stats + 2 * 2 * elems),
     }
+    library_ms = min(library)
     out = {}
     for key, (symbol, line, body) in BWD_KERNELS.items():
         n_products, nbytes = work[key]
         flops = n_products * 2 * pairs * D * H
         t_ops = flops / PEAK_FLOPS["bf16"] * 1e3
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        ms = dev[symbol]
-        log(f"  {key} at (4, 2048, 6, 128) bf16: kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s), bound {max(t_ops, t_bytes):.4f} ms")
+        bound = max(t_ops, t_bytes)
+        ms = min(turns[key])
+        log(f"  {key} at (4, 2048, 6, 128) bf16: device time per launch "
+            + " / ".join(f"{x:.4f}" for x in turns[key]) + f" ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+            f"{100 * bound / ms:.1f}% of its {bound:.4f} ms bound; cuDNN's backward "
+            f"{library_ms:.4f} ms, {ms / library_ms:.2f}x); {registers.get(symbol, '?')} registers")
         out[key] = {
             "name": key, "route": "cuda",
             "source": "lcasr_torch/csrc/flash_attn_bwd.cu",
             "replaces": f"lcasr_tpu/ops/flash_attention.py:{line}",
             "replaces_fn": f"lcasr_tpu/ops/flash_attention.py:{body}",
-            "launches": None, "max_abs_err": worst[key], "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "launches": None, "max_abs_err": worst[key], "ms": ms, "ms_turns": turns[key],
+            "plain_ms": plain_ms, "library_ms": library_ms, "library_ms_turns": library,
+            "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "registers": registers.get(symbol),
         }
     log(f"  wrappers at (4, 2048, 6, 128): K3 path {fused_ms:.4f} ms, K4+K5 path "
-        f"{split_ms:.4f} ms (delta, dq scale and casts included); plain {plain_ms:.4f} ms; "
-        f"scaled_dot_product_attention backward {library_ms:.4f} ms of device time")
+        f"{split_ms:.4f} ms (delta, dq scale and casts included); plain {plain_ms:.4f} ms")
     for key in out:
         out[key]["wrapper_ms"] = fused_ms if key.endswith("fused") else split_ms
     return out
@@ -1503,9 +1607,10 @@ class TrainRun:
             self.pairs, self.tok, batch_size=4, chunk_size=PODCAST_FRAMES, chunk_overlap=0)))
         return batch, make_chunks(*batch[:3], self.tok, PODCAST_FRAMES, 0, self.tok.pad_id())[0]
 
-    def timed_step(self, trainer, chunk, profile_file: str) -> None:
+    def timed_step(self, trainer, chunk, profile_file: str) -> list:
         """One 16384 x 4 training step (micro step + optimizer step) without
-        data loading: synchronised wall times, then its profile."""
+        data loading: synchronised wall times, then its profile (returned as
+        `profile_run`'s rows)."""
         torch = self.torch
 
         def train_step():
@@ -1523,7 +1628,8 @@ class TrainRun:
             synced.append((time.perf_counter() - t0) * 1e3)
         log(f"  16384x4 {self.what} step without data loading, synchronised: "
             f"{[round(x, 2) for x in synced]} ms")
-        profile_run(torch, train_step, profile_file, f"one 16384x4 {self.what} training step")
+        return profile_run(torch, train_step, profile_file,
+                           f"one 16384x4 {self.what} training step")
 
     def long_step(self, model) -> None:
         """One optimizer step of the 20-minute bucket: 120,000 frames x 1."""
@@ -1674,7 +1780,14 @@ def phase_train(torch, workdir: str):
     t0 = time.perf_counter()
     make_chunks(*batch[:3], run.tok, PODCAST_FRAMES, 0, run.tok.pad_id())
     log(f"  make_chunks on the host (transcripts, BPE): {(time.perf_counter() - t0) * 1e3:.2f} ms")
-    run.timed_step(trainer, chunk, "train_profile.txt")
+    rows = run.timed_step(trainer, chunk, "train_profile.txt")
+    k3_symbol = BWD_KERNELS["flash_attention_bwd_fused"][0].replace(" ", "")
+    k3_rows = [r for r in rows if k3_symbol in r[2].replace(" ", "")]
+    busy_us = sum(r[0] for r in rows)
+    k3_step = {"ms": sum(r[0] for r in k3_rows) / 1e3, "launches": sum(r[1] for r in k3_rows),
+               "share": sum(r[0] for r in k3_rows) / busy_us if busy_us else None}
+    log(f"  K3 in the 16384x4 step's profile: {k3_step['ms']:.3f} ms in {k3_step['launches']} "
+        f"launches, {k3_step['share']} of the device time")
 
     # the banded path: 2 full-width layers with a window, one step, K4 + K5
     band_cfg = Config(merged(run.cfg_d, {"model": {"n_layers": 2, "attention_window_size": 256}}))
@@ -1695,7 +1808,7 @@ def phase_train(torch, workdir: str):
     del band
 
     run.long_step(model)
-    return launches, band_launches
+    return launches, band_launches, k3_step
 
 
 # ---------------------------------------------------------------------------
@@ -1955,7 +2068,9 @@ def main() -> int:
         log("[2/9] kernels against their plain versions")
         results["flash_attention_fwd"] = phase_kernels(torch)
         results["flash_attention_fwd_db"] = phase_kernels_db(torch)
-        results.update(phase_kernels_bwd(torch))
+        bwd_registers = {name: e.get("registers") for name, e in
+                         template_entries(kernels.build_log["flash_attn_bwd.cu"]).items()}
+        results.update(phase_kernels_bwd(torch, bwd_registers))
         results.update(phase_kernels_ssm(torch))
         results["subsampling_fused"] = phase_kernels_sub(torch)
     model = None
@@ -1983,7 +2098,7 @@ def main() -> int:
             "(the training path)")
         os.makedirs(workdir, exist_ok=True)
         try:
-            ladder, banded = phase_train(torch, workdir)
+            ladder, banded, k3_step = phase_train(torch, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         # K3 runs on the flagship's (non-banded) path: its count is the
@@ -1995,6 +2110,7 @@ def main() -> int:
             entry["launches_ladder"] = ladder[key]
         results.setdefault("flash_attention_fwd", {"name": "flash_attention_fwd"})[
             "launches_ladder"] = ladder["flash_attention_fwd"]
+        results["flash_attention_bwd_fused"]["train_step_profile"] = k3_step
     if "mamba_decode" in phases:
         log("[6/9] Mamba: one window batch, then the 20-minute streaming greedy decode")
         model = mamba_model(torch)

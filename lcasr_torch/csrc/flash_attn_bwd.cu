@@ -19,31 +19,47 @@
 // coordinates, as in the forward kernel.
 //
 // Bound on the H100: at the training shape (B 4, T 2048, H 6, D 128, bf16)
-// K3 does 5 products of 2*T*T*D per (b, h) = 129 GFLOP on about 101 MB, so
-// the tensor cores, not the memory, bound it (K4: 3 products, K5: 4).
+// K3 does 5 products of 2*T*T*D per (b, h) = 128.8 GFLOP on about 101 MB
+// (q, k, v, do, dk, dv in bf16, dq in fp32, lse and delta), 0.130 ms at the
+// tensor cores' 989 TFLOP/s against 0.030 ms at 3.35 TB/s: the tensor cores,
+// not the memory, bound it (K4: 3 products, K5: 4).
 //
-// Design (first, simple kernels; wgmma/TMA versions are later work):
-//   * K3 and K5: one CTA of 4 warps per (64-key tile, head, batch); each warp
-//     owns 16 keys and keeps their dk and dv rows in fp32 registers while
-//     the CTA walks the 64-row q tiles that can meet the key tile (the band
-//     and the lengths cut the range).  q / do tiles are double-buffered in
-//     shared memory with cp.async, read in place through their strides.
-//     Each warp computes s^T = k q^T and dp^T = v do^T for its keys, so p^T
-//     and ds^T stay in registers and feed dv += p^T do and dk += ds^T q as
-//     A fragments of bf16 mma.sync m16n8k16 (fp32 accumulation).
-//   * K3 also needs dq = ds k, a sum over all key tiles: ds is staged in
-//     shared memory as (q, key), each warp multiplies 16 q rows of it by the
-//     CTA's key tile, and adds the fp32 result into a zeroed (B, T, H, D)
-//     buffer with atomicAdd.  The Pallas kernel's aliased dq input/output
-//     has no CUDA counterpart; the atomics make dq's summation order vary
-//     from run to run (the only non-deterministic output).
-//   * K4: one CTA per (64-row q tile, head, batch), walking the key tiles in
-//     band; dq stays in registers and is written once, in fp32.
-// fp32 inputs take SIMT kernels of the same structure (32-row tiles, four
+// Design of K3 and K5 in bf16 (one template, `flash_bwd_hopper<D, WITH_DQ>`,
+// for D 128, 64 and 32): what the design does about that bound is keep the
+// tensor cores fed from shared memory and never stop them for a load.
+//   * One CTA of three warpgroups per (128-key tile, head, batch): K and V
+//     arrive once by TMA (128-byte swizzle; 64-byte at D 32) and stay in
+//     shared memory; a producer warp streams 64-row q and do tiles, with
+//     their lse and delta rows, through a two-stage TMA ring over the q
+//     tiles the band and the lengths leave (`q_tile_range`); two consumer
+//     warpgroups own 64 keys each and keep dk, dv in fp32 registers.
+//   * Every product is a wgmma with the keys as M: s^T = k q^T and
+//     dp^T = v do^T from shared memory (SS), dv += p^T do and dk += ds^T q
+//     with p^T and ds^T as bf16 A fragments from registers (RS, q and do
+//     read MN-major), and in K3 dq = ds k with ds^T staged in shared memory
+//     (SS, both operands MN-major).  The masks are a select, applied only on
+//     tiles that cross a length or lie under a band: rows past the length
+//     carry lse = -1e30, and exp(s + 1e30) must never meet a 0.
+//   * dq is a sum over the key tiles, which run in no order: each CTA stages
+//     its fp32 part in shared memory and adds it once per q tile to a zeroed
+//     (B, T, H, D) buffer by TMA reduce-add (`cp.reduce.async.bulk.tensor`,
+//     one per 32 columns; where the Pallas kernel carries dq through an
+//     aliased buffer across sequential grid steps).  It measured 17% faster
+//     than four-float `red.global.add` from registers (PERF.md, §6).
+//     dq's order of additions, and only dq's, varies from run to run; dk and
+//     dv are the same bits each run, and K5's equal K3's.
+//   * Shared memory at D 128: K, V 64 KB; q, do 2 stages x 32 KB; K3's ds^T
+//     2 x 16 KB and dq parts 2 x 16 KB; 194 KB (K5 162 KB): one CTA per SM.
+//     The training shape gives 4 x 6 x 16 = 384 CTAs, 2.9 waves on 132 SMs.
+// K4 (dq alone, the split path): one CTA of 4 warps per (64-row q tile, head,
+// batch) walking the key tiles in band with bf16 mma.sync m16n8k16; dq stays
+// in registers and is written once, in fp32.
+// fp32 inputs take SIMT kernels of the K4 / K3 structure (32-row tiles, four
 // threads per row, fp32 FMA, no tensor cores).  They are slow, and are
 // there because the JAX kernels accept fp32.
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -199,170 +215,438 @@ __device__ __forceinline__ void load_stats(float* sL, float* sD,
   }
 }
 
-// K3 (WITH_DQ) and K5: dk, dv for one key tile; K3 also adds dq.
+// ---------------------------------------------------------------------------
+// bf16 K3 and K5 on Hopper: TMA, wgmma, warp specialisation
+// ---------------------------------------------------------------------------
+constexpr int HBK = 128;     // keys per CTA: 64 per consumer warpgroup
+constexpr int HBQ = 64;      // q rows per tile of the walk
+constexpr int HSTAGES = 2;   // q / do tiles in flight
+constexpr int HTHREADS = 384;  // the producer and two consumer warpgroups
+constexpr int CONSUMER_THREADS = 256;
+constexpr int CONSUMER_WARPS = 8;
+// registers a thread: 128 x 40 + 256 x 232 = 64,512 of the SM's 65,536
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int DS_BAR = 1;  // named barrier: both consumers' ds^T halves are staged
+constexpr int DQ_BAR = 2;  // + consumer: its dq part is staged / its stage is free
+
+template <int D>
+struct BwdTile {
+  // a tile of R rows is D / COLS column blocks of R rows x COLS elements,
+  // each row of a block ROW_BYTES long and swizzled across 8-row groups
+  static constexpr int COLS = D >= 64 ? 64 : D;
+  static constexpr int ROW_BYTES = COLS * 2;
+  static constexpr int BLOCKS = D / COLS;
+  static constexpr uint64_t LAYOUT =
+      D >= 64 ? hopper::SWIZZLE_128B : hopper::SWIZZLE_64B;
+  static constexpr CUtensorMapSwizzle TMA_SWIZZLE =
+      D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  static constexpr int SBO = 8 * ROW_BYTES;  // bytes between 8-row groups
+  static constexpr int KV_ELEMS = HBK * D;
+  static constexpr int QT_ELEMS = HBQ * D;
+  static constexpr uint32_t KV_BYTES = KV_ELEMS * 2;
+  static constexpr uint32_t QT_BYTES = QT_ELEMS * 2;
+  // dq = ds k: at D 128 each consumer takes one 64-column block of dq; at
+  // D 64 and 32 a block is the whole width (a wgmma cannot take half of a
+  // swizzle atom along N) and consumer 0 takes it alone
+  static constexpr bool DQ_SPLIT = D == 128;
+  static constexpr int DQ_N = DQ_SPLIT ? 64 : D;
+};
+
+// ds^T of the CTA: 128 keys x 64 q rows, bf16, one 128-byte swizzled block
+constexpr int DS_ELEMS = HBK * HBQ;
+// a consumer's dq part on its way to the TMA reduce-add: 64 q rows x DQ_N
+// fp32, as blocks of 32 columns (128-byte rows, swizzled)
+constexpr int DQ_BOX_COLS = 32;
+
 template <int D, bool WITH_DQ>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_bwd_kv_bf16(const Params p) {
-  constexpr int LD = D + 8;    // padded row: conflict-free fragment loads
-  constexpr int LDS = BK + 8;  // row stride of the staged ds (q, key)
-  constexpr int NT = BQ / 8;   // n-tiles of s^T over the q tile
-  constexpr int DT = D / 8;
+constexpr size_t bwd_smem() {
+  using TL = BwdTile<D>;
+  return 1024 + 2 * (size_t)TL::KV_BYTES + 2 * HSTAGES * (size_t)TL::QT_BYTES +
+         (WITH_DQ ? 2 * DS_ELEMS * 2 + 2 * HBQ * TL::DQ_N * sizeof(float) : 0) +
+         2 * HSTAGES * HBQ * sizeof(float) + 8 * (1 + 2 * HSTAGES);
+}
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + BK * LD;
-  __nv_bfloat16* sQ = sV + BK * LD;      // 2 buffers
-  __nv_bfloat16* sO = sQ + 2 * BQ * LD;  // do, 2 buffers
-  __nv_bfloat16* sS = sO + 2 * BQ * LD;  // ds as (q, key)
-  float* sL = reinterpret_cast<float*>(sS + BQ * LDS);  // 2 buffers
-  float* sD = sL + 2 * BQ;                              // 2 buffers
+// Issue acc (64 keys x 64 q rows) = A B^T over D: s^T = k q^T or dp^T = v do^T,
+// A this consumer's 64 rows of the key tile, B the q / do tile, both K-major
+// (not waited for).
+template <int D>
+__device__ __forceinline__ void issue_keys_by_rows(float* acc,
+                                                   const __nv_bfloat16* sA,
+                                                   const __nv_bfloat16* sB) {
+  using TL = BwdTile<D>;
+  hopper::fence_all<HBQ / 2>(acc);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int blk = kk * 16 / TL::COLS, col = kk * 16 % TL::COLS;
+    const uint64_t da = hopper::smem_desc(sA + blk * HBK * TL::COLS + col, 16,
+                                          TL::SBO, TL::LAYOUT);
+    const uint64_t db = hopper::smem_desc(sB + blk * HBQ * TL::COLS + col, 16,
+                                          TL::SBO, TL::LAYOUT);
+    hopper::wgmma_m64n64k16_ss<0, 0>(acc, da, db, kk > 0);
+  }
+  hopper::wgmma_commit();
+  hopper::fence_all<HBQ / 2>(acc);
+}
 
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int c0 = kt * BK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const Limits lim = limits(p, b);
-  int lo, hi;
-  q_tile_range(p, lim, c0, BQ, BK, lo, hi);
+// Issue acc (64 keys x D) += A B, A (64 keys x 64 q rows) bf16 from registers,
+// B the q / do tile read MN-major: dv += p^T do, dk += ds^T q (not committed).
+template <int D>
+__device__ __forceinline__ void issue_rows_times_tile(float* acc,
+                                                      uint32_t (*a)[4],
+                                                      const __nv_bfloat16* sB) {
+  using TL = BwdTile<D>;
+#pragma unroll
+  for (int kc = 0; kc < HBQ / 16; ++kc) {
+    // q rows 16 kc .. 16 kc + 15 of every column block; the leading byte
+    // offset steps from one block of COLS columns to the next
+    const uint64_t db = hopper::smem_desc(sB + kc * 16 * TL::COLS,
+                                          HBQ * TL::ROW_BYTES, TL::SBO,
+                                          TL::LAYOUT);
+    hopper::wgmma_rs_tb<D>(acc, a[kc], db);
+  }
+}
 
+// Issue dq (64 q rows x DQ_N) = ds k over the CTA's 128 keys: A is ds^T in
+// shared memory read MN-major (q rows contiguous), B the columns of the key
+// tile from `sK` read MN-major (not waited for).
+template <int D>
+__device__ __forceinline__ void issue_dq(float* acc, const __nv_bfloat16* sDS,
+                                         const __nv_bfloat16* sK) {
+  using TL = BwdTile<D>;
+  hopper::fence_all<TL::DQ_N / 2>(acc);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < HBK / 16; ++ks) {
+    // 16 keys = 16 rows of 128 bytes; A spans one swizzle atom along M, so
+    // only the 8-row stride is read (both offsets are set to it)
+    const uint64_t da = hopper::smem_desc(sDS + ks * 16 * HBQ, 1024, 1024,
+                                          hopper::SWIZZLE_128B);
+    const uint64_t db = hopper::smem_desc(sK + ks * 16 * TL::COLS,
+                                          HBK * TL::ROW_BYTES, TL::SBO,
+                                          TL::LAYOUT);
+    if constexpr (TL::DQ_N == 64)
+      hopper::wgmma_m64n64k16_ss<1, 1>(acc, da, db, ks > 0);
+    else
+      hopper::wgmma_m64n32k16_ss<1, 1>(acc, da, db, ks > 0);
+  }
+  hopper::wgmma_commit();
+  hopper::fence_all<TL::DQ_N / 2>(acc);
+}
+
+// K3 (WITH_DQ) and K5: dk, dv for one 128-key tile; K3 also adds dq.
+//   * warpgroup 0, the producer (setmaxnreg 40): one thread loads the key
+//     tile's K and V once by TMA; warp 0 then keeps a ring of HSTAGES q and
+//     do tiles of 64 rows in flight by TMA, its lanes copying the tile's lse
+//     (times log2 e) and delta rows beside them, one full and one empty
+//     mbarrier per stage;
+//   * warpgroups 1 and 2, the consumers (setmaxnreg 232), own 64 keys each
+//     and keep their dk and dv rows in fp32 registers for the whole walk.
+//     Per q tile: s^T = k q^T and dp^T = v do^T (SS wgmma, keys as M);
+//     p^T = 2^(s^T log2 e - lse log2 e) and ds^T = p^T (dp^T - delta) in
+//     registers, the masks a select on edge tiles only; dv += p^T do and
+//     dk += ds^T q (RS wgmma, p^T and ds^T rounded to bf16 as the A operand);
+//   * K3: both consumers stage ds^T (bf16) in shared memory, meet at a named
+//     barrier, and dq (64 q x D) = ds k is one SS wgmma per 16 keys (ds read
+//     MN-major, k MN-major), split by columns between the consumers at
+//     D 128; each consumer stages its fp32 part in shared memory, and one of
+//     its threads adds it to the zeroed (B, T, H, D) buffer by TMA
+//     reduce-add, once per q tile.
+// dk and dv have one writer and a fixed order of products: they are the
+// same bits from run to run, and K5's are K3's.  Only dq's order of
+// additions across CTAs varies.
+template <int D, bool WITH_DQ>
+__global__ void __launch_bounds__(HTHREADS, 1)
+    flash_bwd_hopper(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tdq, const Params p) {
+  using TL = BwdTile<D>;
   using bf = __nv_bfloat16;
-  const bf* qb = static_cast<const bf*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf* kb = static_cast<const bf*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf* vb = static_cast<const bf*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const bf* ob = static_cast<const bf*>(p.dout) + b * p.o_sb + h * p.o_sh;
-  const float* lse_b = p.lse + ((long long)b * p.H + h) * p.Tq;
-  const float* del_b = p.delta + ((long long)b * p.H + h) * p.Tq;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = hopper::smem_u32(smem_raw);
+  unsigned char* smem = smem_raw + ((1024 - (base & 1023)) & 1023);
+  bf* sK = reinterpret_cast<bf*>(smem);
+  bf* sV = sK + TL::KV_ELEMS;
+  bf* sQ = sV + TL::KV_ELEMS;              // HSTAGES tiles
+  bf* sO = sQ + HSTAGES * TL::QT_ELEMS;    // do, HSTAGES tiles
+  bf* sDS = sO + HSTAGES * TL::QT_ELEMS;   // ds^T, 2 buffers (K3 only)
+  // one dq part a consumer (K3 only)
+  float* sDQ = reinterpret_cast<float*>(sDS + (WITH_DQ ? 2 * DS_ELEMS : 0));
+  float* sL = sDQ + (WITH_DQ ? 2 * HBQ * TL::DQ_N : 0);  // lse rows, times log2 e
+  float* sDl = sL + HSTAGES * HBQ;         // delta rows
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sDl + HSTAGES * HBQ);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + HSTAGES;
 
-  // keys this thread owns in the C fragments: g and g + 8 of its warp
-  const int key_l[2] = {c0 + warp * 16 + g, c0 + warp * 16 + g + 8};
-  const int key_g[2] = {p.kv_off + key_l[0], p.kv_off + key_l[1]};
-
-  float dk[DT][4], dv[DT][4];
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
 #pragma unroll
-  for (int i = 0; i < DT; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk[i][j] = dv[i][j] = 0.f;
-
-  if (lo < hi) {
-    load_tile_async<D, LD, BK, NTHREADS>(sK, kb, p.k_st, c0, p.Tk);
-    load_tile_async<D, LD, BK, NTHREADS>(sV, vb, p.v_st, c0, p.Tk);
-    load_tile_async<D, LD, BQ, NTHREADS>(sQ, qb, p.q_st, lo * BQ, p.Tq);
-    load_tile_async<D, LD, BQ, NTHREADS>(sO, ob, p.o_st, lo * BQ, p.Tq);
-    cp_async_commit();
-    load_stats(sL, sD, lse_b, del_b, lo * BQ, BQ, p.Tq);
-    cp_async_wait_all();
-    __syncthreads();
+    for (int s = 0; s < HSTAGES; ++s) {
+      hopper::mbar_init(&full[s], 32);  // the producer warp's lanes
+      hopper::mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    hopper::fence_barrier_init();
   }
+  __syncthreads();
 
-  const bf* k_lo = sK + (warp * 16 + g) * LD + t * 2;
-  const bf* v_lo = sV + (warp * 16 + g) * LD + t * 2;
-  for (int it = lo; it < hi; ++it) {
-    const int buf = (it - lo) & 1;
-    const int q0 = it * BQ;
-    if (it + 1 < hi) {  // prefetch the next q / do tile into the other buffer
-      const int nb = buf ^ 1;
-      load_tile_async<D, LD, BQ, NTHREADS>(sQ + nb * BQ * LD, qb, p.q_st, q0 + BQ, p.Tq);
-      load_tile_async<D, LD, BQ, NTHREADS>(sO + nb * BQ * LD, ob, p.o_st, q0 + BQ, p.Tq);
-      load_stats(sL + nb * BQ, sD + nb * BQ, lse_b, del_b, q0 + BQ, BQ, p.Tq);
-    }
-    cp_async_commit();
-    const bf* tQ = sQ + buf * BQ * LD;
-    const bf* tO = sO + buf * BQ * LD;
-    const float* tL = sL + buf * BQ;
-    const float* tD = sD + buf * BQ;
-
-    // s^T = k q^T (16 keys x 64 q per warp), then p^T on the valid pairs
-    float s[NT][4];
-    rows_times_tile_t<D, LD, NT>(s, k_lo, tQ, g, t);
+  // the warpgroup's index, read from lane 0 so that the compiler sees it is
+  // the same across the warp: each role is then a region of its own
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int c0 = blockIdx.x * HBK;  // the CTA's first local key
+  if (wg == 0) {
+    // ---- producer ----
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    const Limits lim = limits(p, b);
+    int lo, hi;
+    q_tile_range(p, lim, c0, HBQ, HBK, lo, hi);
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x < 32 && lo < hi) {
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(kv_full, 2 * TL::KV_BYTES);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = nt * 8 + t * 2 + (i & 1);  // q row in the tile
-        const bool ok = pair_valid(p, lim, p.q_off + q0 + col, key_g[i >> 1]);
-        s[nt][i] = ok ? exp2f((s[nt][i] - tL[col]) * LOG2E) : 0.f;
+        for (int c = 0; c < TL::BLOCKS; ++c) {
+          hopper::tma_load_4d(sK + c * HBK * TL::COLS, &tk, kv_full,
+                              c * TL::COLS, h, c0, b);
+          hopper::tma_load_4d(sV + c * HBK * TL::COLS, &tv, kv_full,
+                              c * TL::COLS, h, c0, b);
+        }
       }
-
-    // dv += p^T do
-    acc_times_tile<D, LD, BQ / 16>(dv, s, tO, lane);
-
-    // dp^T = v do^T, then ds^T = p^T (dp^T - delta) in place of p^T
-    {
-      float dp[NT][4];
-      rows_times_tile_t<D, LD, NT>(dp, v_lo, tO, g, t);
+      const float* lse_b = p.lse + ((long long)b * p.H + h) * p.Tq;
+      const float* del_b = p.delta + ((long long)b * p.H + h) * p.Tq;
+      for (int n = 0; n < hi - lo; ++n) {
+        const int st = n % HSTAGES;
+        const uint32_t ph = (n / HSTAGES) & 1;
+        const int q0 = (lo + n) * HBQ;
+        // the tile's lse and delta rows are read before the wait, so their
+        // latency passes while the stage is still in use
+        float lv[HBQ / 32], dl[HBQ / 32];
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          s[nt][i] *= dp[nt][i] - tD[nt * 8 + t * 2 + (i & 1)];
-    }
-    if (WITH_DQ) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          sS[(nt * 8 + t * 2 + (i & 1)) * LDS + warp * 16 + g + 8 * (i >> 1)] =
-              __float2bfloat16(s[nt][i]);
-    }
-
-    // dk += ds^T q
-    acc_times_tile<D, LD, BQ / 16>(dk, s, tQ, lane);
-
-    if (WITH_DQ) {
-      __syncthreads();  // the whole ds tile is staged
-      // dq (64 q x D) += ds (64 q x 64 keys) k; this warp: q rows 16w..16w+15
-      uint32_t sa[BK / 16][4];
-      const bf* s_lo = sS + (warp * 16 + g) * LDS + t * 2;
-#pragma unroll
-      for (int kc = 0; kc < BK / 16; ++kc) a_frag(sa[kc], s_lo, LDS, kc);
-      const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-      const bool ok0 = p.q_off + r0 < lim.q_hi, ok1 = p.q_off + r1 < lim.q_hi;
-      float* dq0 = p.dq + (((long long)b * p.Tq + r0) * p.H + h) * D + t * 2;
-      float* dq1 = dq0 + 8LL * p.H * D;
-#pragma unroll
-      for (int dt = 0; dt < DT; dt += 2) {
-        float a0[4] = {0.f, 0.f, 0.f, 0.f}, a1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int kc = 0; kc < BK / 16; ++kc) {
-          uint32_t b4[4];
-          ldmatrix_x4_trans(b4, sK + (kc * 16 + (lane & 15)) * LD +
-                                    (lane >> 4) * 8 + dt * 8);
-          mma_bf16(a0, sa[kc], b4[0], b4[1]);
-          mma_bf16(a1, sa[kc], b4[2], b4[3]);
+        for (int i = 0; i < HBQ / 32; ++i) {
+          const int r = q0 + lane + 32 * i;
+          lv[i] = r < p.Tq ? lse_b[r] * LOG2E : 0.f;
+          dl[i] = r < p.Tq ? del_b[r] : 0.f;
         }
-        if (ok0) {
-          atomicAdd(dq0 + dt * 8, a0[0]);
-          atomicAdd(dq0 + dt * 8 + 1, a0[1]);
-          atomicAdd(dq0 + dt * 8 + 8, a1[0]);
-          atomicAdd(dq0 + dt * 8 + 9, a1[1]);
+        hopper::mbar_wait(&empty[st], ph ^ 1);
+#pragma unroll
+        for (int i = 0; i < HBQ / 32; ++i) {
+          sL[st * HBQ + lane + 32 * i] = lv[i];
+          sDl[st * HBQ + lane + 32 * i] = dl[i];
         }
-        if (ok1) {
-          atomicAdd(dq1 + dt * 8, a0[2]);
-          atomicAdd(dq1 + dt * 8 + 1, a0[3]);
-          atomicAdd(dq1 + dt * 8 + 8, a1[2]);
-          atomicAdd(dq1 + dt * 8 + 9, a1[3]);
+        if (lane == 0) {
+          hopper::mbar_arrive_expect_tx(&full[st], 2 * TL::QT_BYTES);
+#pragma unroll
+          for (int c = 0; c < TL::BLOCKS; ++c) {
+            hopper::tma_load_4d(sQ + st * TL::QT_ELEMS + c * HBQ * TL::COLS,
+                                &tq, &full[st], c * TL::COLS, h, q0, b);
+            hopper::tma_load_4d(sO + st * TL::QT_ELEMS + c * HBQ * TL::COLS,
+                                &tdo, &full[st], c * TL::COLS, h, q0, b);
+          }
+        } else {
+          hopper::mbar_arrive(&full[st]);
         }
       }
     }
+  } else {
+    // ---- consumers ----
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    const Limits lim = limits(p, b);
+    int lo, hi;
+    q_tile_range(p, lim, c0, HBQ, HBK, lo, hi);
+    const int cw = wg - 1;  // consumer 0 or 1: keys c0 + 64 cw ..
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int key_l[2] = {c0 + cw * 64 + warp * 16 + g,
+                          c0 + cw * 64 + warp * 16 + g + 8};
+    const int key_g[2] = {p.kv_off + key_l[0], p.kv_off + key_l[1]};
+    // every tile needs the masks under a band or when the key tile crosses
+    // the length; otherwise only the q tiles that cross it
+    const bool key_edge = p.left >= 0 || p.right >= 0 ||
+                          p.kv_off + c0 + HBK > lim.kv_hi;
+    const bf* sKc = sK + cw * 64 * TL::COLS;  // this consumer's rows
+    const bf* sVc = sV + cw * 64 * TL::COLS;
+    const bool does_dq = WITH_DQ && (TL::DQ_SPLIT || cw == 0);
 
-    cp_async_wait_all();
-    __syncthreads();
-  }
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
 
-  bf* dkb = static_cast<bf*>(p.dk);
-  bf* dvb = static_cast<bf*>(p.dv);
+    if (lo < hi) hopper::mbar_wait(kv_full, 0);
+    for (int n = 0; n < hi - lo; ++n) {
+      const int st = n % HSTAGES;
+      const uint32_t ph = (n / HSTAGES) & 1;
+      const int q0 = (lo + n) * HBQ;
+      const bf* tQ = sQ + st * TL::QT_ELEMS;
+      const bf* tO = sO + st * TL::QT_ELEMS;
+      const float* tL = sL + st * HBQ;
+      const float* tD = sDl + st * HBQ;
+      hopper::mbar_wait(&full[st], ph);
+
+      float s[HBQ / 2], dp[HBQ / 2];
+      issue_keys_by_rows<D>(s, sKc, tQ);
+      issue_keys_by_rows<D>(dp, sVc, tO);
+
+      // p^T on the valid pairs; rows past the length carry lse = -1e30 and
+      // give inf here, which the select drops
+      const bool edge = key_edge || p.q_off + q0 + HBQ > lim.q_hi;
+      hopper::wgmma_wait<1>();
+      hopper::fence_all<HBQ / 2>(s);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (key_l[r] >= p.Tk) continue;
-    const long long off = (((long long)b * p.Tk + key_l[r]) * p.H + h) * D + t * 2;
+      for (int j = 0; j < HBQ / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(tL + 8 * j + 2 * t);
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      *reinterpret_cast<uint32_t*>(dkb + off + dt * 8) =
-          pack_bf16(dk[dt][2 * r], dk[dt][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dvb + off + dt * 8) =
-          pack_bf16(dv[dt][2 * r], dv[dt][2 * r + 1]);
+        for (int e = 0; e < 4; ++e) {
+          float x = hopper::ex2(fmaf(s[4 * j + e], LOG2E, -((e & 1) ? l2.y : l2.x)));
+          if (edge) {
+            const int row_g = p.q_off + q0 + 8 * j + 2 * t + (e & 1);
+            if (!pair_valid(p, lim, row_g, key_g[e >> 1])) x = 0.f;
+          }
+          s[4 * j + e] = x;
+        }
+      }
+      // ds^T = p^T (dp^T - delta) in place of dp^T
+      hopper::wgmma_wait<0>();
+      hopper::fence_all<HBQ / 2>(dp);
+#pragma unroll
+      for (int j = 0; j < HBQ / 8; ++j) {
+        const float2 d2 = *reinterpret_cast<const float2*>(tD + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d2.y : d2.x));
+      }
+      uint32_t pa[HBQ / 16][4], da[HBQ / 16][4];
+      hopper::pack_frags<HBQ / 16>(pa, s);
+      hopper::pack_frags<HBQ / 16>(da, dp);
+
+      bf* tDS = sDS + (n & 1) * DS_ELEMS;
+      if (WITH_DQ) {
+        // ds^T rows (keys) 64 cw + 16 warp + g (+ 8), columns (q rows)
+        // 16 kc + 2 t (+ 8): one 32-bit word each, at its 128-byte swizzled
+        // place (16-byte chunk index XOR the row's index mod 8)
+        unsigned char* ds_bytes = reinterpret_cast<unsigned char*>(tDS);
+#pragma unroll
+        for (int kc = 0; kc < HBQ / 16; ++kc)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = cw * 64 + warp * 16 + g + 8 * (i & 1);
+            const int chunk = 2 * kc + (i >> 1);
+            *reinterpret_cast<uint32_t*>(ds_bytes + r * 128 + ((chunk ^ (r & 7)) << 4) +
+                                         4 * t) = da[kc][i];
+          }
+        hopper::fence_proxy_async();
+      }
+
+      // dv += p^T do, dk += ds^T q
+      hopper::fence_all<D / 2>(dv);
+      hopper::fence_all<D / 2>(dk);
+      hopper::fence_frags<HBQ / 16>(pa);
+      hopper::fence_frags<HBQ / 16>(da);
+      hopper::wgmma_fence();
+      issue_rows_times_tile<D>(dv, pa, tO);
+      issue_rows_times_tile<D>(dk, da, tQ);
+      hopper::wgmma_commit();
+
+      float dq[TL::DQ_N / 2];
+      if (WITH_DQ) {
+        hopper::named_sync(DS_BAR, CONSUMER_THREADS);  // both halves of ds^T
+        if (does_dq)
+          issue_dq<D>(dq, tDS, sK + (TL::DQ_SPLIT ? cw * HBK * TL::COLS : 0));
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_all<D / 2>(dv);
+      hopper::fence_all<D / 2>(dk);
+      hopper::fence_frags<HBQ / 16>(pa);
+      hopper::fence_frags<HBQ / 16>(da);
+      if (lane == 0) hopper::mbar_arrive(&empty[st]);  // q, do, lse, delta read
+
+      if (does_dq) {
+        hopper::fence_all<TL::DQ_N / 2>(dq);
+        // the part is staged in shared memory and added to dq by one TMA
+        // reduce-add per 32 columns; rows past Tq are skipped by the TMA,
+        // rows past the length add zeros
+        unsigned char* part = reinterpret_cast<unsigned char*>(sDQ + cw * HBQ * TL::DQ_N);
+        if (tid == 0) hopper::bulk_wait_read();  // the last tile's adds have read it
+        hopper::named_sync(DQ_BAR + cw, 128);
+#pragma unroll
+        for (int j = 0; j < TL::DQ_N / 8; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = warp * 16 + g + 8 * r, col = 8 * j + 2 * t;
+            const int cb = col % DQ_BOX_COLS;
+            *reinterpret_cast<float2*>(part + col / DQ_BOX_COLS * (HBQ * 128) + row * 128 +
+                                       (((cb >> 2) ^ (row & 7)) << 4) + (cb & 3) * 4) =
+                make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+          }
+        hopper::fence_proxy_async();
+        hopper::named_sync(DQ_BAR + cw, 128);
+        if (tid == 0) {
+#pragma unroll
+          for (int blk = 0; blk < TL::DQ_N / DQ_BOX_COLS; ++blk)
+            hopper::tma_reduce_add_4d(&tdq, part + blk * (HBQ * 128),
+                                      (TL::DQ_SPLIT ? cw * 64 : 0) + blk * DQ_BOX_COLS,
+                                      h, q0, b);
+          hopper::bulk_commit();
+        }
+      }
+    }
+    if (does_dq && tid == 0) hopper::bulk_wait();  // dq's adds are done
+
+    // dk and dv rounded to bf16 and written once; dk needs no scale (q
+    // arrives scaled)
+    bf* dkb = static_cast<bf*>(p.dk);
+    bf* dvb = static_cast<bf*>(p.dv);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (key_l[r] >= p.Tk) continue;
+      const long long off = (((long long)b * p.Tk + key_l[r]) * p.H + h) * D + t * 2;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dkb + off + 8 * j) =
+            pack_bf16(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dvb + off + 8 * j) =
+            pack_bf16(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+      }
     }
   }
+}
+
+// Tensor maps of q, k, v and do and the launch of K3 (WITH_DQ) or K5;
+// errors of the maps' encoding and of the launch are returned, nothing is
+// synchronised.
+template <int D, bool WITH_DQ>
+cudaError_t launch_hopper_bwd(const Params& p, cudaStream_t stream) {
+  using TL = BwdTile<D>;
+  CUtensorMap mq, mk, mv, mo, mdq;
+  cudaError_t err = hopper::bthd_map(&mq, p.q, p.B, p.Tq, p.H, D, p.q_sb, p.q_st,
+                                     p.q_sh, HBQ, TL::COLS, TL::TMA_SWIZZLE);
+  if (err == cudaSuccess)
+    err = hopper::bthd_map(&mk, p.k, p.B, p.Tk, p.H, D, p.k_sb, p.k_st, p.k_sh,
+                           HBK, TL::COLS, TL::TMA_SWIZZLE);
+  if (err == cudaSuccess)
+    err = hopper::bthd_map(&mv, p.v, p.B, p.Tk, p.H, D, p.v_sb, p.v_st, p.v_sh,
+                           HBK, TL::COLS, TL::TMA_SWIZZLE);
+  if (err == cudaSuccess)
+    err = hopper::bthd_map(&mo, p.dout, p.B, p.Tq, p.H, D, p.o_sb, p.o_st,
+                           p.o_sh, HBQ, TL::COLS, TL::TMA_SWIZZLE);
+  // dq: fp32 (B, Tq, H, D), contiguous; K5 has none and is given q's map
+  mdq = mq;
+  if (err == cudaSuccess && WITH_DQ)
+    err = hopper::bthd_map(&mdq, p.dq, p.B, p.Tq, p.H, D, (long long)p.Tq * p.H * D,
+                           (long long)p.H * D, D, HBQ, DQ_BOX_COLS,
+                           CU_TENSOR_MAP_SWIZZLE_128B, true);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_bwd_hopper<D, WITH_DQ>;
+  constexpr size_t smem = bwd_smem<D, WITH_DQ>();
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Tk + HBK - 1) / HBK, p.H, p.B);
+  kernel<<<grid, HTHREADS, smem, stream>>>(mq, mk, mv, mo, mdq, p);
+  return cudaGetLastError();
 }
 
 // K4: dq for one q tile, in fp32 and without the scale.
@@ -693,12 +977,8 @@ cudaError_t dispatch(const Params& p, int kind, int is_f32, cudaStream_t s) {
   if (kind == DQ)
     return launch(flash_bwd_q_bf16<D>, dim3(cdiv(p.Tq, BQ), p.H, p.B),
                   sizeof(__nv_bfloat16) * (2 * BQ + 4 * BK) * (D + 8), p, s);
-  const size_t smem = sizeof(__nv_bfloat16) *
-                          ((2 * BK + 4 * BQ) * (D + 8) + BQ * (BK + 8)) +
-                      sizeof(float) * 4 * BQ;
-  const dim3 grid(cdiv(p.Tk, BK), p.H, p.B);
-  return kind == FUSED ? launch(flash_bwd_kv_bf16<D, true>, grid, smem, p, s)
-                       : launch(flash_bwd_kv_bf16<D, false>, grid, smem, p, s);
+  return kind == FUSED ? launch_hopper_bwd<D, true>(p, s)
+                       : launch_hopper_bwd<D, false>(p, s);
 }
 
 }  // namespace

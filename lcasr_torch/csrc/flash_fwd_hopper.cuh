@@ -64,33 +64,13 @@ struct HopperTile {
       1024 + Q_BYTES + 2 * HSTAGES * (size_t)KV_BYTES + 8 * (1 + 4 * HSTAGES);
 };
 
-template <int N>
-__device__ __forceinline__ void wgmma_pv(float* d, const uint32_t* a,
-                                         uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float* d, const uint32_t* a,
-                                              uint64_t db) {
-  hopper::wgmma_m64n128k16_rs_tb(d, a, db, 1);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  hopper::wgmma_m64n64k16_rs_tb(d, a, db, 1);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<32>(float* d, const uint32_t* a,
-                                             uint64_t db) {
-  hopper::wgmma_m64n32k16_rs_tb(d, a, db, 1);
-}
-
 // Issue S = Q K^T for this warpgroup's 64 rows (not waited for).
 template <int D>
 __device__ __forceinline__ void issue_scores(float* s,
                                              const __nv_bfloat16* sQw,
                                              const __nv_bfloat16* sK) {
   using TL = HopperTile<D>;
-#pragma unroll
-  for (int i = 0; i < HBK / 2; ++i) hopper::fence_operand(s[i]);
+  hopper::fence_all<HBK / 2>(s);
   hopper::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
@@ -102,8 +82,7 @@ __device__ __forceinline__ void issue_scores(float* s,
     hopper::wgmma_m64n128k16_ss(s, dq, dk, kk > 0);
   }
   hopper::wgmma_commit();
-#pragma unroll
-  for (int i = 0; i < HBK / 2; ++i) hopper::fence_operand(s[i]);
+  hopper::fence_all<HBK / 2>(s);
 }
 
 // Issue O += P V (not waited for).
@@ -111,12 +90,8 @@ template <int D>
 __device__ __forceinline__ void issue_pv(float* o, uint32_t (*pa)[4],
                                          const __nv_bfloat16* sV) {
   using TL = HopperTile<D>;
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) hopper::fence_operand(o[i]);
-#pragma unroll
-  for (int kc = 0; kc < HBK / 16; ++kc)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) hopper::fence_operand(pa[kc][i]);
+  hopper::fence_all<D / 2>(o);
+  hopper::fence_frags<HBK / 16>(pa);
   hopper::wgmma_fence();
 #pragma unroll
   for (int kc = 0; kc < HBK / 16; ++kc) {
@@ -125,17 +100,10 @@ __device__ __forceinline__ void issue_pv(float* o, uint32_t (*pa)[4],
     const uint64_t dv = hopper::smem_desc(sV + kc * 16 * TL::COLS,
                                           HBK * TL::ROW_BYTES, TL::SBO,
                                           TL::LAYOUT);
-    wgmma_pv<D>(o, pa[kc], dv);
+    hopper::wgmma_rs_tb<D>(o, pa[kc], dv);
   }
   hopper::wgmma_commit();
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) hopper::fence_operand(o[i]);
-}
-
-template <int N>
-__device__ __forceinline__ void fence_all(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) hopper::fence_operand(r[i]);
+  hopper::fence_all<D / 2>(o);
 }
 
 // Tile kt's masks and online softmax on this thread's two rows of S (in
@@ -188,18 +156,6 @@ __device__ __forceinline__ void rescale_o(float* o, const float* scale) {
   for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[4 * j + e] *= scale[e >> 1];
-}
-
-// P in bf16 as the A fragments of O += P V: the accumulator layout of S's
-// columns 16 kc .. 16 kc + 15 is that of the A operand.
-__device__ __forceinline__ void pack_p(uint32_t (*pa)[4], const float* s) {
-#pragma unroll
-  for (int kc = 0; kc < HBK / 16; ++kc) {
-    pa[kc][0] = pack_bf16(s[8 * kc + 0], s[8 * kc + 1]);
-    pa[kc][1] = pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
-    pa[kc][2] = pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
-    pa[kc][3] = pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
-  }
 }
 
 // One lane per consumer warp frees a stage once its products have completed.
@@ -323,15 +279,15 @@ __global__ void __launch_bounds__(HTHREADS, 1)
           issue_scores<D>(s, sQw, sK + st * TL::KV_ELEMS);
           turn_end(cw, n == n_tiles - 1);
           hopper::wgmma_wait<0>();
-          fence_all<HBK / 2>(s);
+          hopper::fence_all<HBK / 2>(s);
           release(&empty_k[st], lane);
           softmax_tile(s, m_i, l_i, scale, p, bd, bd.t_lo + n, row_g, t);
           rescale_o<D>(o, scale);
-          pack_p(pa, s);
+          hopper::pack_frags<HBK / 16>(pa, s);
           hopper::mbar_wait(&full_v[st], ph);
           issue_pv<D>(o, pa, sV + st * TL::KV_ELEMS);
           hopper::wgmma_wait<0>();
-          fence_all<D / 2>(o);
+          hopper::fence_all<D / 2>(o);
           release(&empty_v[st], lane);
         }
       } else {
@@ -341,10 +297,10 @@ __global__ void __launch_bounds__(HTHREADS, 1)
         issue_scores<D>(s, sQw, sK);
         turn_end(cw, n_tiles == 1);
         hopper::wgmma_wait<0>();
-        fence_all<HBK / 2>(s);
+        hopper::fence_all<HBK / 2>(s);
         release(&empty_k[0], lane);
         softmax_tile(s, m_i, l_i, scale, p, bd, bd.t_lo, row_g, t);
-        pack_p(pa, s);
+        hopper::pack_frags<HBK / 16>(pa, s);
         // tile n's scores in flight with tile n - 1's P V
         for (int n = 1; n < n_tiles; ++n) {
           const int st = n % HSTAGES, sp = (n - 1) % HSTAGES;
@@ -357,14 +313,14 @@ __global__ void __launch_bounds__(HTHREADS, 1)
           issue_pv<D>(o, pa, sV + sp * TL::KV_ELEMS);
           turn_end(cw, n == n_tiles - 1);
           hopper::wgmma_wait<1>();  // the scores have landed
-          fence_all<HBK / 2>(s);
+          hopper::fence_all<HBK / 2>(s);
           release(&empty_k[st], lane);
           softmax_tile(s, m_i, l_i, scale, p, bd, bd.t_lo + n, row_g, t);
           hopper::wgmma_wait<0>();  // P(n - 1) V(n - 1) has landed
-          fence_all<D / 2>(o);
-          fence_all<HBK / 2>(s);  // P(n) is packed only now: pa is free
+          hopper::fence_all<D / 2>(o);
+          hopper::fence_all<HBK / 2>(s);  // P(n) is packed only now: pa is free
           release(&empty_v[sp], lane);
-          pack_p(pa, s);
+          hopper::pack_frags<HBK / 16>(pa, s);
         }
         // the last tile's P V
         const int sl = (n_tiles - 1) % HSTAGES;
@@ -372,7 +328,7 @@ __global__ void __launch_bounds__(HTHREADS, 1)
         hopper::mbar_wait(&full_v[sl], ((n_tiles - 1) / HSTAGES) & 1);
         issue_pv<D>(o, pa, sV + sl * TL::KV_ELEMS);
         hopper::wgmma_wait<0>();
-        fence_all<D / 2>(o);
+        hopper::fence_all<D / 2>(o);
         release(&empty_v[sl], lane);
       }
     }

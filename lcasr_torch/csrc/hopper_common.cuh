@@ -1,7 +1,10 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels, as
 // thin inline PTX: mbarriers with phase bits, TMA tensor loads, wgmma
 // shared-memory descriptors and products (A from shared memory or from
-// registers), warpgroup register reallocation and named barriers; and, on the
+// registers, either operand K-major or MN-major), TMA reduce-add stores with
+// their bulk groups, the fence between generic
+// shared-memory stores and the async proxy, warpgroup register reallocation
+// and named barriers; and, on the
 // host, the encoding of a TMA tensor map through the CUDA runtime's lookup of
 // the CUDA driver API (cudaGetDriverEntryPoint), so a library built from
 // these sources needs no -lcuda.  No CUTLASS / CuTe: the build stays seconds.
@@ -11,6 +14,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_common.cuh"  // pack_bf16
 
 namespace {
 namespace hopper {
@@ -102,6 +107,30 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// TMA: add a 4-D box of shared memory into global memory, element by element
+// (the map's type; fp32 here), as one bulk operation of this thread's bulk
+// group; elements past the tensor's extent are skipped.
+__device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map,
+                                                  const void* src, int c0,
+                                                  int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until this thread's bulk operations have read their shared memory
+// (_read), or have completed.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -147,12 +176,39 @@ __device__ __forceinline__ void fence_operand(uint32_t& r) {
   asm volatile("" : "+r"(r)::"memory");
 }
 
+template <int N>  // every register of an N-float accumulator
+__device__ __forceinline__ void fence_all(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_operand(r[i]);
+}
+template <int KC>  // every register of KC A fragments
+__device__ __forceinline__ void fence_frags(uint32_t (*a)[4]) {
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) fence_operand(a[kc][i]);
+}
+
 // Fragment layout of a 64 x N fp32 accumulator: thread l of the warpgroup
 // (warp w = l / 32, g = (l % 32) / 4, t = l % 4) holds rows 16 w + g and
 // 16 w + g + 8; d[4 j + e] is column 8 j + 2 t + (e & 1) of the first row
 // (e < 2) or the second (e >= 2).  The A fragment from registers of a 64 x 16
 // bf16 operand is the same layout packed in pairs: a[0] row g, columns 2t,
 // 2t+1; a[1] row g + 8; a[2], a[3] the same rows at columns 2t + 8, 2t + 9.
+
+// A 64 x 16 KC fp32 accumulator as KC bf16 A fragments of 16 columns each:
+// the accumulator layout of columns 16 kc .. 16 kc + 15 is that of the A
+// operand.
+template <int KC>
+__device__ __forceinline__ void pack_frags(uint32_t (*a)[4], const float* s) {
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) {
+    a[kc][0] = pack_bf16(s[8 * kc + 0], s[8 * kc + 1]);
+    a[kc][1] = pack_bf16(s[8 * kc + 2], s[8 * kc + 3]);
+    a[kc][2] = pack_bf16(s[8 * kc + 4], s[8 * kc + 5]);
+    a[kc][3] = pack_bf16(s[8 * kc + 6], s[8 * kc + 7]);
+  }
+}
 
 // D (64 x 128, fp32) (+)= A (64 x 16, smem, K-major) * B (128 x 16, smem, K-major)
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float* d, uint64_t da, uint64_t db, int scale_d) {
@@ -231,6 +287,64 @@ __device__ __forceinline__ void wgmma_m64n32k16_rs_tb(float* d, const uint32_t* 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// D (64 x N) += A (64 x 16, registers) * B (16 x N, smem, MN-major), N = D of
+// the tile: 128, 64 or 32
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float* d, const uint32_t* a, uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<128>(float* d, const uint32_t* a, uint64_t db) {
+  wgmma_m64n128k16_rs_tb(d, a, db, 1);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<64>(float* d, const uint32_t* a, uint64_t db) {
+  wgmma_m64n64k16_rs_tb(d, a, db, 1);
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<32>(float* d, const uint32_t* a, uint64_t db) {
+  wgmma_m64n32k16_rs_tb(d, a, db, 1);
+}
+
+// D (64 x 64, fp32) (+)= A (64 x 16, smem) * B (16 x 64, smem); TA / TB = 1
+// reads that operand MN-major (transposed), 0 K-major
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D (64 x 32, fp32) (+)= A (64 x 16, smem) * B (16 x 32, smem); TA, TB as above
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// Generic-proxy stores to shared memory (st.shared) made visible to the
+// async proxy that wgmma and TMA read through; each storing thread fences
+// before the barrier that hands the tile over.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
 // warpgroup registers and named barriers
 // ---------------------------------------------------------------------------
@@ -288,15 +402,15 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A map of a bf16 (B, T, H, D) tensor read through its element strides (the
-// D stride is 1), as the 4-D tensor (D, H, T, B), loaded in boxes of
+// A map of a bf16 (f32: fp32) (B, T, H, D) tensor read through its element
+// strides (the D stride is 1), as the 4-D tensor (D, H, T, B), in boxes of
 // (box_d, 1, box_rows, 1): box_rows rows of one (b, h) slice, box_d columns
 // wide.  A size-1 dimension's stride is replaced by the packed one (PyTorch
 // leaves it arbitrary; it is never stepped).
 inline cudaError_t bthd_map(CUtensorMap* map, const void* base, int B, int T,
                             int H, int D, long long sb, long long st,
                             long long sh, int box_rows, int box_d,
-                            CUtensorMapSwizzle swizzle) {
+                            CUtensorMapSwizzle swizzle, bool f32 = false) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   if (H == 1) sh = D;
@@ -304,11 +418,16 @@ inline cudaError_t bthd_map(CUtensorMap* map, const void* base, int B, int T,
   if (B == 1) sb = st * T;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2,
-                                 (cuuint64_t)sb * 2};
+  const cuuint64_t elem_bytes = f32 ? 4 : 2;
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * elem_bytes,
+                                 (cuuint64_t)st * elem_bytes,
+                                 (cuuint64_t)sb * elem_bytes};
   const cuuint32_t box[4] = {(cuuint32_t)box_d, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  const CUresult r = encode(map,
+                            f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            4,
                             const_cast<void*>(base), dims, strides, box, elem,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

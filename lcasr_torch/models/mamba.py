@@ -186,7 +186,8 @@ class Mamba(nn.Module):
             for _ in range(n_layers))
         # the Mamba decoder always norms
         self.decoder = ASRLinearSCDecoder(d_model, vocab_size, norm=True,
-                                          norm_type="rms_norm", dtype=dtype)
+                                          norm_type="rms_norm", dtype=dtype,
+                                          reproject=self_conditioning and n_layers > 1)
         self.to(device)
         self.eval()
 

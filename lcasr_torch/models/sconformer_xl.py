@@ -307,7 +307,8 @@ class SCConformerXL(nn.Module):
             for _ in range(n_layers)
         )
         self.decoder = ASRLinearSCDecoder(d_model, vocab_size, norm=decoder_norm,
-                                          norm_type=default_norm, dtype=dtype)
+                                          norm_type=default_norm, dtype=dtype,
+                                          reproject=self_conditioning and n_layers > 1)
         self.to(device)
         self.eval()
 

@@ -19,7 +19,9 @@ chooses; both compute the same function and `flash_attention_ref` is the
 plain version of both.  The backward launches the kernels in
 `csrc/flash_attn_bwd.cu`: the one-pass K3 when the attention is not banded
 on both sides, else K4 (dq) and K5 (dk, dv), as `_bwd_impl` chooses; with
-`LCASR_FUSED_ATTN_BWD=0` the split pair runs always.  All take bf16 or
+`LCASR_FUSED_ATTN_BWD=0` the split pair runs always.  In bf16, K1, K2, K3
+and K5 read their inputs by TMA (and K3 adds dq into its fp32 buffer by TMA
+reduce-add), so those tensors must meet `_tma_layout_ok`.  All take bf16 or
 fp32 and D in 32, 64, 128, and raise on anything else.  On a CPU tensor
 they run `flash_attention_ref` / `flash_attention_bwd_ref`, the plain fp32
 versions.  There is no fallback from one to the other.
@@ -97,8 +99,8 @@ def flash_attention_ref(
 
 
 def _tma_layout_ok(shape, strides, dtype, data_ptr: int) -> bool:
-    """Whether a (B, T, H, D) tensor can be read by the bf16 kernels' TMA
-    tensor maps: unit stride on D, a 16-byte-aligned base, byte strides of
+    """Whether a (B, T, H, D) tensor can be read (K3's fp32 dq buffer:
+    reduced into) through the bf16 kernels' TMA tensor maps: unit stride on D, a 16-byte-aligned base, byte strides of
     B, T and H that are multiples of 16 (a dimension of size 1 is never
     stepped, and the kernel ignores its stride), and D rows whose byte
     length is a multiple of 16."""
@@ -273,6 +275,11 @@ def flash_attention_bwd(
     fused = _fused_bwd(window)
     dq32 = (torch.zeros if fused else torch.empty)(
         (B, Tq, H, D), dtype=torch.float32, device=q.device)
+    if fused and q.dtype == torch.bfloat16 and not _tma_layout_ok(
+            dq32.shape, dq32.stride(), dq32.dtype, dq32.data_ptr()):
+        # the bf16 K3 adds its dq parts into this buffer by TMA reduce-add
+        raise ValueError(f"flash_attention_bwd: the fp32 dq buffer {tuple(dq32.shape)} "
+                         f"(strides {dq32.stride()}) cannot take K3's TMA reduce-add")
     dk = torch.empty((B, Tk, H, D), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     lib = kernels.library(_BWD_SRC)

@@ -410,6 +410,14 @@ class Trainer:
         if latest is None:
             return 0, 0, []
         arrays, meta = checkpointing.load_checkpoint(latest, map_location=self.device)
+        stale = [k for k in arrays["model"] if k.startswith("decoder.reprojection.")]
+        if stale and self.model.decoder.reprojection is None:
+            raise ValueError(
+                f"{latest}: the checkpoint holds {stale}, which this model has no use for "
+                "(its decoder reprojects only with self_conditioning and more than one "
+                "layer); it was written before the port stopped creating the unused "
+                "reprojection, and its optimizer state counts those parameters too, so "
+                "it cannot resume this model")
         self.model.load_state_dict(arrays["model"], strict=True)
         if arrays.get("optimizer"):
             self.optimizer.load_state_dict(arrays["optimizer"])

@@ -33,6 +33,15 @@ CASES = [
     ("offsets", 2, 140, 1, 32, [160, 90], (-1, -1), 17, 9),
     ("offsets_band", 2, 140, 1, 32, [150, 120], (30, 20), 17, 9),
     ("D128", 1, 140, 2, 128, [140], (-1, -1), 0, 0),
+    # the edges of the bf16 backward's tiles on the card (128 keys per CTA,
+    # 64-row q tiles), where the kernels must mask exactly as this does
+    ("T63", 2, 63, 1, 32, [63, 40], (-1, -1), 0, 0),
+    ("T65", 2, 65, 1, 32, [65, 64], (-1, -1), 0, 0),
+    ("T191", 1, 191, 2, 32, [191], (-1, -1), 0, 0),
+    ("T257", 1, 257, 1, 32, [200], (-1, -1), 0, 0),
+    ("offsets_64", 1, 130, 1, 32, [194], (-1, -1), 64, 64),
+    ("offsets_128_band", 1, 130, 1, 32, [300], (64, 24), 128, 128),
+    ("left_window_on_q_tile_edge", 1, 192, 1, 32, [192], (64, -1), 0, 0),
 ]
 
 
@@ -97,3 +106,47 @@ def test_kernel_choice_follows_the_jax_gate(monkeypatch, window, env, fused):
     """K3 unless the band is two-sided or LCASR_FUSED_ATTN_BWD=0."""
     monkeypatch.setenv("LCASR_FUSED_ATTN_BWD", env)
     assert tfa._fused_bwd(window) is fused
+
+
+# the same edges, on the card: chip_smoke.py holds K3 and K4 + K5 against
+# flash_attention_bwd_ref on every case of `attention_cases`
+BWD_TILE_EDGES = {"T": (63, 65, 191, 257), "offsets": (64, 128)}
+
+
+def test_chip_smoke_attention_cases_hold_the_backward_tile_edges():
+    import chip_smoke
+
+    bf16 = [c for c in chip_smoke.attention_cases(torch) if c[5] == torch.bfloat16]
+    two_sided = lambda c: c[7][0] >= 0 and c[7][1] >= 0  # noqa: E731  (K4 + K5 only)
+    for T in BWD_TILE_EDGES["T"]:
+        assert any(c[2] == T and not two_sided(c) for c in bf16), T  # K3 and K4 + K5
+    for off in BWD_TILE_EDGES["offsets"]:
+        assert any(c[8] == c[9] == off for c in bf16), off
+    # a left window whose rows start on a 64-row edge, on K3's route
+    assert any(c[7][0] > 0 and c[7][0] % 64 == 0 and c[7][1] < 0 for c in bf16)
+    # a band edge inside a 64-row q tile, on both routes
+    assert any(two_sided(c) and c[7][1] % 64 for c in bf16)
+    assert any(c[7][0] < 0 <= c[7][1] and c[7][1] % 64 for c in bf16)
+    # every head dim the kernels take
+    assert {c[4] for c in bf16} == set(tfa.KERNEL_HEAD_DIMS)
+
+
+def test_bwd_experiment_patches_apply_to_the_source():
+    """scripts/attention_bwd_experiments.py patches copies of the backward's
+    source: every planted fault and design variant must still find its text
+    exactly once, or the script measures nothing."""
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "attention_bwd_experiments", os.path.join(root, "scripts", "attention_bwd_experiments.py"))
+    exp = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(exp)
+    source = open(os.path.join(root, exp.SOURCE)).read()
+    for name, patches in {**exp.CONTROLS, **exp.VARIANTS}.items():
+        text = source
+        for old, new in patches:
+            assert text.count(old) == 1, (name, old[:60])
+            text = text.replace(old, new)
+        assert text != source, name

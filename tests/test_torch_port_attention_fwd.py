@@ -115,6 +115,19 @@ def test_tma_layout_refuses_odd_strides():
     assert _ok(one_head)
 
 
+def test_tma_layout_accepts_the_fp32_dq_buffer():
+    """K3 adds dq into a zeroed fp32 (B, T, H, D) buffer by TMA reduce-add:
+    the wrapper's contiguous buffer passes at every head dim; a view with an
+    H stride off the 16-byte grid does not."""
+    from lcasr_torch.ops.flash_attention import KERNEL_HEAD_DIMS
+
+    for D in KERNEL_HEAD_DIMS:
+        assert _ok(torch.zeros((2, 63, 6, D), dtype=torch.float32))
+    odd_h = torch.zeros((2, 64, 2, 129), dtype=torch.float32)[..., :128]
+    assert odd_h.stride(2) == 129 and not _ok(odd_h)
+    assert not _ok(torch.zeros((2, 64, 2, 2), dtype=torch.float32))  # 8-byte rows
+
+
 def test_tma_layout_refuses_rows_not_a_multiple_of_16_bytes():
     assert not _ok(torch.zeros((2, 64, 2, 4), dtype=torch.bfloat16))  # 8-byte rows
     assert not _ok(torch.zeros((2, 64, 2, 12), dtype=torch.bfloat16))  # 24-byte rows

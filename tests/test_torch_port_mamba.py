@@ -34,10 +34,7 @@ def _pair(cfg, T, seed=0):
     from lcasr_torch.models.mamba import Mamba
 
     jm = JModel(**cfg)
-    # flax creates the decoder's reprojection only where self-conditioning
-    # runs; the port always has it, so initialise with it and apply without
-    init = JModel(**dict(cfg, self_conditioning=True))
-    variables = randomize(init.init(jax.random.PRNGKey(0), jnp.zeros((1, 80, T))), seed=seed)
+    variables = randomize(jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 80, T))), seed=seed)
     port = Mamba(**cfg, device="cpu")
     port.load_state_dict(state_dict_from_flax(variables), strict=True)
     return jm, variables, port

@@ -71,6 +71,8 @@ def test_tiny_model_matches_jax(variant):
     dict(subsampling="striding"), dict(subsampling="vggnet", subsampling_act="relu"),
     dict(conv_norm="batch_norm"), dict(conv_norm="layer_norm"), dict(conv_norm="group_norm"),
     dict(conv_norm="none"),
+    # flax makes no decoder reprojection here: the port must not either
+    dict(self_conditioning=False), dict(n_layers=1),
 ], ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
 def test_model_options_match_jax(option):
     """The options of the decode slice, through flax init -> randomize ->
@@ -86,6 +88,35 @@ def test_model_options_match_jax(option):
     rng = np.random.default_rng(8)
     audio = rng.normal(size=(3, 80, 300)).astype(np.float32)
     _compare(jm, variables, port, audio, np.array([300, 211, 97], np.int32))
+
+
+@pytest.mark.parametrize("family", ["SCConformerXL", "Mamba"])
+@pytest.mark.parametrize("n_layers,self_conditioning", [(2, True), (2, False), (1, True)])
+def test_state_dict_keys_are_flax_keys(family, n_layers, self_conditioning):
+    """Both ways between the flax tree and the port's state_dict: the same
+    keys, with a decoder reprojection exactly where a layer projects back
+    (self-conditioning with more than one layer)."""
+    import importlib
+
+    from lcasr_torch.models.import_jax import flax_from_state_dict
+
+    mod = "sconformer_xl" if family == "SCConformerXL" else "mamba"
+    JModel = getattr(importlib.import_module(f"lcasr_tpu.models.{mod}"), family)
+    Port = getattr(importlib.import_module(f"lcasr_torch.models.{mod}"), family)
+    cfg = dict(vocab_size=16, d_model=64, n_layers=n_layers, subsampling_conv_channels=32,
+               self_conditioning=self_conditioning)
+    if family == "SCConformerXL":
+        cfg.update(n_heads=2, head_dim=32)
+    variables = JModel(**cfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 80, 64)))
+    variables = jax.tree.map(np.asarray, dict(variables))
+    port = Port(**cfg, device="cpu")
+    port.load_state_dict(state_dict_from_flax(variables), strict=True)
+    back = flax_from_state_dict(port.state_dict())
+    paths = lambda tree: {jax.tree_util.keystr(p) for p, _ in
+                          jax.tree_util.tree_leaves_with_path(tree)}
+    assert paths(back) == paths(variables)
+    reprojects = self_conditioning and n_layers > 1
+    assert ("decoder.reprojection.weight" in port.state_dict()) == reprojects
 
 
 def test_flagship_widths_match_jax():

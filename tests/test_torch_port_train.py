@@ -339,6 +339,32 @@ def test_save_resume_round_trip(corpus, tmp_path):
     assert fresh.scheduler.state_dict() == tr.scheduler.state_dict()
 
 
+def test_resume_refuses_a_stale_reprojection(corpus, tmp_path):
+    """A checkpoint written while the decoder always made its reprojection
+    holds two parameters that a model without self-conditioning lacks (and
+    its optimizer state counts them): resuming refuses it by name."""
+    from lcasr_torch.config import Config
+    from lcasr_torch.data.tokenizer import load_tokenizer
+    from lcasr_torch.models.registry import load_model
+    from lcasr_torch.training import checkpointing
+    from lcasr_torch.training.trainer import Trainer
+
+    tok = load_tokenizer()
+    cfg_d = _config(corpus, tmp_path)
+    cfg_d["model"]["self_conditioning"] = False
+    cfg = Config(cfg_d)
+    trainer = Trainer(cfg, load_model(cfg, tok.vocab_size(), device="cpu"), tok, device="cpu")
+    trainer.init_state()
+    state = dict(trainer.model.state_dict())
+    assert not any(k.startswith("decoder.reprojection.") for k in state)
+    n_classes, d_model = tok.vocab_size() + 1, MODEL_KW["d_model"]
+    state["decoder.reprojection.weight"] = torch.zeros(d_model, n_classes)
+    state["decoder.reprojection.bias"] = torch.zeros(d_model)
+    checkpointing.save_checkpoint(str(tmp_path), step=1, model_state=state, config=cfg)
+    with pytest.raises(ValueError, match="decoder.reprojection.weight"):
+        trainer.resume()
+
+
 def test_mesh_larger_than_the_host_runs_on_one_device(capsys, corpus, tmp_path):
     from lcasr_torch.config import Config
     from lcasr_torch.data.tokenizer import load_tokenizer
