@@ -23,9 +23,11 @@ Phases, in order; any failure raises and exits non-zero:
               calls it).  K1 and K2 are timed by their device work (launches
               of the wrapper's launch function back to back between two events) and by
               whole wrapper calls; K3, K4 and K5 by the profiler, in turns
-              with cuDNN's backward; dk and dv must be the same bits in two
-              runs, and K5's those of K3; the build fails on serialised wgmma
-              or spills in the bf16 entries of K1, K2, K3 and K5;
+              with cuDNN's backward, and K4 + K5 also under a (256, 256)
+              band; dk and dv must be the same bits in two runs, K4's dq too,
+              and K5's those of K3; K7's five gradients the same bits in two
+              runs; the build fails on serialised wgmma or spills in the bf16
+              entries of K1-K5;
   3. model    the flagship SCConformerXL (9L-768D-6H, bf16, random weights
               from a numpy seed) on one (16, 80, 16384) window batch: finite,
               normalised log-probs, compared with the same model whose
@@ -242,12 +244,14 @@ def device_kernel_totals(torch, fn, n: int = 10) -> dict:
 
 # the bf16 kernels on TMA, wgmma and warp specialisation, as ptxas and the
 # profiler name their templates: the forward K1 / K2
-# (csrc/flash_fwd_hopper.cuh) and the backward K3 / K5 (csrc/flash_attn_bwd.cu)
+# (csrc/flash_fwd_hopper.cuh), the backward K3 / K5 and K4
+# (csrc/flash_attn_bwd.cu)
 HOPPER_FWD_SYMBOL = "flash_fwd_hopper"
 HOPPER_BWD_SYMBOL = "flash_bwd_hopper"
-HOPPER_SOURCES = {"flash_attn_fwd.cu": HOPPER_FWD_SYMBOL,
-                  "flash_attn_fwd_db.cu": HOPPER_FWD_SYMBOL,
-                  "flash_attn_bwd.cu": HOPPER_BWD_SYMBOL}
+HOPPER_DQ_SYMBOL = "flash_bwd_dq_hopper"
+HOPPER_SOURCES = {"flash_attn_fwd.cu": (HOPPER_FWD_SYMBOL,),
+                  "flash_attn_fwd_db.cu": (HOPPER_FWD_SYMBOL,),
+                  "flash_attn_bwd.cu": (HOPPER_BWD_SYMBOL, HOPPER_DQ_SYMBOL)}
 
 
 def ptxas_entries(text: str) -> dict:
@@ -288,11 +292,13 @@ def template_entries(text: str) -> dict:
 
 
 def check_hopper_build(build_log: dict) -> dict:
-    """Fail if ptxas serialised the wgmma of K1, K2, K3 or K5, ignored their
-    setmaxnreg, or spilled in their bf16 (Hopper) entries; returns those
-    entries' registers and spills."""
+    """Fail if ptxas serialised the wgmma of K1-K5, ignored their setmaxnreg,
+    or spilled in their bf16 (Hopper) entries; returns those entries'
+    registers and spills."""
+    import re
+
     report = {}
-    for src, symbol in HOPPER_SOURCES.items():
+    for src, symbols in HOPPER_SOURCES.items():
         text = build_log.get(src, "")
         if text == "(cached)":
             raise AssertionError(f"{src}: built before this run; its ptxas report is not here")
@@ -300,9 +306,11 @@ def check_hopper_build(build_log: dict) -> dict:
             if bad in text:
                 lines = [ln.strip() for ln in text.splitlines() if bad in ln]
                 raise AssertionError(f"{src}: ptxas reports '{bad}': {lines[:3]}")
-        entries = {fn: e for fn, e in ptxas_entries(text).items() if symbol in fn}
-        if not entries:
-            raise AssertionError(f"{src}: no {symbol} entry in ptxas's report")
+        entries = {fn: e for fn, e in ptxas_entries(text).items()
+                   if any(re.search(rf"\d{sym}I", fn) for sym in symbols)}
+        for sym in symbols:
+            if not any(re.search(rf"\d{sym}I", fn) for fn in entries):
+                raise AssertionError(f"{src}: no {sym} entry in ptxas's report")
         for fn, e in entries.items():
             if e.get("spill_stores", 0) or e.get("spill_loads", 0):
                 raise AssertionError(f"{src}: {fn} spills: {e}")
@@ -375,6 +383,14 @@ def attention_cases(torch):
         ("shard_offsets_64", 2, 300, 2, 128, bf, [364, 280], (-1, -1), 64, 64, False),
         ("D64_T65_band", 2, 65, 2, 64, bf, [65, 33], (16, 16), 0, 0, False),
         ("D32_T191_shard", 2, 191, 3, 32, bf, [255, 100], (-1, 40), 64, 64, True),
+        # the edges of K4's tiles: 128 q rows per CTA, a walk over 64-key
+        # tiles (T 127, 129, 255 above; both routes take these)
+        ("T383", 2, 383, 2, 128, bf, [383, 257], (-1, -1), 0, 0, True),
+        # a two-sided band whose edges cut 128-row q tiles and 64-key tiles
+        ("band_edge_in_128_tile", 2, 400, 2, 128, bf, [400, 333], (100, 72), 0, 0, False),
+        ("shard_offsets_128_band", 2, 300, 2, 128, bf, [428, 350], (96, 40), 128, 128, False),
+        ("D64_band_T300", 2, 300, 2, 64, bf, [300, 190], (130, 70), 0, 0, True),
+        ("D32_band_T300", 2, 300, 3, 32, bf, [300, 0], (70, 130), 0, 0, False),
     ]
 
 
@@ -638,7 +654,7 @@ def phase_kernels_db(torch):
 # ---------------------------------------------------------------------------
 BWD_KERNELS = {  # launch-count name -> (kernel symbol, Pallas body it replaces)
     "flash_attention_bwd_fused": ("flash_bwd_hopper<128, true>", 666, "_bwd_fused_kernel"),
-    "flash_attention_bwd_dq": ("flash_bwd_q_bf16<128>", 484, "_bwd_dq_kernel"),
+    "flash_attention_bwd_dq": ("flash_bwd_dq_hopper<128>", 484, "_bwd_dq_kernel"),
     "flash_attention_bwd_dkv": ("flash_bwd_hopper<128, false>", 569, "_bwd_dkv_kernel"),
 }
 TRAIN_ATTN_SHAPE = (4, 2048, 6, 128)  # (B, T, H, D): a 16384-frame x 4 chunk
@@ -670,8 +686,9 @@ def bwd_case(torch, case, gen):
     """One attention case through the backward: K3 and K4 + K5 (a
     two-sided band: K4 + K5 only, as `_bwd_impl` chooses) against
     `flash_attention_bwd_ref`, each launching its kernels once; each route
-    run twice, whose dk and dv must be the same bits; K5's dk and dv
-    bit-equal to K3's.  Returns {route: (max|d dq|, max|d dk|, max|d dv|)}."""
+    run twice, whose dk and dv must be the same bits, and on the split route
+    dq too (K4 has one writer per element; K3 adds dq across CTAs); K5's dk
+    and dv bit-equal to K3's.  Returns {route: (max|d dq|, max|d dk|, max|d dv|)}."""
     from lcasr_torch import kernels
     from lcasr_torch.ops.flash_attention import (
         flash_attention_bwd_ref, flash_attention_with_lse)
@@ -717,6 +734,8 @@ def bwd_case(torch, case, gen):
         # dk and dv have one writer per element and a fixed order of products
         if not (torch.equal(got[fused][1], again[1]) and torch.equal(got[fused][2], again[2])):
             raise AssertionError(f"{name} {route}: dk or dv differs between two runs")
+        if not fused and not torch.equal(got[fused][0], again[0]):
+            raise AssertionError(f"{name} {route}: K4's dq differs between two runs")
         log(f"  {name:26s} {route}: max|d dq| {errs[route][0]:.3e} "
             f"max|d dk| {errs[route][1]:.3e} max|d dv| {errs[route][2]:.3e}")
     if dtype == torch.bfloat16 and not banded and not (
@@ -771,8 +790,9 @@ def phase_kernels_bwd(torch, registers: dict):
             worst["flash_attention_bwd_dkv"] = max(worst["flash_attention_bwd_dkv"],
                                                    *errs["K4+K5"][1:])
             n_equal += "K3" in errs
-    log(f"  dk, dv the same bits in two runs of each route on every case; K5's bit-equal "
-        f"to K3's on the {n_equal} bf16 cases both take")
+    log(f"  dk, dv the same bits in two runs of each route on every case, K4's dq in two "
+        f"runs of the split route; K5's dk, dv bit-equal to K3's on the {n_equal} bf16 cases "
+        f"both take")
 
     # device time per launch at a training shape, full lengths, qkv views as
     # the model gives them, in turns: K3, K4 + K5, the library twice, K4 + K5, K3
@@ -825,13 +845,31 @@ def phase_kernels_bwd(torch, registers: dict):
         "flash_attention_bwd_dkv": (4, 4 * 2 * elems + stats + 2 * 2 * elems),
     }
     library_ms = min(library)
-    out = {}
-    for key, (symbol, line, body) in BWD_KERNELS.items():
+    # the split path under the band of the repo's hour-scale configuration
+    # (configs/cp_1hour_tiny.yaml, attention_window_size 256): K4 and K5 at
+    # the same shape with window (256, 256), each against the bound of the
+    # pairs that band leaves
+    band = (256, 256)
+    o_band, lse_band = flash_attention_with_lse(q, k, v, None, band)
+    band_args = (q, k, v, o_band, lse_band, do, None, band, None, 0, 0)
+    band_split = lambda: run_bwd(torch, False, *band_args)
+    band_turns = {key: [] for key in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
+    for _ in range(2):
+        dev = kernel_device_ms(torch, band_split, split_syms)
+        for key in band_turns:
+            band_turns[key].append(dev[sym[key]])
+    band_pairs = valid_pairs(None, B, T, band, 0, 0)
+
+    def bound_of(key, n_pairs):
         n_products, nbytes = work[key]
-        flops = n_products * 2 * pairs * D * H
+        flops = n_products * 2 * n_pairs * D * H
         t_ops = flops / PEAK_FLOPS["bf16"] * 1e3
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        bound = max(t_ops, t_bytes)
+        return max(t_ops, t_bytes), flops, "operations" if t_ops >= t_bytes else "bytes"
+
+    out = {}
+    for key, (symbol, line, body) in BWD_KERNELS.items():
+        bound, flops, bound_by = bound_of(key, pairs)
         ms = min(turns[key])
         log(f"  {key} at (4, 2048, 6, 128) bf16: device time per launch "
             + " / ".join(f"{x:.4f}" for x in turns[key]) + f" ms ({flops / ms / 1e9:.1f} TFLOP/s, "
@@ -844,9 +882,18 @@ def phase_kernels_bwd(torch, registers: dict):
             "replaces_fn": f"lcasr_tpu/ops/flash_attention.py:{body}",
             "launches": None, "max_abs_err": worst[key], "ms": ms, "ms_turns": turns[key],
             "plain_ms": plain_ms, "library_ms": library_ms, "library_ms_turns": library,
-            "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms": bound, "bound_by": bound_by,
             "registers": registers.get(symbol),
         }
+        if key in band_turns:
+            b_bound, b_flops, b_by = bound_of(key, band_pairs)
+            b_ms = min(band_turns[key])
+            log(f"  {key} at (4, 2048, 6, 128) bf16, window (256, 256), {band_pairs} valid pairs: "
+                f"device time per launch " + " / ".join(f"{x:.4f}" for x in band_turns[key])
+                + f" ms ({b_flops / b_ms / 1e9:.1f} TFLOP/s, {100 * b_bound / b_ms:.1f}% of its "
+                f"{b_bound:.4f} ms bound by {b_by})")
+            out[key].update(ms_band_256=b_ms, ms_band_256_turns=band_turns[key],
+                            bound_ms_band_256=b_bound, bound_by_band_256=b_by)
     log(f"  wrappers at (4, 2048, 6, 128): K3 path {fused_ms:.4f} ms, K4+K5 path "
         f"{split_ms:.4f} ms (delta, dq scale and casts included); plain {plain_ms:.4f} ms")
     for key in out:
@@ -859,10 +906,12 @@ def phase_kernels_bwd(torch, registers: dict):
 # ---------------------------------------------------------------------------
 SSM_KERNELS = {  # launch-count name -> (kernel symbol, Pallas body it replaces)
     "selective_scan_fwd": ("selective_scan_fwd_kernel", 78, "_scan_kernel"),
-    "selective_scan_bwd": ("selective_scan_bwd_kernel", 177, "_scan_bwd_kernel"),
+    # K7 is five launches whose names all begin so (csrc/selective_scan.cu)
+    "selective_scan_bwd": ("selective_scan_bwd_", 177, "_scan_bwd_kernel"),
 }
 SSM_DECODE_SHAPE = (32, 2048, 768, 16)  # (Bt, L, D, N): 16 windows, both directions
 SSM_TRAIN_SHAPE = (8, 2048, 768, 16)  # a 16384-frame x 4 chunk
+SSM_LONG_SHAPE = (2, 15_000, 768, 16)  # the 120,000 x 1 step: 15,000 frames, both directions
 # kernel and plain version are both fp32 on the same (possibly bf16-rounded)
 # inputs; they differ in exp2 against exp, fused multiply-adds and the order of
 # the sums over channels and time: 2e-4 of the largest reference value
@@ -879,11 +928,17 @@ def ssm_cases(torch):
         ("bf16_L77_D100", 2, 77, 100, bf, bf, False, True),
         ("bf16_L333_strided", 2, 333, 160, bf, bf, True, False),
         ("mixed_L2048_strided", 2, 2048, 768, f32, bf, True, False),  # as the mixer gives
-        ("mixed_L15000_strided", 2, 15_000, 768, f32, bf, True, False),  # the 120,000-frame step
+        ("mixed_L15000_strided", *SSM_LONG_SHAPE[:3], f32, bf, True, False),  # the 120,000-frame step
         # the other shapes the main paths launch at, as the mixer gives them
         ("decode_shape_full", *SSM_DECODE_SHAPE[:3], f32, bf, True, False),
         ("train_shape_full", *SSM_TRAIN_SHAPE[:3], f32, bf, True, False),  # 16384 x 4
         ("train_shape_8192x8", 16, 1024, 768, f32, bf, True, False),
+        # the edges of K7's split: 32-step chunks, 128-channel blocks of
+        # 32-channel passes, one row
+        ("fp32_L31_Bt1", 1, 31, 128, f32, f32, False, False),
+        ("fp32_L33_D100", 2, 33, 100, f32, f32, False, True),
+        ("mixed_L2049_D160", 2, 64 * 32 + 1, 160, f32, bf, True, False),
+        ("mixed_L64_D200_Bt1", 1, 64, 200, f32, bf, True, True),
     ]
 
 
@@ -936,13 +991,16 @@ def ssm_bound(torch, kind, shape, x_bytes, bc_bytes, states: bool):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_kernels_ssm(torch):
+def ssm_case(torch, case, gen):
+    """One case of K6 and K7 against their plain versions at SSM_TOL of the
+    largest reference value; the forward with and without its states the same
+    bits, and K7's five gradients the same bits in two runs.  Returns (the
+    forward's worst error, the backward's)."""
     from lcasr_torch.ops import ssm
 
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    worst = {name: 0.0 for name in SSM_KERNELS}
+    name, Bt, L, D, xd, bcd, strided, wide = case
 
-    def rel_err(name, what, got, want):
+    def rel_err(what, got, want):
         if not torch.isfinite(got).all():
             raise AssertionError(f"{name}: non-finite {what}")
         scale = max(want.abs().max().item(), 1e-6)
@@ -952,30 +1010,57 @@ def phase_kernels_ssm(torch):
                                  f"(tolerance {SSM_TOL:g})")
         return err
 
-    for (name, Bt, L, D, xd, bcd, strided, wide) in ssm_cases(torch):
-        x, delta, A, Bm, Cm, g = ssm_inputs(torch, gen, Bt, L, D, 16, xd, bcd, strided, wide)
-        y = ssm.selective_scan_fwd(x, delta, A, Bm, Cm)
-        y_s, states = ssm.selective_scan_fwd(x, delta, A, Bm, Cm, return_states=True)
-        grads = ssm.selective_scan_bwd(x, delta, A, Bm, Cm, states, g)
-        torch.cuda.synchronize()
-        y_ref, states_ref = ssm.selective_scan_ref(x, delta, A, Bm, Cm, return_states=True)
-        grads_ref = ssm.selective_scan_bwd_ref(x, delta, A, Bm, Cm, g)
-        if not torch.equal(y, y_s):
-            raise AssertionError(f"{name}: y differs with and without the saved states")
-        e_fwd = [rel_err(name, "y", y, y_ref), rel_err(name, "states", states, states_ref)]
-        e_bwd = [rel_err(name, what, got, want) for what, got, want in
-                 zip(("dx", "ddelta", "dA", "dB", "dC"), grads, grads_ref)]
-        log(f"  {name:22s} K6: y {e_fwd[0]:.2e} states {e_fwd[1]:.2e}   K7: dx {e_bwd[0]:.2e} "
-            f"ddelta {e_bwd[1]:.2e} dA {e_bwd[2]:.2e} dB {e_bwd[3]:.2e} dC {e_bwd[4]:.2e} "
-            f"(of the largest value; tolerance {SSM_TOL:g})")
-        worst["selective_scan_fwd"] = max(worst["selective_scan_fwd"], *e_fwd)
-        worst["selective_scan_bwd"] = max(worst["selective_scan_bwd"], *e_bwd)
-        del x, delta, A, Bm, Cm, g, y, y_s, states, grads, y_ref, states_ref, grads_ref
+    x, delta, A, Bm, Cm, g = ssm_inputs(torch, gen, Bt, L, D, 16, xd, bcd, strided, wide)
+    y = ssm.selective_scan_fwd(x, delta, A, Bm, Cm)
+    y_s, states = ssm.selective_scan_fwd(x, delta, A, Bm, Cm, return_states=True)
+    grads = ssm.selective_scan_bwd(x, delta, A, Bm, Cm, states, g)
+    again = ssm.selective_scan_bwd(x, delta, A, Bm, Cm, states, g)
+    torch.cuda.synchronize()
+    if not torch.equal(y, y_s):
+        raise AssertionError(f"{name}: y differs with and without the saved states")
+    # no atomics and a fixed order of every sum: the same bits each run
+    for what, a, b in zip(("dx", "ddelta", "dA", "dB", "dC"), grads, again):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: K7's {what} differs between two runs")
+    y_ref, states_ref = ssm.selective_scan_ref(x, delta, A, Bm, Cm, return_states=True)
+    grads_ref = ssm.selective_scan_bwd_ref(x, delta, A, Bm, Cm, g)
+    e_fwd = [rel_err("y", y, y_ref), rel_err("states", states, states_ref)]
+    e_bwd = [rel_err(what, got, want) for what, got, want in
+             zip(("dx", "ddelta", "dA", "dB", "dC"), grads, grads_ref)]
+    log(f"  {name:22s} K6: y {e_fwd[0]:.2e} states {e_fwd[1]:.2e}   K7: dx {e_bwd[0]:.2e} "
+        f"ddelta {e_bwd[1]:.2e} dA {e_bwd[2]:.2e} dB {e_bwd[3]:.2e} dC {e_bwd[4]:.2e} "
+        f"(of the largest value; tolerance {SSM_TOL:g}; K7 the same bits in two runs)")
+    return max(e_fwd), max(e_bwd)
 
-    # timing at the decode's and the training step's shapes, x fp32 and B, C
-    # bf16 slices of the projection, as the bf16 mixer gives them
+
+def kernel_group_ms(torch, fn, prefix: str, n: int = 5) -> float:
+    """Device time per call of fn of every kernel whose name contains
+    `prefix` (torch.profiler), summed: a wrapper's several launches."""
+    totals = device_kernel_totals(torch, fn, n)
+    us = sum(t for key, (t, _) in totals.items() if prefix in key)
+    if not us:
+        raise AssertionError(f"profiler recorded no device time for {prefix}*")
+    return us / n / 1e3
+
+
+def phase_kernels_ssm(torch):
+    from lcasr_torch.ops import ssm
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    worst = {name: 0.0 for name in SSM_KERNELS}
+    for case in ssm_cases(torch):
+        e_fwd, e_bwd = ssm_case(torch, case, gen)
+        worst["selective_scan_fwd"] = max(worst["selective_scan_fwd"], e_fwd)
+        worst["selective_scan_bwd"] = max(worst["selective_scan_bwd"], e_bwd)
+
+    # timing at the decode's, the training step's and the 120,000-frame
+    # step's shapes, x fp32 and B, C bf16 slices of the projection, as the
+    # bf16 mixer gives them (the plain versions, Python loops over L, are
+    # timed at the first two)
     out, timed = {}, {}
-    for label, shape in (("decode", SSM_DECODE_SHAPE), ("train", SSM_TRAIN_SHAPE)):
+    bwd_prefix = SSM_KERNELS["selective_scan_bwd"][0]
+    for label, shape in (("decode", SSM_DECODE_SHAPE), ("train", SSM_TRAIN_SHAPE),
+                         ("long", SSM_LONG_SHAPE)):
         Bt, L, D, N = shape
         x, delta, A, Bm, Cm, g = ssm_inputs(torch, gen, Bt, L, D, N, torch.float32,
                                             torch.bfloat16, True, False)
@@ -985,23 +1070,25 @@ def phase_kernels_ssm(torch):
         bwd = lambda: ssm.selective_scan_bwd(x, delta, A, Bm, Cm, states, g)
         t = {"fwd": time_ms(torch, fwd, n=20), "fwd_states": time_ms(torch, fwd_s, n=20),
              "bwd": time_ms(torch, bwd, n=10)}
-        t["bwd_kernel_only"] = kernel_device_ms(torch, bwd, [SSM_KERNELS["selective_scan_bwd"][0]],
-                                                n=5)[SSM_KERNELS["selective_scan_bwd"][0]]
-        t["fwd_plain"] = time_ms(torch, lambda: ssm.selective_scan_ref(x, delta, A, Bm, Cm),
-                                 n=2, warmup=1)
-        t["bwd_plain"] = time_ms(torch, lambda: ssm.selective_scan_bwd_ref(x, delta, A, Bm, Cm, g),
-                                 n=2, warmup=1)
+        t["bwd_kernel_only"] = kernel_group_ms(torch, bwd, bwd_prefix)
+        if label != "long":
+            t["fwd_plain"] = time_ms(torch, lambda: ssm.selective_scan_ref(x, delta, A, Bm, Cm),
+                                     n=2, warmup=1)
+            t["bwd_plain"] = time_ms(
+                torch, lambda: ssm.selective_scan_bwd_ref(x, delta, A, Bm, Cm, g), n=2, warmup=1)
         t["fwd_bound"] = ssm_bound(torch, "fwd", shape, 4, 2, False)
         t["fwd_states_bound"] = ssm_bound(torch, "fwd", shape, 4, 2, True)
         t["bwd_bound"] = ssm_bound(torch, "bwd", shape, 4, 2, True)
         timed[label] = t
+        plain = (f"plain K6 {t['fwd_plain']:.2f} ms, K7 {t['bwd_plain']:.2f} ms"
+                 if "fwd_plain" in t else "plain not timed")
         log(f"  {label} shape {shape}, x fp32, B/C bf16 strided: K6 {t['fwd']:.4f} ms "
-            f"(with states {t['fwd_states']:.4f} ms), plain {t['fwd_plain']:.2f} ms, bound "
-            f"{t['fwd_bound'][0]:.4f} ms by {t['fwd_bound'][1]} (with states "
-            f"{t['fwd_states_bound'][0]:.4f} ms); K7 {t['bwd']:.4f} ms with the sums of its "
-            f"partials (kernel alone {t['bwd_kernel_only']:.4f} ms), plain {t['bwd_plain']:.2f} "
-            f"ms, bound {t['bwd_bound'][0]:.4f} ms by {t['bwd_bound'][1]}; no library call "
-            f"computes either")
+            f"(with states {t['fwd_states']:.4f} ms), bound {t['fwd_bound'][0]:.4f} ms by "
+            f"{t['fwd_bound'][1]} (with states {t['fwd_states_bound'][0]:.4f} ms); K7 "
+            f"{t['bwd']:.4f} ms a wrapper call (device time of its launches "
+            f"{t['bwd_kernel_only']:.4f} ms, {100 * t['bwd_bound'][0] / t['bwd_kernel_only']:.1f}% "
+            f"of its bound), bound {t['bwd_bound'][0]:.4f} ms by {t['bwd_bound'][1]}; {plain}; "
+            f"no library call computes either")
         del x, delta, A, Bm, Cm, g, states
     # K6's row is the decode's launch (no states), K7's the training step's
     for key, (ms, plain, bound, extra) in {
@@ -1011,12 +1098,16 @@ def phase_kernels_ssm(torch):
                                 "bound_ms_train_shape_with_states":
                                     timed["train"]["fwd_states_bound"][0],
                                 "plain_ms_train_shape": timed["train"]["fwd_plain"]}),
-        "selective_scan_bwd": (timed["train"]["bwd"], timed["train"]["bwd_plain"],
+        "selective_scan_bwd": (timed["train"]["bwd_kernel_only"], timed["train"]["bwd_plain"],
                                timed["train"]["bwd_bound"],
-                               {"kernel_only_ms": timed["train"]["bwd_kernel_only"],
-                                "ms_decode_shape": timed["decode"]["bwd"],
+                               {"wrapper_ms": timed["train"]["bwd"],
+                                "ms_decode_shape": timed["decode"]["bwd_kernel_only"],
+                                "wrapper_ms_decode_shape": timed["decode"]["bwd"],
                                 "bound_ms_decode_shape": timed["decode"]["bwd_bound"][0],
-                                "plain_ms_decode_shape": timed["decode"]["bwd_plain"]}),
+                                "plain_ms_decode_shape": timed["decode"]["bwd_plain"],
+                                "ms_long_shape": timed["long"]["bwd_kernel_only"],
+                                "wrapper_ms_long_shape": timed["long"]["bwd"],
+                                "bound_ms_long_shape": timed["long"]["bwd_bound"][0]}),
     }.items():
         symbol, line, body = SSM_KERNELS[key]
         out[key] = {
@@ -1631,8 +1722,11 @@ class TrainRun:
         return profile_run(torch, train_step, profile_file,
                            f"one 16384x4 {self.what} training step")
 
-    def long_step(self, model) -> None:
-        """One optimizer step of the 20-minute bucket: 120,000 frames x 1."""
+    def long_step(self, model, kernel_prefix=None):
+        """One optimizer step of the 20-minute bucket: 120,000 frames x 1.
+        With `kernel_prefix`, the step runs under torch.profiler (device
+        activity only) and the device ms of the kernels whose names contain
+        it are returned (the step's wall time then includes the profiler)."""
         import tempfile
 
         import numpy as np
@@ -1656,9 +1750,15 @@ class TrainRun:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
+        prof = None
+        if kernel_prefix is not None:
+            from torch.profiler import ProfilerActivity, profile
+
+            prof = profile(activities=[ProfilerActivity.CUDA])
         t0 = time.perf_counter()
-        long_tr.train(self.loader(long_tr, long_cfg))
-        torch.cuda.synchronize()
+        with prof if prof is not None else contextlib.nullcontext():
+            long_tr.train(self.loader(long_tr, long_cfg))
+            torch.cuda.synchronize()
         long_s = time.perf_counter() - t0
         launches = dict(kernels.launch_counts)
         metrics_path = os.path.join(long_tr.checkpoint_dir, "metrics.jsonl")
@@ -1671,6 +1771,13 @@ class TrainRun:
         if not (len(loss) == 1 and np.isfinite(loss[0])
                 and launches == self.expected(launches, 1)):
             raise AssertionError(f"the 120000-frame {self.what} step failed")
+        if prof is None:
+            return None
+        kernel_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                        if kernel_prefix in e.key) / 1e3
+        log(f"  120000x1 {self.what} step (profiler on): {kernel_prefix}* kernels "
+            f"{kernel_ms:.3f} ms of device time")
+        return kernel_ms
 
 
 def grad_error(g, ref, names):
@@ -2020,9 +2127,17 @@ def phase_mamba_train(torch, workdir: str):
                   {"the plain scan in fp32": plain_scan(torch.float32)},
                   floors=(MAMBA_REL_L2_FLOOR, MAMBA_COS_FLOOR))
     trainer.zero_pending()
-    run.timed_step(trainer, chunk, "mamba_train_profile.txt")
-    run.long_step(model)
-    return launches
+    rows = run.timed_step(trainer, chunk, "mamba_train_profile.txt")
+    prefix = SSM_KERNELS["selective_scan_bwd"][0]
+    k7_rows = [r for r in rows if prefix in r[2]]
+    busy_us = sum(r[0] for r in rows)
+    k7_step = {"ms": sum(r[0] for r in k7_rows) / 1e3,
+               "launches": sum(r[1] for r in k7_rows),
+               "share": sum(r[0] for r in k7_rows) / busy_us if busy_us else None}
+    log(f"  K7 in the 16384x4 Mamba step's profile: {k7_step['ms']:.3f} ms in "
+        f"{k7_step['launches']} kernel launches (5 per call), {k7_step['share']} of the device time")
+    k7_step["long_step_ms"] = run.long_step(model, kernel_prefix=prefix)
+    return launches, k7_step
 
 
 def main() -> int:
@@ -2125,12 +2240,13 @@ def main() -> int:
         log("[7/9] Mamba training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1")
         os.makedirs(workdir, exist_ok=True)
         try:
-            ladder = phase_mamba_train(torch, workdir)
+            ladder, k7_step = phase_mamba_train(torch, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         # K7 runs only in training: its count is the ladder run's
-        results.setdefault("selective_scan_bwd", {"name": "selective_scan_bwd"})[
-            "launches"] = ladder["selective_scan_bwd"]
+        k7 = results.setdefault("selective_scan_bwd", {"name": "selective_scan_bwd"})
+        k7["launches"] = ladder["selective_scan_bwd"]
+        k7["train_step_profile"] = k7_step
         results.setdefault("selective_scan_fwd", {"name": "selective_scan_fwd"})[
             "launches_ladder"] = ladder["selective_scan_fwd"]
     if "decode_opt" in phases:

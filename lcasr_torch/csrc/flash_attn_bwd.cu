@@ -51,9 +51,22 @@
 //   * Shared memory at D 128: K, V 64 KB; q, do 2 stages x 32 KB; K3's ds^T
 //     2 x 16 KB and dq parts 2 x 16 KB; 194 KB (K5 162 KB): one CTA per SM.
 //     The training shape gives 4 x 6 x 16 = 384 CTAs, 2.9 waves on 132 SMs.
-// K4 (dq alone, the split path): one CTA of 4 warps per (64-row q tile, head,
-// batch) walking the key tiles in band with bf16 mma.sync m16n8k16; dq stays
-// in registers and is written once, in fp32.
+// Design of K4 in bf16 (`flash_bwd_dq_hopper<D>`, D 128, 64 and 32; dq
+// alone, the split path every two-sided band takes).  Its loop is the
+// forward's, q-stationary, so it is built like the forward
+// (flash_fwd_hopper.cuh), not like K3: one CTA of a producer and two
+// consumer warpgroups per (128 q rows, head, batch); q and do arrive once by
+// TMA, k and v stream through a two-stage TMA ring over the key tiles of
+// `kv_tile_range` (64 keys each); s = q k^T and dp = do v^T are SS wgmma,
+// dq += ds k an RS wgmma with ds as bf16 A fragments and k read MN-major
+// (as the forward reads v for o += p v).  dq stays in fp32 registers and is
+// written once: no reduction across CTAs, so K4's dq, unlike K3's, is the
+// same bits from run to run.  Shared memory at D 128: q, do 64 KB, two
+// stages of k and v 64 KB, 128 KB: one CTA per SM (the registers allow no
+// more); the training shape gives 16 x 6 x 4 = 384 CTAs, 2.9 waves.  s, dp
+// and dq take 32 + 32 + 64 fp32 registers a thread; 128-key tiles (64 + 64
+// + 64) fitted too, without spills, and measured 2-3% slower
+// (scripts/attention_bwd_experiments.py variants, PERF.md).
 // fp32 inputs take SIMT kernels of the K4 / K3 structure (32-row tiles, four
 // threads per row, fp32 FMA, no tensor cores).  They are slow, and are
 // there because the JAX kernels accept fp32.
@@ -63,8 +76,6 @@
 
 namespace {
 
-constexpr int BQ = 64;  // q rows per tile (bf16)
-constexpr int BK = 64;  // keys per tile (bf16)
 constexpr int BR = 32;  // rows per tile, both ways (fp32 SIMT)
 constexpr int NTHREADS = 128;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -134,74 +145,6 @@ __device__ __forceinline__ bool pair_valid(const Params& p, Limits lim,
   if (p.right >= 0) ok = ok && (col_g <= row_g + p.right);
   if (p.left >= 0) ok = ok && (col_g >= row_g - p.left);
   return ok;
-}
-
-// ---------------------------------------------------------------------------
-// bf16: tensor cores
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// A fragment (16 x 16, row-major) of the rows at `lo` (row g) and lo + 8*ld
-// (row g + 8), k-step kk; `lo` already points at column t*2.
-__device__ __forceinline__ void a_frag(uint32_t* a, const __nv_bfloat16* lo,
-                                       int ld, int kk) {
-  a[0] = ld32(lo + kk * 16);
-  a[1] = ld32(lo + 8 * ld + kk * 16);
-  a[2] = ld32(lo + kk * 16 + 8);
-  a[3] = ld32(lo + 8 * ld + kk * 16 + 8);
-}
-
-// A fragment of the 16 x 16 block kc of a C-fragment tile held in registers
-// (columns 16kc..16kc+15 = n-tiles 2kc, 2kc+1), rounded to bf16.
-__device__ __forceinline__ void a_from_c(uint32_t* a, float (*c)[4], int kc) {
-  a[0] = pack_bf16(c[2 * kc][0], c[2 * kc][1]);
-  a[1] = pack_bf16(c[2 * kc][2], c[2 * kc][3]);
-  a[2] = pack_bf16(c[2 * kc + 1][0], c[2 * kc + 1][1]);
-  a[3] = pack_bf16(c[2 * kc + 1][2], c[2 * kc + 1][3]);
-}
-
-// acc (16 x D) += A (16 x 16*KC, bf16 from C-fragment registers) times the
-// shared tile `m` (16*KC rows x D, row stride LD) read through ldmatrix.trans.
-template <int D, int LD, int KC>
-__device__ __forceinline__ void acc_times_tile(float (*acc)[4], float (*c)[4],
-                                               const __nv_bfloat16* m,
-                                               int lane) {
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    uint32_t a[4];
-    a_from_c(a, c, kc);
-    const __nv_bfloat16* row = m + (kc * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; dt += 2) {
-      uint32_t b4[4];
-      ldmatrix_x4_trans(b4, row + dt * 8);
-      mma_bf16(acc[dt], a, b4[0], b4[1]);
-      mma_bf16(acc[dt + 1], a, b4[2], b4[3]);
-    }
-  }
-}
-
-// c (16 x 8*NT) = rows(16 x D, at `a_lo`, stride LD) times tile^T, where the
-// shared tile holds 8*NT rows of D (row stride LD): c[n] = a . tile[n].
-template <int D, int LD, int NT>
-__device__ __forceinline__ void rows_times_tile_t(float (*c)[4],
-                                                  const __nv_bfloat16* a_lo,
-                                                  const __nv_bfloat16* tile,
-                                                  int g, int t) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    a_frag(a, a_lo, LD, kk);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const __nv_bfloat16* brow = tile + (nt * 8 + g) * LD + t * 2 + kk * 16;
-      mma_bf16(c[nt], a, ld32(brow), ld32(brow + 8));
-    }
-  }
 }
 
 // lse and delta of `rows` q rows from local row r0 into shared memory
@@ -649,127 +592,259 @@ cudaError_t launch_hopper_bwd(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// K4: dq for one q tile, in fp32 and without the scale.
+// ---------------------------------------------------------------------------
+// bf16 K4 on Hopper: the forward's loop (q-stationary) with dq in registers
+// ---------------------------------------------------------------------------
+constexpr int DQ_Q = 128;      // q rows per CTA: 64 per consumer warpgroup
+constexpr int DQ_KEYS = 64;    // keys per k / v tile of the walk (128 measured 2-3% slower)
+constexpr int DQ_STAGES = 2;   // k / v tiles in flight
+
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_bwd_q_bf16(const Params p) {
-  constexpr int LD = D + 8;
-  constexpr int KT = D / 16;
-  constexpr int NT = BK / 8;
-  constexpr int DT = D / 8;
+constexpr size_t dq_smem() {
+  // 1024 bytes of slack to align the tiles to the swizzle atom; q and do
+  // once, DQ_STAGES stages of k and v; the barriers
+  return 1024 + 2 * (size_t)DQ_Q * D * 2 + 2 * DQ_STAGES * (size_t)DQ_KEYS * D * 2 +
+         8 * (1 + 2 * DQ_STAGES);
+}
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sO = sQ + BQ * LD;
-  __nv_bfloat16* sK = sO + BQ * LD;      // 2 buffers
-  __nv_bfloat16* sV = sK + 2 * BK * LD;  // 2 buffers
+// D (64 x N, fp32) (+)= A (64 x 16) B^T (N x 16), both K-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_ss_k(float* d, uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (N == 128)
+    hopper::wgmma_m64n128k16_ss(d, da, db, scale_d);
+  else
+    hopper::wgmma_m64n64k16_ss<0, 0>(d, da, db, scale_d);
+}
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const Limits lim = limits(p, b);
-  int lo, hi;
-  kv_tile_range(p, lim, q0, BQ, BK, lo, hi);
+// Issue acc (64 q rows x DQ_KEYS) = A B^T over D: s = q k^T or dp = do v^T,
+// A this consumer's 64 rows of the q / do tile, B the k / v tile, both
+// K-major (committed, not waited for).
+template <int D>
+__device__ __forceinline__ void issue_rows_by_keys(float* acc,
+                                                   const __nv_bfloat16* sA,
+                                                   const __nv_bfloat16* sB) {
+  using TL = BwdTile<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int blk = kk * 16 / TL::COLS, col = kk * 16 % TL::COLS;
+    const uint64_t da = hopper::smem_desc(sA + blk * DQ_Q * TL::COLS + col, 16,
+                                          TL::SBO, TL::LAYOUT);
+    const uint64_t db = hopper::smem_desc(sB + blk * DQ_KEYS * TL::COLS + col, 16,
+                                          TL::SBO, TL::LAYOUT);
+    wgmma_ss_k<DQ_KEYS>(acc, da, db, kk > 0);
+  }
+  hopper::wgmma_commit();
+}
 
+// K4: dq (fp32, without the scale) for 128 q rows of one (head, batch).
+//   * warpgroup 0, the producer (setmaxnreg 40): one thread loads the CTA's
+//     q (pre-scaled) and do tiles once by TMA, then keeps a ring of
+//     DQ_STAGES k and v tiles of DQ_KEYS keys in flight over the key tiles
+//     the band and the lengths leave (`kv_tile_range`, the forward's
+//     walk), one full and one empty mbarrier per stage;
+//   * warpgroups 1 and 2, the consumers (setmaxnreg 232), own 64 q rows
+//     each, with their lse and delta in registers and dq in fp32 registers
+//     for the whole walk.  Per key tile: s = q k^T and dp = do v^T (SS
+//     wgmma); p = 2^(s log2 e - lse log2 e), a select on the valid pairs of
+//     edge tiles only; ds = p (dp - delta); dq += ds k (RS wgmma, ds rounded
+//     to bf16 as the A operand, k read MN-major as the forward reads v);
+//   * dq leaves once, from registers.  One writer per element and a fixed
+//     order of products: the same bits from run to run.
+template <int D>
+__global__ void __launch_bounds__(HTHREADS, 1)
+    flash_bwd_dq_hopper(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo, const Params p) {
+  using TL = BwdTile<D>;
   using bf = __nv_bfloat16;
-  const bf* qb = static_cast<const bf*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const bf* kb = static_cast<const bf*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const bf* vb = static_cast<const bf*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const bf* ob = static_cast<const bf*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  constexpr int Q_ELEMS = DQ_Q * D, KV_ELEMS = DQ_KEYS * D;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = hopper::smem_u32(smem_raw);
+  unsigned char* smem = smem_raw + ((1024 - (base & 1023)) & 1023);
+  bf* sQ = reinterpret_cast<bf*>(smem);
+  bf* sO = sQ + Q_ELEMS;                      // do
+  bf* sK = sO + Q_ELEMS;                      // DQ_STAGES tiles
+  bf* sV = sK + DQ_STAGES * KV_ELEMS;         // DQ_STAGES tiles
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + DQ_STAGES * KV_ELEMS);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + DQ_STAGES;
 
-  const int row_l[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  const int row_g[2] = {p.q_off + row_l[0], p.q_off + row_l[1]};
-  float lse_r[2], del_r[2];
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const long long i = ((long long)b * p.H + h) * p.Tq + row_l[r];
-    lse_r[r] = row_l[r] < p.Tq ? p.lse[i] : 0.f;
-    del_r[r] = row_l[r] < p.Tq ? p.delta[i] : 0.f;
-  }
-
-  float acc[DT][4];
-#pragma unroll
-  for (int i = 0; i < DT; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  if (lo < hi) {
-    load_tile_async<D, LD, BQ, NTHREADS>(sQ, qb, p.q_st, q0, p.Tq);
-    load_tile_async<D, LD, BQ, NTHREADS>(sO, ob, p.o_st, q0, p.Tq);
-    load_tile_async<D, LD, BK, NTHREADS>(sK, kb, p.k_st, lo * BK, p.Tk);
-    load_tile_async<D, LD, BK, NTHREADS>(sV, vb, p.v_st, lo * BK, p.Tk);
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-  }
-
-  uint32_t qa[KT][4];
-  const bf* q_lo = sQ + (warp * 16 + g) * LD + t * 2;
-  const bf* o_lo = sO + (warp * 16 + g) * LD + t * 2;
-  if (lo < hi) {
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) a_frag(qa[kk], q_lo, LD, kk);
-  }
-
-  for (int kt = lo; kt < hi; ++kt) {
-    const int buf = (kt - lo) & 1;
-    if (kt + 1 < hi) {
-      load_tile_async<D, LD, BK, NTHREADS>(sK + (buf ^ 1) * BK * LD, kb, p.k_st,
-                                 (kt + 1) * BK, p.Tk);
-      load_tile_async<D, LD, BK, NTHREADS>(sV + (buf ^ 1) * BK * LD, vb, p.v_st,
-                                 (kt + 1) * BK, p.Tk);
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], CONSUMER_WARPS);
     }
-    cp_async_commit();
-    const bf* tK = sK + buf * BK * LD;
-    const bf* tV = sV + buf * BK * LD;
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
 
-    // s = q k^T (16 q x 64 keys per warp), p on the valid pairs
-    float s[NT][4];
+  // the warpgroup's index, read from lane 0 so that the compiler sees it is
+  // the same across the warp: each role is then a region of its own
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * DQ_Q;  // the CTA's first local q row
+  if (wg == 0) {
+    // ---- producer ----
+    hopper::setmaxnreg_dec<PRODUCER_REGS>();
+    const Limits lim = limits(p, b);
+    int lo, hi;
+    kv_tile_range(p, lim, q0, DQ_Q, DQ_KEYS, lo, hi);
+    if (threadIdx.x == 0 && lo < hi) {
+      hopper::mbar_arrive_expect_tx(q_full, 2 * Q_ELEMS * 2);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const bf* krow = tK + (nt * 8 + g) * LD + t * 2;
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk)
-        mma_bf16(s[nt], qa[kk], ld32(krow + kk * 16), ld32(krow + kk * 16 + 8));
-    }
-    const int c0 = kt * BK;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col_g = p.kv_off + c0 + nt * 8 + t * 2 + (i & 1);
-        const bool ok = pair_valid(p, lim, row_g[i >> 1], col_g);
-        s[nt][i] = ok ? exp2f((s[nt][i] - lse_r[i >> 1]) * LOG2E) : 0.f;
+      for (int c = 0; c < TL::BLOCKS; ++c) {
+        hopper::tma_load_4d(sQ + c * DQ_Q * TL::COLS, &tq, q_full, c * TL::COLS, h, q0, b);
+        hopper::tma_load_4d(sO + c * DQ_Q * TL::COLS, &tdo, q_full, c * TL::COLS, h, q0, b);
       }
+      for (int n = 0; n < hi - lo; ++n) {
+        const int st = n % DQ_STAGES;
+        const uint32_t ph = (n / DQ_STAGES) & 1;
+        const int row = (lo + n) * DQ_KEYS;
+        hopper::mbar_wait(&empty[st], ph ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[st], 2 * KV_ELEMS * 2);
+#pragma unroll
+        for (int c = 0; c < TL::BLOCKS; ++c) {
+          hopper::tma_load_4d(sK + st * KV_ELEMS + c * DQ_KEYS * TL::COLS, &tk, &full[st],
+                              c * TL::COLS, h, row, b);
+          hopper::tma_load_4d(sV + st * KV_ELEMS + c * DQ_KEYS * TL::COLS, &tv, &full[st],
+                              c * TL::COLS, h, row, b);
+        }
+      }
+    }
+  } else {
+    // ---- consumers ----
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    const Limits lim = limits(p, b);
+    int lo, hi;
+    kv_tile_range(p, lim, q0, DQ_Q, DQ_KEYS, lo, hi);
+    const int cw = wg - 1;  // consumer 0 or 1: q rows q0 + 64 cw ..
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row_l[2] = {q0 + cw * 64 + warp * 16 + g, q0 + cw * 64 + warp * 16 + g + 8};
+    const int row_g[2] = {p.q_off + row_l[0], p.q_off + row_l[1]};
+    // the rows' lse (times log2 e) and delta; rows past Tq are never valid
+    float lse2[2], del[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const long long i = ((long long)b * p.H + h) * p.Tq + row_l[r];
+      lse2[r] = row_l[r] < p.Tq ? p.lse[i] * LOG2E : 0.f;
+      del[r] = row_l[r] < p.Tq ? p.delta[i] : 0.f;
+    }
+    // every tile needs the masks under a band or when the CTA's rows cross
+    // the length; otherwise only the key tiles that cross it
+    const bool row_edge = p.left >= 0 || p.right >= 0 || p.q_off + q0 + DQ_Q > lim.q_hi;
+    const bf* sQc = sQ + cw * 64 * TL::COLS;  // this consumer's rows
+    const bf* sOc = sO + cw * 64 * TL::COLS;
 
-    // dp = do v^T, ds = p (dp - delta) in place of p
-    {
-      float dp[NT][4];
-      rows_times_tile_t<D, LD, NT>(dp, o_lo, tV, g, t);
+    float dq[D / 2];
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+    if (lo < hi) hopper::mbar_wait(q_full, 0);
+    for (int n = 0; n < hi - lo; ++n) {
+      const int st = n % DQ_STAGES;
+      const uint32_t ph = (n / DQ_STAGES) & 1;
+      const int c0 = (lo + n) * DQ_KEYS;  // the tile's first local key
+      const bf* tK = sK + st * KV_ELEMS;
+      const bf* tV = sV + st * KV_ELEMS;
+      hopper::mbar_wait(&full[st], ph);
+
+      float s[DQ_KEYS / 2], dp[DQ_KEYS / 2];
+      hopper::fence_all<DQ_KEYS / 2>(s);
+      hopper::fence_all<DQ_KEYS / 2>(dp);
+      hopper::wgmma_fence();
+      issue_rows_by_keys<D>(s, sQc, tK);
+      issue_rows_by_keys<D>(dp, sOc, tV);
+      hopper::fence_all<DQ_KEYS / 2>(s);
+      hopper::fence_all<DQ_KEYS / 2>(dp);
+
+      // p on the valid pairs; rows past the length carry lse = -1e30 and
+      // give inf here, which the select drops
+      const bool edge = row_edge || p.kv_off + c0 + DQ_KEYS > lim.kv_hi;
+      hopper::wgmma_wait<1>();
+      hopper::fence_all<DQ_KEYS / 2>(s);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) s[nt][i] *= dp[nt][i] - del_r[i >> 1];
+      for (int j = 0; j < DQ_KEYS / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = hopper::ex2(fmaf(s[4 * j + e], LOG2E, -lse2[e >> 1]));
+          if (edge) {
+            const int col_g = p.kv_off + c0 + 8 * j + 2 * t + (e & 1);
+            if (!pair_valid(p, lim, row_g[e >> 1], col_g)) x = 0.f;
+          }
+          s[4 * j + e] = x;
+        }
+      // ds = p (dp - delta) in place of dp
+      hopper::wgmma_wait<0>();
+      hopper::fence_all<DQ_KEYS / 2>(dp);
+#pragma unroll
+      for (int j = 0; j < DQ_KEYS / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - del[e >> 1]);
+      uint32_t da[DQ_KEYS / 16][4];
+      hopper::pack_frags<DQ_KEYS / 16>(da, dp);
+
+      // dq += ds k: the keys 16 kc .. 16 kc + 15 are rows of every column
+      // block of k; the leading byte offset steps from one block to the next
+      hopper::fence_all<D / 2>(dq);
+      hopper::fence_frags<DQ_KEYS / 16>(da);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < DQ_KEYS / 16; ++kc) {
+        const uint64_t dk = hopper::smem_desc(tK + kc * 16 * TL::COLS,
+                                              DQ_KEYS * TL::ROW_BYTES, TL::SBO, TL::LAYOUT);
+        hopper::wgmma_rs_tb<D>(dq, da[kc], dk);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_all<D / 2>(dq);
+      hopper::fence_frags<DQ_KEYS / 16>(da);
+      if (lane == 0) hopper::mbar_arrive(&empty[st]);  // k and v read
     }
 
-    // dq += ds k
-    acc_times_tile<D, LD, BK / 16>(acc, s, tK, lane);
-
-    cp_async_wait_all();
-    __syncthreads();
-  }
-
+    // dq written once, fp32, without the scale (rows past Tq are not there)
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row_l[r] >= p.Tq) continue;
-    float* row = p.dq + (((long long)b * p.Tq + row_l[r]) * p.H + h) * D + t * 2;
+    for (int r = 0; r < 2; ++r) {
+      if (row_l[r] >= p.Tq) continue;
+      float* row = p.dq + (((long long)b * p.Tq + row_l[r]) * p.H + h) * D + t * 2;
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<float2*>(row + dt * 8) =
-          make_float2(acc[dt][2 * r], acc[dt][2 * r + 1]);
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(row + 8 * j) = make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
+    }
   }
+}
+
+// Tensor maps of q, k, v and do and the launch of K4; errors of the maps'
+// encoding and of the launch are returned, nothing is synchronised.
+template <int D>
+cudaError_t launch_hopper_dq(const Params& p, cudaStream_t stream) {
+  using TL = BwdTile<D>;
+  CUtensorMap mq, mk, mv, mo;
+  cudaError_t err = hopper::bthd_map(&mq, p.q, p.B, p.Tq, p.H, D, p.q_sb, p.q_st,
+                                     p.q_sh, DQ_Q, TL::COLS, TL::TMA_SWIZZLE);
+  if (err == cudaSuccess)
+    err = hopper::bthd_map(&mk, p.k, p.B, p.Tk, p.H, D, p.k_sb, p.k_st, p.k_sh,
+                           DQ_KEYS, TL::COLS, TL::TMA_SWIZZLE);
+  if (err == cudaSuccess)
+    err = hopper::bthd_map(&mv, p.v, p.B, p.Tk, p.H, D, p.v_sb, p.v_st, p.v_sh,
+                           DQ_KEYS, TL::COLS, TL::TMA_SWIZZLE);
+  if (err == cudaSuccess)
+    err = hopper::bthd_map(&mo, p.dout, p.B, p.Tq, p.H, D, p.o_sb, p.o_st,
+                           p.o_sh, DQ_Q, TL::COLS, TL::TMA_SWIZZLE);
+  if (err != cudaSuccess) return err;
+  auto kernel = flash_bwd_dq_hopper<D>;
+  constexpr size_t smem = dq_smem<D>();
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.Tq + DQ_Q - 1) / DQ_Q, p.H, p.B);
+  kernel<<<grid, HTHREADS, smem, stream>>>(mq, mk, mv, mo, p);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -974,9 +1049,7 @@ cudaError_t dispatch(const Params& p, int kind, int is_f32, cudaStream_t s) {
     return kind == FUSED ? launch(flash_bwd_kv_f32<D, true>, grid, smem, p, s)
                          : launch(flash_bwd_kv_f32<D, false>, grid, smem, p, s);
   }
-  if (kind == DQ)
-    return launch(flash_bwd_q_bf16<D>, dim3(cdiv(p.Tq, BQ), p.H, p.B),
-                  sizeof(__nv_bfloat16) * (2 * BQ + 4 * BK) * (D + 8), p, s);
+  if (kind == DQ) return launch_hopper_dq<D>(p, s);
   return kind == FUSED ? launch_hopper_bwd<D, true>(p, s)
                        : launch_hopper_bwd<D, false>(p, s);
 }

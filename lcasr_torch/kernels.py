@@ -131,8 +131,10 @@ def _bind(src: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         tail = [i] * 5 + [ll] * 8 + [p]  # sizes, B/C dtype flag, strides, stream
         lib.lcasr_selective_scan_fwd.argtypes = [p] * 7 + tail
         lib.lcasr_selective_scan_fwd.restype = i
-        lib.lcasr_selective_scan_bwd.argtypes = [p] * 12 + tail
+        lib.lcasr_selective_scan_bwd.argtypes = [p] * 13 + tail
         lib.lcasr_selective_scan_bwd.restype = i
+        lib.lcasr_selective_scan_bwd_workspace.argtypes = [i] * 3
+        lib.lcasr_selective_scan_bwd_workspace.restype = ll
     elif src == "subsampling_fused.cu":
         # x, out, 10 parameters; B, T, F, C, fp32 flag, activation, tile; stream
         lib.lcasr_subsampling_fused.argtypes = [p] * 12 + [i] * 7 + [p]

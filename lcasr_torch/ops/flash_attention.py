@@ -19,9 +19,9 @@ chooses; both compute the same function and `flash_attention_ref` is the
 plain version of both.  The backward launches the kernels in
 `csrc/flash_attn_bwd.cu`: the one-pass K3 when the attention is not banded
 on both sides, else K4 (dq) and K5 (dk, dv), as `_bwd_impl` chooses; with
-`LCASR_FUSED_ATTN_BWD=0` the split pair runs always.  In bf16, K1, K2, K3
-and K5 read their inputs by TMA (and K3 adds dq into its fp32 buffer by TMA
-reduce-add), so those tensors must meet `_tma_layout_ok`.  All take bf16 or
+`LCASR_FUSED_ATTN_BWD=0` the split pair runs always.  In bf16, K1-K5 read
+their inputs by TMA (and K3 adds dq into its fp32 buffer by TMA reduce-add),
+so those tensors must meet `_tma_layout_ok`.  All take bf16 or
 fp32 and D in 32, 64, 128, and raise on anything else.  On a CPU tensor
 they run `flash_attention_ref` / `flash_attention_bwd_ref`, the plain fp32
 versions.  There is no fallback from one to the other.

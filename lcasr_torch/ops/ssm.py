@@ -18,11 +18,13 @@ and the gradient in y contiguous fp32.
 
 For the backward the forward saves the state at the entry of every chunk of
 `STATE_INTERVAL` steps, (Bt, ceil(L / 32), N, D) fp32; K7 recomputes the
-states inside a chunk on chip.  K7 returns dB and dC as one partial per group
-of 32 channels and dA per batch row; `selective_scan_bwd` adds them up with a
-tensor sum, which is deterministic (no atomics).  `LCASR_NATIVE_SSM_BWD` of
-the JAX package chooses between two JAX routes and has no meaning here: the
-backward of a CUDA tensor is always K7.
+states inside a chunk on chip.  K7 splits the time axis: a local adjoint per
+chunk, a carry pass over the chunks, then every chunk's gradients from its
+true carry, and sums dB, dC and dA in a fixed order itself (no atomics: the
+same bits each run).  Its wrapper allocates the workspace those passes need
+and counts one `selective_scan_bwd` launch per call.  `LCASR_NATIVE_SSM_BWD`
+of the JAX package chooses between two JAX routes and has no meaning here:
+the backward of a CUDA tensor is always K7.
 """
 from __future__ import annotations
 
@@ -211,24 +213,24 @@ def selective_scan_bwd(x, delta, A, B, C, states, g
             or not states.is_contiguous() or states.device != x.device):
         raise ValueError(f"selective_scan_bwd: states {tuple(states.shape)} {states.dtype} "
                          f"are not the forward's for x {tuple(x.shape)}")
-    groups = -(-Dm // 32)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty((Bt, L, Dm), **f32)
     dd = torch.empty((Bt, L, Dm), **f32)
-    dB_part = torch.empty((Bt, groups, L, N), **f32)
-    dC_part = torch.empty((Bt, groups, L, N), **f32)
-    dA_part = torch.empty((Bt, Dm, N), **f32)
+    dB = torch.empty((Bt, L, N), **f32)
+    dC = torch.empty((Bt, L, N), **f32)
+    dA = torch.empty((Dm, N), **f32)
     lib = kernels.library(_SRC)
+    workspace = torch.empty((lib.lcasr_selective_scan_bwd_workspace(Bt, L, Dm),), **f32)
     with torch.cuda.device(x.device):
         err = lib.lcasr_selective_scan_bwd(
             x.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
             g.data_ptr(), states.data_ptr(), dx.data_ptr(), dd.data_ptr(),
-            dB_part.data_ptr(), dC_part.data_ptr(), dA_part.data_ptr(), *tail,
+            dB.data_ptr(), dC.data_ptr(), dA.data_ptr(), workspace.data_ptr(), *tail,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     kernels.check(lib, err, "selective_scan_bwd")
     kernels.launch_counts["selective_scan_bwd"] += 1
-    return dx, dd, dA_part.sum(0), dB_part.sum(1), dC_part.sum(1)
+    return dx, dd, dA, dB, dC
 
 
 class _SelectiveScan(torch.autograd.Function):

@@ -13,8 +13,8 @@ dk and dv the same bits in two runs, K5's equal to K3's).
 
   controls  plant one fault each; a control passes when the checks fail.
             Exit 0 only if every fault was caught.
-  variants  alternative designs; each must pass the checks, then K3's and
-            K5's device time per launch at (4, 2048, 6, 128) bf16 (profiler)
+  variants  alternative designs; each must pass the checks, then K3's,
+            K4's and K5's device time per launch at (4, 2048, 6, 128) bf16 (profiler)
             is taken in turns with the repo's source (base, variants,
             variants in reverse, base), each with its registers and spills.
             Exit 0 only if every variant passed the checks.
@@ -40,6 +40,12 @@ CONTROLS = {
                              "const bool key_edge =")],
     # at D 128 the second consumer adds its dq columns onto the first's
     "dq_columns": [("(TL::DQ_SPLIT ? cw * 64 : 0) + blk * DQ_BOX_COLS", "blk * DQ_BOX_COLS")],
+    # K4: ds = p dp, without the row's delta
+    "k4_no_delta": [("dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - del[e >> 1]);",
+                     "dp[4 * j + e] = s[4 * j + e] * dp[4 * j + e];")],
+    # K4: a band no longer makes every key tile an edge tile
+    "k4_band_tiles_unmasked": [("const bool row_edge = p.left >= 0 || p.right >= 0 ||",
+                                "const bool row_edge =")],
 }
 
 _STAGED_DQ = """        unsigned char* part = reinterpret_cast<unsigned char*>(sDQ + cw * HBQ * TL::DQ_N);
@@ -102,6 +108,8 @@ _ISSUE_BOTH = """      hopper::fence_all<D / 2>(dv);
 
 # design alternatives: name -> [(text in the source, its replacement)]
 VARIANTS = {
+    # K4 with 128-key tiles: s and dp take 64 registers each instead of 32
+    "k4_keys_128": [("constexpr int DQ_KEYS = 64;", "constexpr int DQ_KEYS = 128;")],
     # dq added from registers by four-float red.global.add (thread pairs
     # trade halves of their rows) instead of staged and TMA reduce-added
     "red_v4": [(_STAGED_DQ, _RED_V4)],
@@ -150,7 +158,8 @@ if "--time" in sys.argv:
     do = torch.randn((B, T, H, D), generator=gen, device="cuda").to(torch.bfloat16)
     args = (q, k, v, o, lse, do, None, (-1, -1), None, 0, 0)
     out = {"serialised_wgmma": serialised}
-    for key, fused in (("flash_attention_bwd_fused", True), ("flash_attention_bwd_dkv", False)):
+    for key, fused in (("flash_attention_bwd_fused", True), ("flash_attention_bwd_dkv", False),
+                       ("flash_attention_bwd_dq", False)):
         sym = cs.BWD_KERNELS[key][0]
         ms = cs.kernel_device_ms(torch, lambda: cs.run_bwd(torch, fused, *args), [sym])[sym]
         out[key] = {"ms": ms, "ptxas": entries.get(sym)}

@@ -42,6 +42,15 @@ CASES = [
     ("offsets_64", 1, 130, 1, 32, [194], (-1, -1), 64, 64),
     ("offsets_128_band", 1, 130, 1, 32, [300], (64, 24), 128, 128),
     ("left_window_on_q_tile_edge", 1, 192, 1, 32, [192], (64, -1), 0, 0),
+    # the edges of K4's tiles on the card (128 q rows per CTA, a walk over
+    # 64-key tiles); the two-sided bands take JAX's split path through
+    # `_bwd_dq_kernel`, as they take K4 + K5 on the card
+    ("T127", 1, 127, 1, 32, [127], (-1, -1), 0, 0),
+    ("T129", 2, 129, 1, 32, [129, 128], (-1, -1), 0, 0),
+    ("T255", 1, 255, 1, 32, [200], (-1, -1), 0, 0),
+    ("T383", 1, 383, 1, 32, [383], (-1, -1), 0, 0),
+    ("band_edge_in_128_q_tile", 1, 300, 1, 32, [290], (100, 72), 0, 0),
+    ("offsets_128_band_across_tiles", 1, 260, 1, 32, [420], (96, 40), 128, 128),
 ]
 
 
@@ -111,6 +120,8 @@ def test_kernel_choice_follows_the_jax_gate(monkeypatch, window, env, fused):
 # the same edges, on the card: chip_smoke.py holds K3 and K4 + K5 against
 # flash_attention_bwd_ref on every case of `attention_cases`
 BWD_TILE_EDGES = {"T": (63, 65, 191, 257), "offsets": (64, 128)}
+# and those of K4's: 128 q rows per CTA, 64-key tiles
+K4_TILE_EDGES = {"T": (127, 129, 255, 383), "banded_D": (128, 64, 32)}
 
 
 def test_chip_smoke_attention_cases_hold_the_backward_tile_edges():
@@ -129,6 +140,16 @@ def test_chip_smoke_attention_cases_hold_the_backward_tile_edges():
     assert any(c[7][0] < 0 <= c[7][1] and c[7][1] % 64 for c in bf16)
     # every head dim the kernels take
     assert {c[4] for c in bf16} == set(tfa.KERNEL_HEAD_DIMS)
+    # K4's tile edges (both routes take the unbanded ones)
+    for T in K4_TILE_EDGES["T"]:
+        assert any(c[2] == T for c in bf16), T
+    # a two-sided band whose edges cut 128-row q tiles (K4 + K5 only)
+    assert any(two_sided(c) and c[7][0] % 128 and c[7][1] % 128 and c[2] > 256 for c in bf16)
+    # a shard at q / kv offset 128 under a two-sided band
+    assert any(two_sided(c) and c[8] == c[9] == 128 for c in bf16)
+    # every head dim under a two-sided band
+    for D in K4_TILE_EDGES["banded_D"]:
+        assert any(two_sided(c) and c[4] == D for c in bf16), D
 
 
 def test_bwd_experiment_patches_apply_to_the_source():

@@ -213,3 +213,141 @@ def test_kernels_are_registered_for_the_build():
     x, delta, A, Bm, Cm, _ = _inputs(1, 4, 2, 16, seed=16)
     ssm.selective_scan(*map(t, (x, delta, A, Bm, Cm)))
     assert kernels.launch_counts["selective_scan_fwd"] == 0
+
+
+# ---------------------------------------------------------------------------
+# K7's split of the time axis, written out in torch: the algebra the kernel
+# implements (csrc/selective_scan.cu, passes 1-3), held against jax.grad and
+# the Pallas backward before the card runs it.  Kept out of the package,
+# which keeps one plain version, `selective_scan_bwd_ref`.
+# ---------------------------------------------------------------------------
+TC = ssm.STATE_INTERVAL
+
+
+def _chunked(a, n_chunks):
+    """(Bt, L, ...) zero-padded to n_chunks * TC steps, as (Bt, n_chunks, TC, ...)."""
+    pad = n_chunks * TC - a.shape[1]
+    a = torch.cat([a, a.new_zeros((a.shape[0], pad) + a.shape[2:])], 1)
+    return a.reshape((a.shape[0], n_chunks, TC) + a.shape[2:])
+
+
+def _local_adjoints(delta, A, Cm, g):
+    """Pass 1: each chunk's carry out, a_{t0} lambda_{t0}, from a zero carry in
+    (Bt, n_chunks, D, N), and its sum of delta (Bt, n_chunks, D).  Past L the
+    inputs are 0 and a step changes nothing."""
+    carry = torch.zeros(delta.shape[:2] + (delta.shape[3], A.shape[1]))
+    for t in range(TC - 1, -1, -1):
+        lam = carry + Cm[:, :, t, None, :] * g[:, :, t, :, None]
+        carry = torch.exp(delta[:, :, t, :, None] * A) * lam
+    return carry, delta.sum(2)
+
+
+def _true_carries(local, dsum, A):
+    """Pass 2: carry_in(c) = local(c + 1) + gain(c + 1) carry_in(c + 1),
+    carry_in(last) = 0, gain(c) = exp(A sum delta over chunk c)."""
+    carry = torch.zeros_like(local)
+    v = torch.zeros_like(local[:, 0])
+    for c in range(local.shape[1] - 1, -1, -1):
+        carry[:, c] = v
+        v = local[:, c] + torch.exp(A * dsum[:, c, :, None]) * v
+    return carry
+
+
+def _chunk_bodies(x, delta, A, Bm, Cm, g, states, carry):
+    """Pass 3: every chunk at once from its true carry: the states recomputed
+    forward from the chunk's entry state, then the reverse sweep.  Returns
+    the chunked dx, ddelta, dB, dC and dA's per-chunk partials."""
+    h = states.transpose(2, 3)  # (Bt, n_chunks, D, N)
+    hist = [h]
+    for t in range(TC):
+        dt = delta[:, :, t, :, None]
+        h = torch.exp(dt * A) * h + (dt * x[:, :, t, :, None]) * Bm[:, :, t, None, :]
+        hist.append(h)
+    dx, dd, dB, dC = [], [], [], []
+    dA = torch.zeros_like(h)
+    for t in range(TC - 1, -1, -1):
+        dt, xt, gt = delta[:, :, t, :, None], x[:, :, t, :, None], g[:, :, t, :, None]
+        a = torch.exp(dt * A)
+        lam = carry + Cm[:, :, t, None, :] * gt
+        sum_lb = (lam * Bm[:, :, t, None, :]).sum(-1)
+        gain = lam * a * hist[t]
+        dx.append(delta[:, :, t] * sum_lb)
+        dd.append(x[:, :, t] * sum_lb + (gain * A).sum(-1))
+        dB.append((lam * dt * xt).sum(2))
+        dC.append((gt * hist[t + 1]).sum(2))
+        dA = dA + gain * dt
+        carry = lam * a
+    rev = lambda parts: torch.stack(parts[::-1], dim=2)  # noqa: E731
+    return rev(dx), rev(dd), rev(dB), rev(dC), dA
+
+
+def split_time_bwd(x, delta, A, Bm, Cm, g):
+    """(dx, ddelta, dA, dB, dC) through K7's three passes, from the chunk-entry
+    states the forward saves."""
+    Bt, L, _ = x.shape
+    _, states = ssm.selective_scan_ref(x, delta, A, Bm, Cm, return_states=True)
+    n_chunks = states.shape[1]
+    xc, dc, Bc, Cc, gc = (_chunked(a, n_chunks) for a in (x, delta, Bm, Cm, g))
+    local, dsum = _local_adjoints(dc, A, Cc, gc)
+    carry = _true_carries(local, dsum, A)
+    dx, dd, dB, dC, dA = _chunk_bodies(xc, dc, A, Bc, Cc, gc, states, carry)
+    flat = lambda a: a.reshape((Bt, n_chunks * TC) + a.shape[3:])[:, :L]  # noqa: E731
+    return flat(dx), flat(dd), dA.sum((0, 1)), flat(dB), flat(dC)
+
+
+@pytest.mark.parametrize("L", [1, 31, 33, 77, 333, 1025], ids=lambda L: f"L{L}")
+def test_split_time_bwd_matches_jax_grad(L):
+    x, delta, A, Bm, Cm, _ = _inputs(2, L, 6, 16, seed=20 + L)
+    w = np.random.default_rng(21).normal(size=x.shape).astype(np.float32)
+    want = _jax_grads(jssm._selective_scan_ref, x, delta, A, Bm, Cm, w)
+    got = split_time_bwd(*map(t, (x, delta, A, Bm, Cm, w)))
+    for name, gv, wv in zip(GRADS, got, want):
+        assert gv.dtype == torch.float32 and gv.shape == np.asarray(wv).shape, name
+        _close(gv, wv, name=name)
+
+
+@pytest.mark.parametrize("L", [33, 77], ids=lambda L: f"L{L}")
+def test_split_time_bwd_matches_pallas_backward(monkeypatch, L):
+    """The native Pallas backward in interpret mode (LCASR_NATIVE_SSM_BWD=force)."""
+    monkeypatch.setenv("LCASR_NATIVE_SSM_BWD", "force")
+    x, delta, A, Bm, Cm, _ = _inputs(1, L, 128, 16, seed=22)
+    w = np.random.default_rng(23).normal(size=x.shape).astype(np.float32)
+    want = _jax_grads(jssm._selective_scan_fast, x, delta, A, Bm, Cm, w)
+    got = split_time_bwd(*map(t, (x, delta, A, Bm, Cm, w)))
+    for name, gv, wv in zip(GRADS, got, want):
+        _close(gv, wv, name=name)
+
+
+def test_chip_smoke_ssm_cases_hold_the_split_edges():
+    """chip_smoke.py holds K7 against `selective_scan_bwd_ref` on the card at
+    the edges of its split: D not a multiple of the 128-channel block, L on
+    either side of a 32-step chunk and one past 64 chunks, one row."""
+    import chip_smoke
+
+    cases = chip_smoke.ssm_cases(torch)
+    Ls, Ds = {c[2] for c in cases}, {c[3] for c in cases}
+    assert {31, 33, 64 * TC + 1} <= Ls and {100, 160} <= Ds
+    assert any(c[1] == 1 for c in cases)
+    assert chip_smoke.SSM_LONG_SHAPE[:3] in {c[1:4] for c in cases}
+
+
+def test_scan_experiment_patches_apply_to_the_source():
+    """scripts/scan_bwd_experiments.py patches copies of the scan's source:
+    every planted fault and design variant must still find its text exactly
+    once, or the script checks or measures nothing."""
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "scan_bwd_experiments", os.path.join(root, "scripts", "scan_bwd_experiments.py"))
+    exp = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(exp)
+    source = open(os.path.join(root, exp.SOURCE)).read()
+    assert exp.CONTROLS
+    for name, patches in {**exp.CONTROLS, **exp.VARIANTS}.items():
+        text = source
+        for old, new in patches:
+            assert text.count(old) == 1, (name, old[:60])
+            text = text.replace(old, new)
+        assert text != source, name
