@@ -25,9 +25,10 @@ Phases, in order; any failure raises and exits non-zero:
               whole wrapper calls; K3, K4 and K5 by the profiler, in turns
               with cuDNN's backward, and K4 + K5 also under a (256, 256)
               band; dk and dv must be the same bits in two runs, K4's dq too,
-              and K5's those of K3; K7's five gradients the same bits in two
-              runs; the build fails on serialised wgmma or spills in the bf16
-              entries of K1-K5;
+              and K5's those of K3; K6's y and states and K7's five gradients
+              the same bits in two runs; K6's grids at the four main shapes
+              logged, each launch a block for every SM; the build fails on
+              serialised wgmma or spills in the bf16 entries of K1-K5;
   3. model    the flagship SCConformerXL (9L-768D-6H, bf16, random weights
               from a numpy seed) on one (16, 80, 16384) window batch: finite,
               normalised log-probs, compared with the same model whose
@@ -48,12 +49,14 @@ Phases, in order; any failure raises and exits non-zero:
               bf16, random weights from a seed): one window batch with the
               kernel against the plain scan, then the same 20-minute
               streaming decode as phase 4 (6 layers x 4 window batches = 24
-              K6 launches), RTFx as the median of 3;
+              K6 launches), RTFx as the median of 3, K6's share of its profile;
   7. mamba_train  the Trainer with model_class Mamba on the same ladder and
               corpus as phase 5: launch counts (K6 twice per layer and micro
               step under full remat, K7 once), save / resume, one 16384 x 4
               step with the kernels against the plain scan (loss and whole
-              gradient), a profile of that step, one 120,000 x 1 step;
+              gradient), a profile of that step (K6's and K7's device time
+              and share), one 120,000 x 1 step under the profiler (K6's and
+              K7's device time);
   8. decode_opt  the flagship's opt-in decode configuration
               (LCASR_ATTN_FWD_DB=1, LCASR_FUSED_SUB=1; both set and restored
               inside the phase): the 20-minute decode through K2 and K8 (36
@@ -227,19 +230,26 @@ def device_ms(torch, fn, n: int = 50, warmup: int = 3) -> float:
     return a.elapsed_time(b) / n
 
 
-def device_kernel_totals(torch, fn, n: int = 10) -> dict:
+def device_kernel_totals(torch, fn, n: int = 10, attempts: int = 3) -> dict:
     """{kernel name: (device microseconds, launches)} over n calls of fn
-    (torch.profiler), after one warm call."""
+    (torch.profiler), after one warm call.  Now and then a profiler window on
+    the H100 machine holds no device activity at all, though fn launched
+    kernels: such a window is taken again, up to `attempts` windows."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: (e.self_device_time_total, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        totals = {e.key: (e.self_device_time_total, e.count) for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0}
+        if totals:
+            break
+    return totals
 
 
 # the bf16 kernels on TMA, wgmma and warp specialisation, as ptxas and the
@@ -905,13 +915,18 @@ def phase_kernels_bwd(torch, registers: dict):
 # phase 2c: selective scan (K6) and its backward (K7) against their plain versions
 # ---------------------------------------------------------------------------
 SSM_KERNELS = {  # launch-count name -> (kernel symbol, Pallas body it replaces)
-    "selective_scan_fwd": ("selective_scan_fwd_kernel", 78, "_scan_kernel"),
-    # K7 is five launches whose names all begin so (csrc/selective_scan.cu)
+    # K6 is one or two launches (selective_scan_fwd_local, _body) and K7 five,
+    # whose names all begin so (csrc/selective_scan.cu)
+    "selective_scan_fwd": ("selective_scan_fwd_", 78, "_scan_kernel"),
     "selective_scan_bwd": ("selective_scan_bwd_", 177, "_scan_bwd_kernel"),
 }
 SSM_DECODE_SHAPE = (32, 2048, 768, 16)  # (Bt, L, D, N): 16 windows, both directions
 SSM_TRAIN_SHAPE = (8, 2048, 768, 16)  # a 16384-frame x 4 chunk
 SSM_LONG_SHAPE = (2, 15_000, 768, 16)  # the 120,000 x 1 step: 15,000 frames, both directions
+# every shape the main paths launch K6 at: the decode, the ladder's two
+# buckets and the 120,000-frame step
+SSM_MAIN_SHAPES = {"decode": SSM_DECODE_SHAPE, "16384x4": SSM_TRAIN_SHAPE,
+                   "8192x8": (16, 1024, 768, 16), "120000x1": SSM_LONG_SHAPE}
 # kernel and plain version are both fp32 on the same (possibly bf16-rounded)
 # inputs; they differ in exp2 against exp, fused multiply-adds and the order of
 # the sums over channels and time: 2e-4 of the largest reference value
@@ -919,7 +934,8 @@ SSM_TOL = 2e-4
 
 
 def ssm_cases(torch):
-    """(name, Bt, L, D, x dtype, B/C dtype, B and C as strided slices, wide delta)"""
+    """(name, Bt, L, D, x dtype, B/C dtype, B and C as strided slices ("odd":
+    at an odd offset, rows not 16-byte aligned), wide delta)"""
     bf, f32 = torch.bfloat16, torch.float32
     return [
         ("fp32_L1", 2, 1, 40, f32, f32, False, False),
@@ -939,6 +955,17 @@ def ssm_cases(torch):
         ("fp32_L33_D100", 2, 33, 100, f32, f32, False, True),
         ("mixed_L2049_D160", 2, 64 * 32 + 1, 160, f32, bf, True, False),
         ("mixed_L64_D200_Bt1", 1, 64, 200, f32, bf, True, True),
+        # the edges of K6's split (ops/ssm.py fwd_segments): 27 segments of
+        # 64 steps and one step more; 29 of them less one step; two
+        # one-chunk segments, the second of one step; 34 segments at a D cut
+        # by the 64-channel block, one row; rows of x and delta that are not
+        # 16-byte aligned (plain loads for cp.async's copies), B and C too
+        ("mixed_L1729_27seg_plus1", 2, 27 * 64 + 1, 768, f32, bf, True, False),
+        ("mixed_L1855_29seg_minus1", 2, 29 * 64 - 1, 768, f32, bf, True, True),
+        ("fp32_L33_2seg_Bt1", 1, 33, 64, f32, f32, False, False),
+        ("mixed_L1057_D100_Bt1", 1, 33 * 32 + 1, 100, f32, bf, True, False),
+        ("mixed_L100_D37_odd", 2, 100, 37, f32, bf, "odd", False),
+        ("fp32_L70_D37_odd", 2, 70, 37, f32, f32, "odd", True),
     ]
 
 
@@ -953,8 +980,9 @@ def ssm_inputs(torch, gen, Bt, L, D, N, x_dtype, bc_dtype, strided, wide):
     delta = F.softplus(randn(Bt, L, D) + (0.0 if wide else -3.0))
     A = -torch.arange(1, N + 1, device="cuda").float() * torch.exp(0.3 * randn(D, N))
     if strided:
-        proj = randn(Bt, L, 48 + 2 * N).to(bc_dtype)
-        Bm, Cm = proj[..., 48:48 + N], proj[..., 48 + N:]
+        off = 47 if strided == "odd" else 48
+        proj = randn(Bt, L, off + 2 * N).to(bc_dtype)
+        Bm, Cm = proj[..., off:off + N], proj[..., off + N:]
     else:
         Bm, Cm = randn(Bt, L, N).to(bc_dtype), randn(Bt, L, N).to(bc_dtype)
     return x, delta, A, Bm, Cm, randn(Bt, L, D)
@@ -994,8 +1022,8 @@ def ssm_bound(torch, kind, shape, x_bytes, bc_bytes, states: bool):
 def ssm_case(torch, case, gen):
     """One case of K6 and K7 against their plain versions at SSM_TOL of the
     largest reference value; the forward with and without its states the same
-    bits, and K7's five gradients the same bits in two runs.  Returns (the
-    forward's worst error, the backward's)."""
+    bits, K6's y and states and K7's five gradients the same bits in two
+    runs.  Returns (the forward's worst error, the backward's)."""
     from lcasr_torch.ops import ssm
 
     name, Bt, L, D, xd, bcd, strided, wide = case
@@ -1013,11 +1041,14 @@ def ssm_case(torch, case, gen):
     x, delta, A, Bm, Cm, g = ssm_inputs(torch, gen, Bt, L, D, 16, xd, bcd, strided, wide)
     y = ssm.selective_scan_fwd(x, delta, A, Bm, Cm)
     y_s, states = ssm.selective_scan_fwd(x, delta, A, Bm, Cm, return_states=True)
+    y_again, states_again = ssm.selective_scan_fwd(x, delta, A, Bm, Cm, return_states=True)
     grads = ssm.selective_scan_bwd(x, delta, A, Bm, Cm, states, g)
     again = ssm.selective_scan_bwd(x, delta, A, Bm, Cm, states, g)
     torch.cuda.synchronize()
     if not torch.equal(y, y_s):
         raise AssertionError(f"{name}: y differs with and without the saved states")
+    if not (torch.equal(y_s, y_again) and torch.equal(states, states_again)):
+        raise AssertionError(f"{name}: K6's y or states differ between two runs")
     # no atomics and a fixed order of every sum: the same bits each run
     for what, a, b in zip(("dx", "ddelta", "dA", "dB", "dC"), grads, again):
         if not torch.equal(a, b):
@@ -1027,9 +1058,10 @@ def ssm_case(torch, case, gen):
     e_fwd = [rel_err("y", y, y_ref), rel_err("states", states, states_ref)]
     e_bwd = [rel_err(what, got, want) for what, got, want in
              zip(("dx", "ddelta", "dA", "dB", "dC"), grads, grads_ref)]
-    log(f"  {name:22s} K6: y {e_fwd[0]:.2e} states {e_fwd[1]:.2e}   K7: dx {e_bwd[0]:.2e} "
-        f"ddelta {e_bwd[1]:.2e} dA {e_bwd[2]:.2e} dB {e_bwd[3]:.2e} dC {e_bwd[4]:.2e} "
-        f"(of the largest value; tolerance {SSM_TOL:g}; K7 the same bits in two runs)")
+    log(f"  {name:24s} K6 ({ssm.fwd_segments(Bt, L, D)} seg): y {e_fwd[0]:.2e} states "
+        f"{e_fwd[1]:.2e}   K7: dx {e_bwd[0]:.2e} ddelta {e_bwd[1]:.2e} dA {e_bwd[2]:.2e} "
+        f"dB {e_bwd[3]:.2e} dC {e_bwd[4]:.2e} (of the largest value; tolerance {SSM_TOL:g}; "
+        f"K6 and K7 the same bits in two runs)")
     return max(e_fwd), max(e_bwd)
 
 
@@ -1043,9 +1075,44 @@ def kernel_group_ms(torch, fn, prefix: str, n: int = 5) -> float:
     return us / n / 1e3
 
 
+def check_fwd_grids(torch) -> dict:
+    """K6's grid of every launch at each main shape, from the library (the
+    grids it launches), held equal to `ssm.fwd_grids` and to at least one
+    block on every SM."""
+    import ctypes
+
+    from lcasr_torch import kernels
+    from lcasr_torch.ops import ssm
+
+    lib = kernels.library("selective_scan.cu")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for label, (Bt, L, D, _) in SSM_MAIN_SHAPES.items():
+        S = ssm.fwd_segments(Bt, L, D)
+        seg_steps = -(-ssm._n_chunks(L) // S) * 32
+        grids = {}
+        for kind, name in enumerate(("selective_scan_fwd_local", "selective_scan_fwd_body")):
+            g = (ctypes.c_int * 3)()
+            rc = lib.lcasr_selective_scan_fwd_grid(Bt, L, D, S, kind, g)
+            if rc < 0:
+                raise AssertionError(f"K6 refuses {S} segments at {label} {(Bt, L, D)}")
+            if rc == 0:
+                grids[name] = tuple(g)
+        blocks = {name: g[0] * g[1] * g[2] for name, g in grids.items()}
+        log(f"  K6 at {label} {(Bt, L, D)}: {S} segment(s) of "
+            f"{seg_steps} steps; grids {grids}, blocks {blocks} of 128 "
+            f"threads on {sms} SMs")
+        if grids != ssm.fwd_grids(Bt, L, D) or min(blocks.values()) < sms:
+            raise AssertionError(f"K6's grids at {label}: {grids}, expected "
+                                 f"{ssm.fwd_grids(Bt, L, D)}, each at least {sms} blocks")
+        out[label] = {"segments": S, "grids": grids}
+    return out
+
+
 def phase_kernels_ssm(torch):
     from lcasr_torch.ops import ssm
 
+    grids = check_fwd_grids(torch)
     gen = torch.Generator(device="cuda").manual_seed(2)
     worst = {name: 0.0 for name in SSM_KERNELS}
     for case in ssm_cases(torch):
@@ -1058,6 +1125,7 @@ def phase_kernels_ssm(torch):
     # bf16 mixer gives them (the plain versions, Python loops over L, are
     # timed at the first two)
     out, timed = {}, {}
+    fwd_prefix = SSM_KERNELS["selective_scan_fwd"][0]
     bwd_prefix = SSM_KERNELS["selective_scan_bwd"][0]
     for label, shape in (("decode", SSM_DECODE_SHAPE), ("train", SSM_TRAIN_SHAPE),
                          ("long", SSM_LONG_SHAPE)):
@@ -1071,6 +1139,8 @@ def phase_kernels_ssm(torch):
         t = {"fwd": time_ms(torch, fwd, n=20), "fwd_states": time_ms(torch, fwd_s, n=20),
              "bwd": time_ms(torch, bwd, n=10)}
         t["bwd_kernel_only"] = kernel_group_ms(torch, bwd, bwd_prefix)
+        t["fwd_device"] = kernel_group_ms(torch, fwd, fwd_prefix)
+        t["fwd_states_device"] = kernel_group_ms(torch, fwd_s, fwd_prefix)
         if label != "long":
             t["fwd_plain"] = time_ms(torch, lambda: ssm.selective_scan_ref(x, delta, A, Bm, Cm),
                                      n=2, warmup=1)
@@ -1082,22 +1152,33 @@ def phase_kernels_ssm(torch):
         timed[label] = t
         plain = (f"plain K6 {t['fwd_plain']:.2f} ms, K7 {t['bwd_plain']:.2f} ms"
                  if "fwd_plain" in t else "plain not timed")
-        log(f"  {label} shape {shape}, x fp32, B/C bf16 strided: K6 {t['fwd']:.4f} ms "
-            f"(with states {t['fwd_states']:.4f} ms), bound {t['fwd_bound'][0]:.4f} ms by "
-            f"{t['fwd_bound'][1]} (with states {t['fwd_states_bound'][0]:.4f} ms); K7 "
+        log(f"  {label} shape {shape}, x fp32, B/C bf16 strided: K6 device {t['fwd_device']:.4f}"
+            f" ms, {100 * t['fwd_bound'][0] / t['fwd_device']:.1f}% of its bound (with states "
+            f"{t['fwd_states_device']:.4f} ms, "
+            f"{100 * t['fwd_states_bound'][0] / t['fwd_states_device']:.1f}%), wrapper call "
+            f"{t['fwd']:.4f} ms (with states {t['fwd_states']:.4f}), bound "
+            f"{t['fwd_bound'][0]:.4f} ms by {t['fwd_bound'][1]} (with states "
+            f"{t['fwd_states_bound'][0]:.4f} ms); K7 "
             f"{t['bwd']:.4f} ms a wrapper call (device time of its launches "
             f"{t['bwd_kernel_only']:.4f} ms, {100 * t['bwd_bound'][0] / t['bwd_kernel_only']:.1f}% "
             f"of its bound), bound {t['bwd_bound'][0]:.4f} ms by {t['bwd_bound'][1]}; {plain}; "
             f"no library call computes either")
         del x, delta, A, Bm, Cm, g, states
-    # K6's row is the decode's launch (no states), K7's the training step's
+    # K6's row is the decode's launch (no states), K7's the training step's;
+    # both by the device time of their launches
     for key, (ms, plain, bound, extra) in {
-        "selective_scan_fwd": (timed["decode"]["fwd"], timed["decode"]["fwd_plain"],
+        "selective_scan_fwd": (timed["decode"]["fwd_device"], timed["decode"]["fwd_plain"],
                                timed["decode"]["fwd_bound"],
-                               {"ms_train_shape_with_states": timed["train"]["fwd_states"],
+                               {"wrapper_ms": timed["decode"]["fwd"],
+                                "ms_train_shape_with_states": timed["train"]["fwd_states_device"],
+                                "wrapper_ms_train_shape_with_states": timed["train"]["fwd_states"],
                                 "bound_ms_train_shape_with_states":
                                     timed["train"]["fwd_states_bound"][0],
-                                "plain_ms_train_shape": timed["train"]["fwd_plain"]}),
+                                "plain_ms_train_shape": timed["train"]["fwd_plain"],
+                                "ms_long_shape": timed["long"]["fwd_device"],
+                                "ms_long_shape_with_states": timed["long"]["fwd_states_device"],
+                                "bound_ms_long_shape": timed["long"]["fwd_bound"][0],
+                                "grids": grids}),
         "selective_scan_bwd": (timed["train"]["bwd_kernel_only"], timed["train"]["bwd_plain"],
                                timed["train"]["bwd_bound"],
                                {"wrapper_ms": timed["train"]["bwd"],
@@ -1722,11 +1803,12 @@ class TrainRun:
         return profile_run(torch, train_step, profile_file,
                            f"one 16384x4 {self.what} training step")
 
-    def long_step(self, model, kernel_prefix=None):
+    def long_step(self, model, kernel_prefixes=()):
         """One optimizer step of the 20-minute bucket: 120,000 frames x 1.
-        With `kernel_prefix`, the step runs under torch.profiler (device
-        activity only) and the device ms of the kernels whose names contain
-        it are returned (the step's wall time then includes the profiler)."""
+        With `kernel_prefixes`, the step runs under torch.profiler (device
+        activity only) and {prefix: device ms of the kernels whose names
+        contain it} is returned (the step's wall time then includes the
+        profiler)."""
         import tempfile
 
         import numpy as np
@@ -1751,7 +1833,7 @@ class TrainRun:
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         prof = None
-        if kernel_prefix is not None:
+        if kernel_prefixes:
             from torch.profiler import ProfilerActivity, profile
 
             prof = profile(activities=[ProfilerActivity.CUDA])
@@ -1773,11 +1855,28 @@ class TrainRun:
             raise AssertionError(f"the 120000-frame {self.what} step failed")
         if prof is None:
             return None
-        kernel_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                        if kernel_prefix in e.key) / 1e3
-        log(f"  120000x1 {self.what} step (profiler on): {kernel_prefix}* kernels "
-            f"{kernel_ms:.3f} ms of device time")
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernel_ms = {prefix: sum(e.self_device_time_total for e in events if prefix in e.key) / 1e3
+                     for prefix in kernel_prefixes}
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        log(f"  120000x1 {self.what} step (profiler on): device busy {busy_ms:.3f} ms; "
+            + ", ".join(f"{p}* kernels {v:.3f} ms ({100 * v / max(busy_ms, 1e-9):.1f}%)"
+                        for p, v in kernel_ms.items()))
+        kernel_ms["busy"] = busy_ms
         return kernel_ms
+
+
+def profile_share(rows, prefix: str, what: str, where: str) -> dict:
+    """{"ms", "launches", "share"} of the kernels whose names contain
+    `prefix` in `profile_run`'s rows."""
+    mine = [r for r in rows if prefix in r[2]]
+    busy_us = sum(r[0] for r in rows)
+    out = {"ms": sum(r[0] for r in mine) / 1e3, "launches": sum(r[1] for r in mine),
+           "share": sum(r[0] for r in mine) / busy_us if busy_us else None}
+    log(f"  {what} in {where}'s profile: {out['ms']:.3f} ms in {out['launches']} kernel "
+        f"launches, {out['share']} of the device time")
+    return out
 
 
 def grad_error(g, ref, names):
@@ -2128,16 +2227,13 @@ def phase_mamba_train(torch, workdir: str):
                   floors=(MAMBA_REL_L2_FLOOR, MAMBA_COS_FLOOR))
     trainer.zero_pending()
     rows = run.timed_step(trainer, chunk, "mamba_train_profile.txt")
-    prefix = SSM_KERNELS["selective_scan_bwd"][0]
-    k7_rows = [r for r in rows if prefix in r[2]]
-    busy_us = sum(r[0] for r in rows)
-    k7_step = {"ms": sum(r[0] for r in k7_rows) / 1e3,
-               "launches": sum(r[1] for r in k7_rows),
-               "share": sum(r[0] for r in k7_rows) / busy_us if busy_us else None}
-    log(f"  K7 in the 16384x4 Mamba step's profile: {k7_step['ms']:.3f} ms in "
-        f"{k7_step['launches']} kernel launches (5 per call), {k7_step['share']} of the device time")
-    k7_step["long_step_ms"] = run.long_step(model, kernel_prefix=prefix)
-    return launches, k7_step
+    fwd_prefix, bwd_prefix = (SSM_KERNELS[k][0] for k in ("selective_scan_fwd",
+                                                           "selective_scan_bwd"))
+    k6_step = profile_share(rows, fwd_prefix, "K6", "the 16384x4 Mamba step")
+    k7_step = profile_share(rows, bwd_prefix, "K7 (5 kernels a call)", "the 16384x4 Mamba step")
+    long_ms = run.long_step(model, kernel_prefixes=(fwd_prefix, bwd_prefix))
+    k6_step["long_step_ms"], k7_step["long_step_ms"] = long_ms[fwd_prefix], long_ms[bwd_prefix]
+    return launches, k6_step, k7_step
 
 
 def main() -> int:
@@ -2230,25 +2326,28 @@ def main() -> int:
         log("[6/9] Mamba: one window batch, then the 20-minute streaming greedy decode")
         model = mamba_model(torch)
         phase_model(torch, model, plain_scan(torch.float32), "Mamba")
-        launches, _, _ = phase_decode(torch, model,
-                                      {"selective_scan_fwd": MAMBA_EXPECTED_DECODE_LAUNCHES},
-                                      "Mamba", "mamba_decode_profile.txt")
+        launches, rtfx, rows = phase_decode(
+            torch, model, {"selective_scan_fwd": MAMBA_EXPECTED_DECODE_LAUNCHES}, "Mamba",
+            "mamba_decode_profile.txt")
         del model
-        results.setdefault("selective_scan_fwd", {"name": "selective_scan_fwd"})[
-            "launches"] = launches["selective_scan_fwd"]
+        k6 = results.setdefault("selective_scan_fwd", {"name": "selective_scan_fwd"})
+        k6["launches"] = launches["selective_scan_fwd"]
+        k6["decode_profile"] = dict(profile_share(rows, SSM_KERNELS["selective_scan_fwd"][0],
+                                                  "K6", "the Mamba decode"), rtfx=rtfx)
     if "mamba_train" in phases:
         log("[7/9] Mamba training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1")
         os.makedirs(workdir, exist_ok=True)
         try:
-            ladder, k7_step = phase_mamba_train(torch, workdir)
+            ladder, k6_step, k7_step = phase_mamba_train(torch, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         # K7 runs only in training: its count is the ladder run's
         k7 = results.setdefault("selective_scan_bwd", {"name": "selective_scan_bwd"})
         k7["launches"] = ladder["selective_scan_bwd"]
         k7["train_step_profile"] = k7_step
-        results.setdefault("selective_scan_fwd", {"name": "selective_scan_fwd"})[
-            "launches_ladder"] = ladder["selective_scan_fwd"]
+        k6 = results.setdefault("selective_scan_fwd", {"name": "selective_scan_fwd"})
+        k6["launches_ladder"] = ladder["selective_scan_fwd"]
+        k6["train_step_profile"] = k6_step
     if "decode_opt" in phases:
         log("[8/9] the opt-in decode configuration (K2, K8) and the decoder's options")
         launches, mamba_launches, numbers = phase_decode_opt(torch)

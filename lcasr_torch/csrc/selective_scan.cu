@@ -9,15 +9,39 @@
 // five gradients, and no (Bt, L, D, N) tensor in device memory.  The TPU
 // kernels' 16-row groups, transposes and 512-frame grid steps are not.
 //
-// K6.  One thread owns one (batch row, channel) pair and keeps its 16
-// states in registers for the whole sequence, so y_t (a sum over n) needs no
-// communication, and neighbouring threads read neighbouring channels of x,
-// delta, y (coalesced).  B_t and C_t (16 values each, shared by every channel
-// of a batch row) are staged in shared memory one chunk of 32 time steps at a
-// time and read as broadcasts; they are read through their strides, so
-// last-dimension slices of a wider projection need no copy.  The forward can
-// write the state at the entry of every 32-step chunk, (Bt, ceil(L/32), N, D)
-// fp32.
+// K6 replaces `_scan_kernel` (lcasr_tpu/ops/ssm.py:78), which carries h in
+// VMEM across sequential grid steps over L.  CUDA blocks run in parallel and
+// in no order, and rows x channels alone do not fill 132 SMs at every shape
+// the Mamba family runs (2 x 768 channels at the 120,000-frame step: the
+// first port, one thread per (row, channel) walking the whole sequence, ran
+// 12 blocks there).  So the time axis is cut into S segments of whole 32-step
+// chunks, S a function of (Bt, L, D) alone that the wrapper computes
+// (`fwd_segments` in ops/ssm.py), and h's linearity joins them: a segment's
+// exit = its exit from a zero entry + exp(A sum delta) * its entry.
+//   1. `selective_scan_fwd_local` (S > 1): segments 0 .. S - 2 from a zero
+//      entry; each writes its exit and its sum of delta.  Segment 0's entry
+//      is the true one, so it writes its y and states here as well;
+//   2. `selective_scan_fwd_body`: segments 1 .. S - 1 (segment 0 when S is
+//      1).  Each folds the exits of the segments before it into its true
+//      entry (the carry pass, per (row, channel, state), done by the block
+//      that needs it: s exps per state against the segment's L / S, and no
+//      launch or round trip of its own), then runs its segment writing y and
+//      the chunk-entry states.
+// A split spends a second exp per (t, d, n) on segments 1 .. S - 2, so S is 1
+// where rows x channels fill the card (the decode's 32 x 768).  Two threads
+// own one (row, channel), 8 states each, and finish y's sum over states with
+// one shuffle: 1/8 shuffle per (t, d, n), and twice the warps of one thread
+// a channel.  64 channels (128 threads) a block.  A chunk's x, delta (as
+// [t][channel]) and B, C (as [t][n], fp32) are double-buffered in shared
+// memory, and the next chunk's loads are in flight while the current chunk
+// computes: x and delta by 16-byte `cp.async` copies (plain loads where a
+// row is not 16-byte aligned), B and C (16 values a step, bf16 or fp32) by
+// loads into registers that are converted and stored once the chunk is
+// done, so the inner loop reads fp32 and unpacks nothing.  B and C are read
+// through their strides, so the mixer's slices of its x_proj output are not
+// copied.  The choice of S
+// depends on the shape only, so y is the same bits with and without the
+// states, and there are no atomics: the same bits each run.
 //
 // K7 replaces `_scan_bwd_kernel` (lcasr_tpu/ops/ssm.py:177), which carries the
 // adjoint lambda backward across sequential grid steps in VMEM.  CUDA blocks
@@ -52,10 +76,11 @@
 // these took 30% off pass 3 and 24% off K7
 // (scripts/scan_bwd_experiments.py variants and time, PERF.md).
 //
-// Memory latency.  A chunk's loads (x, delta, g, B, C, the entry state) are
+// Memory latency.  K7's chunk loads (x, delta, g, B, C, the entry state) are
 // all loaded into registers before the first of them is stored to shared
 // memory: a load-then-store pair per element serialises on the latency and
-// took the first versions of these kernels 2-3x as long.
+// took the first versions of these kernels 2-3x as long.  K6 keeps the next
+// chunk's loads in flight while it computes (below).
 //
 // Bound.  The function needs one exp per (t, d, n), forward and backward, on
 // the special-function units (16 per clock per SM).  K7 at (8, 2048, 768, 16)
@@ -73,7 +98,6 @@ namespace {
 
 constexpr int N = 16;             // d_state the kernels are built for
 constexpr int TC = 32;            // steps per chunk = interval of saved states
-constexpr int FWD_THREADS = 128;  // channels per forward block
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
@@ -97,16 +121,6 @@ __device__ __forceinline__ float ex2(float v) {
   return r;
 }
 
-// 16 consecutive fp32 values from shared memory, as four 16-byte reads.
-__device__ __forceinline__ void lds16(const float* row, float (&out)[16]) {
-  const float4* v = reinterpret_cast<const float4*>(row);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 q = v[i];
-    out[4 * i] = q.x, out[4 * i + 1] = q.y, out[4 * i + 2] = q.z, out[4 * i + 3] = q.w;
-  }
-}
-
 struct ScanParams {
   const float* x;      // (Bt, L, D), unit stride on D
   const float* delta;  // (Bt, L, D), unit stride on D
@@ -115,6 +129,8 @@ struct ScanParams {
   const void* C;       // (Bt, L, N), unit stride on N
   int L, D, n_chunks;
   long long sx_b, sx_l, sd_b, sd_l, sB_b, sB_l, sC_b, sC_l;
+  // K6: every row of x / delta starts 16-byte aligned (cp.async copies)
+  bool vec_x, vec_delta;
 };
 
 // Stage B and C of steps [t0, t0 + len) of batch row b into shared memory as
@@ -145,75 +161,253 @@ __device__ __forceinline__ void stage_bc(const ScanParams& p, int b, int t0,
 }
 
 // ---------------------------------------------------------------------------
-// K6: forward.  grid (ceil(D / 128), Bt), 128 threads.
+// K6: forward, parallel over rows, channels and segments of time.  Two
+// launches (one when S is 1), grid (ceil(D / 64), S - 1 or 1, Bt) each, 128
+// threads: threads 2j and 2j + 1 hold states 0-7 and 8-15 of channel j.
+// Bound: one exp per (t, d, n) on the special-function units (16 per clock
+// per SM): 0.193 ms at (32, 2048, 768, 16), where the bytes take 0.18 ms.
+// Registers decide how many blocks share an SM.  A first build staged with
+// unrolled plain-load fallbacks and per-copy 64-bit addresses, which the
+// compiler hoisted out of the chunk loop: 229-247 registers, two blocks an
+// SM, and capping them spilled.  The fallback is now a rolled loop, each
+// copy an offset from one pointer a chunk, and the inner loop reads fp32 B
+// and C: 112-124 registers, no spill, all 384 decode blocks resident
+// (PERF.md, scripts/scan_fwd_experiments.py).
 // ---------------------------------------------------------------------------
-template <typename BT, bool STATES>
-__global__ void __launch_bounds__(FWD_THREADS)
-selective_scan_fwd_kernel(ScanParams p, float* __restrict__ y,
-                          float* __restrict__ states) {
-  __shared__ float xs[TC][FWD_THREADS];
-  __shared__ float ds[TC][FWD_THREADS];
-  __shared__ __align__(16) float Bs[TC][N];
-  __shared__ __align__(16) float Cs[TC][N];
-  const int tid = threadIdx.x;
-  const int b = blockIdx.y;
-  const int d = blockIdx.x * FWD_THREADS + tid;
-  const bool live = d < p.D;
+constexpr int FWD_CH = 64;                       // channels a block
+constexpr int FWD_LANES = 2;                     // threads a channel
+constexpr int FWD_THREADS = FWD_CH * FWD_LANES;  // 128
+constexpr int FWD_NS = N / FWD_LANES;            // states a thread
 
-  float A2[N], h[N];
+struct FwdBuffers {
+  float* y;       // (Bt, L, D)
+  float* states;  // null, or (Bt, n_chunks, N, D): the state at each chunk's entry
+  float* exits;   // (Bt, segments - 1, N, D): a segment's exit from a zero entry
+  float* dsum;    // (Bt, segments - 1, D): a segment's sum of delta
+  int segments, seg_chunks;
+};
+
+// Two chunk buffers: x, delta as [t][channel], B, C as [t][n], all fp32.
+struct FwdSmem {
+  __align__(16) float xs[2][TC][FWD_CH];
+  __align__(16) float ds[2][TC][FWD_CH];
+  __align__(16) float Bs[2][TC][N];
+  __align__(16) float Cs[2][TC][N];
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  // copies `bytes` (0-16) and fills the rest of the 16 with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Steps [t0, t0 + TC) of channels [d0, d0 + FWD_CH) of one row of an
+// (L, D)-strided fp32 tensor into dst[TC][FWD_CH]; zeros past len steps and
+// past D.  `vec`: the rows are 16-byte aligned, so 16-byte cp.async copies,
+// 4 a thread (rows r, r + 8, r + 16, r + 24 of the chunk, columns 4q ..
+// 4q + 3); else one plain load and store at a time, a loop the compiler keeps
+// rolled, so that the rare path holds no registers of its own across the
+// chunk loop.
+__device__ __forceinline__ void stage_rows(const float* row0, long long sl, bool vec, int t0,
+                                           int len, int d0, int D, float (*dst)[FWD_CH]) {
+  constexpr int Q = FWD_CH / 4, R = FWD_THREADS / Q;
+  const float* base = row0 + t0 * sl + d0;
+  if (vec) {
+    const int r = threadIdx.x / Q, q = threadIdx.x % Q;
+    const int cols = 4 * max(0, min(4, D - d0 - 4 * q));
+    const float* src = base + r * sl + 4 * q;
 #pragma unroll
-  for (int n = 0; n < N; ++n) {
-    A2[n] = live ? p.A[(long long)d * N + n] * LOG2E : 0.f;
-    h[n] = 0.f;
+    for (int k = 0; k < TC / R; ++k) {
+      const int t = r + k * R, bytes = t < len ? cols : 0;
+      cp_async16(&dst[t][4 * q], bytes ? src + k * R * sl : row0, bytes);
+    }
+    return;
   }
-  const float* xp = p.x + (long long)b * p.sx_b + d;
-  const float* dp = p.delta + (long long)b * p.sd_b + d;
-  float* yp = y + (long long)b * p.L * p.D + d;
+#pragma unroll 1
+  for (int i = threadIdx.x; i < TC * FWD_CH; i += FWD_THREADS) {
+    const int t = i / FWD_CH, j = i % FWD_CH;
+    dst[t][j] = t < len && d0 + j < D ? base[t * sl + j] : 0.f;
+  }
+}
 
-  for (int c = 0; c < p.n_chunks; ++c) {
-    const int t0 = c * TC;
-    const int len = min(TC, p.L - t0);
-    __syncthreads();  // the chunk before has been read
-    stage_bc<BT, FWD_THREADS>(p, b, t0, len, Bs, Cs);
-    {
-      // the chunk's x and delta of this channel: all loads, then all stores
-      float xr[TC], dr[TC];
+// B and C of chunk c of row b as fp32 in registers, zeros past L: 4 values
+// of each a thread, loads only; `store_bc` puts them in shared memory once
+// the chunk before has been computed.
+constexpr int BC_PER = TC * N / FWD_THREADS;
+
+template <typename BT>
+__device__ __forceinline__ void load_bc(const ScanParams& p, int b, int c, float (&bv)[BC_PER],
+                                        float (&cv)[BC_PER]) {
+  constexpr int R = FWD_THREADS / N;  // steps a pass: thread i loads steps r + R k
+  const int t0 = c * TC, len = min(TC, p.L - t0), r = threadIdx.x / N, n = threadIdx.x % N;
+  const BT* Bp = static_cast<const BT*>(p.B) + b * p.sB_b + (t0 + r) * p.sB_l + n;
+  const BT* Cp = static_cast<const BT*>(p.C) + b * p.sC_b + (t0 + r) * p.sC_l + n;
 #pragma unroll
-      for (int t = 0; t < TC; ++t) {
-        const bool ok = live && t < len;
-        xr[t] = ok ? xp[(long long)(t0 + t) * p.sx_l] : 0.f;
-        dr[t] = ok ? dp[(long long)(t0 + t) * p.sd_l] : 0.f;
-      }
+  for (int k = 0; k < BC_PER; ++k) {
+    const bool ok = r + k * R < len;
+    bv[k] = ok ? ldf(Bp + k * R * p.sB_l) : 0.f;
+    cv[k] = ok ? ldf(Cp + k * R * p.sC_l) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void store_bc(const float (&bv)[BC_PER], const float (&cv)[BC_PER],
+                                         float (*Bs)[N], float (*Cs)[N]) {
+  constexpr int R = FWD_THREADS / N;
+  const int r = threadIdx.x / N, n = threadIdx.x % N;
 #pragma unroll
-      for (int t = 0; t < TC; ++t) {
-        xs[t][tid] = xr[t];
-        ds[t][tid] = dr[t];
-      }
+  for (int k = 0; k < BC_PER; ++k) {
+    Bs[r + k * R][n] = bv[k];
+    Cs[r + k * R][n] = cv[k];
+  }
+}
+
+// Start the copies of x and delta of chunk c of row b, channel block d0, into
+// buffer buf.
+__device__ __forceinline__ void stage_xd(const ScanParams& p, int b, int d0, int c, int buf,
+                                         FwdSmem& s) {
+  const int t0 = c * TC, len = min(TC, p.L - t0);
+  stage_rows(p.x + b * p.sx_b, p.sx_l, p.vec_x, t0, len, d0, p.D, s.xs[buf]);
+  stage_rows(p.delta + b * p.sd_b, p.sd_l, p.vec_delta, t0, len, d0, p.D, s.ds[buf]);
+  cp_async_commit();
+}
+
+// Chunk c0 into buffer 0: x and delta in flight, B and C stored.
+template <typename BT>
+__device__ __forceinline__ void stage_first(const ScanParams& p, int b, int d0, int c0,
+                                            FwdSmem& s) {
+  stage_xd(p, b, d0, c0, 0, s);
+  float bv[BC_PER], cv[BC_PER];
+  load_bc<BT>(p, b, c0, bv, cv);
+  store_bc(bv, cv, s.Bs[0], s.Cs[0]);
+}
+
+// This thread's 8 of a step's 16 values of B or C, from shared memory.
+__device__ __forceinline__ void lds_half(const float* row, float (&o)[FWD_NS]) {
+  const float4 a = reinterpret_cast<const float4*>(row)[0];
+  const float4 c = reinterpret_cast<const float4*>(row)[1];
+  o[0] = a.x, o[1] = a.y, o[2] = a.z, o[3] = a.w, o[4] = c.x, o[5] = c.y, o[6] = c.z, o[7] = c.w;
+}
+
+// Chunks [c0, c1) of row b over channels [d0, d0 + 64) from the entry state
+// in h; h leaves as the exit.  Chunk c0 must be staged (`stage_first`).  OUT:
+// write y and (STATES) the state at each chunk's entry.  Returns this
+// thread's sum of delta over the segment.
+template <typename BT, bool OUT, bool STATES>
+__device__ __forceinline__ float run_segment(const ScanParams& p, const FwdBuffers& w, int b,
+                                             int d0, int c0, int c1, const float (&A2)[FWD_NS],
+                                             float (&h)[FWD_NS], FwdSmem& s) {
+  const int j = threadIdx.x / FWD_LANES, half = threadIdx.x % FWD_LANES;
+  const int d = d0 + j;
+  const bool live = d < p.D;
+  float dsum = 0.f;
+  for (int c = c0; c < c1; ++c) {
+    const int buf = (c - c0) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // chunk c has landed everywhere, and chunk c - 1 is read
+    // the next chunk's loads are in flight while this one computes: x and
+    // delta by cp.async, B and C into registers
+    float bv[BC_PER], cv[BC_PER];
+    if (c + 1 < c1) {
+      stage_xd(p, b, d0, c + 1, buf ^ 1, s);
+      load_bc<BT>(p, b, c + 1, bv, cv);
     }
     if (STATES && live) {
-      float* sp = states + ((long long)b * p.n_chunks + c) * N * p.D + d;
+      float* sp = w.states + (((long long)b * p.n_chunks + c) * N + half * FWD_NS) * p.D + d;
 #pragma unroll
-      for (int n = 0; n < N; ++n) sp[(long long)n * p.D] = h[n];
+      for (int k = 0; k < FWD_NS; ++k) sp[(long long)k * p.D] = h[k];
     }
-    __syncthreads();
-    if (live) {
+    const int t0 = c * TC, len = min(TC, p.L - t0);
+    float* yp = w.y + ((long long)b * p.L + t0) * p.D + d;
+    // past len delta, x and B are 0: a step leaves h as it is
 #pragma unroll 4
-      for (int t = 0; t < len; ++t) {
-        const float dt = ds[t][tid];
-        const float dtx = dt * xs[t][tid];
-        float Bt[N], Ct[N];
-        lds16(Bs[t], Bt);
-        lds16(Cs[t], Ct);
-        float acc = 0.f;
+    for (int t = 0; t < TC; ++t) {
+      const float dt = s.ds[buf][t][j];
+      const float dtx = dt * s.xs[buf][t][j];
+      float Bv[FWD_NS], Cv[FWD_NS];
+      lds_half(&s.Bs[buf][t][half * FWD_NS], Bv);
+      if (OUT) lds_half(&s.Cs[buf][t][half * FWD_NS], Cv);
+      dsum += dt;
+      float acc = 0.f;
 #pragma unroll
-        for (int n = 0; n < N; ++n) {
-          h[n] = ex2(dt * A2[n]) * h[n] + dtx * Bt[n];
-          acc += h[n] * Ct[n];
-        }
-        yp[(long long)(t0 + t) * p.D] = acc;
+      for (int k = 0; k < FWD_NS; ++k) {
+        h[k] = ex2(dt * A2[k]) * h[k] + dtx * Bv[k];
+        if (OUT) acc += h[k] * Cv[k];
+      }
+      if (OUT) {
+        acc += __shfl_xor_sync(FULL, acc, 1);  // the channel's other 8 states
+        if (half == 0 && live && t < len) yp[(long long)t * p.D] = acc;
       }
     }
+    // every thread is past this chunk's barrier, so done with buffer buf ^ 1
+    if (c + 1 < c1) store_bc(bv, cv, s.Bs[buf ^ 1], s.Cs[buf ^ 1]);
   }
+  return dsum;
+}
+
+__device__ __forceinline__ void load_a2(const ScanParams& p, int d0, float (&A2)[FWD_NS]) {
+  const int d = d0 + threadIdx.x / FWD_LANES, half = threadIdx.x % FWD_LANES;
+#pragma unroll
+  for (int k = 0; k < FWD_NS; ++k)
+    A2[k] = d < p.D ? p.A[(long long)d * N + half * FWD_NS + k] * LOG2E : 0.f;
+}
+
+// Pass 1: segments 0 .. S - 2 from a zero entry; grid (channel blocks, S - 1, Bt).
+template <typename BT, bool STATES>
+__global__ void __launch_bounds__(FWD_THREADS)
+selective_scan_fwd_local(ScanParams p, FwdBuffers w) {
+  __shared__ FwdSmem s;
+  const int d0 = blockIdx.x * FWD_CH, seg = blockIdx.y, b = blockIdx.z;
+  const int c0 = seg * w.seg_chunks, c1 = min(p.n_chunks, c0 + w.seg_chunks);
+  stage_first<BT>(p, b, d0, c0, s);
+  float A2[FWD_NS], h[FWD_NS];
+  load_a2(p, d0, A2);
+#pragma unroll
+  for (int k = 0; k < FWD_NS; ++k) h[k] = 0.f;
+  // segment 0's zero entry is its true entry: its outputs are final
+  const float dsum = seg == 0 ? run_segment<BT, true, STATES>(p, w, b, d0, c0, c1, A2, h, s)
+                              : run_segment<BT, false, false>(p, w, b, d0, c0, c1, A2, h, s);
+  const int d = d0 + threadIdx.x / FWD_LANES, half = threadIdx.x % FWD_LANES;
+  if (d < p.D) {
+    const long long bs = (long long)b * (w.segments - 1) + seg;
+    float* ep = w.exits + (bs * N + half * FWD_NS) * p.D + d;
+#pragma unroll
+    for (int k = 0; k < FWD_NS; ++k) ep[(long long)k * p.D] = h[k];
+    if (half == 0) w.dsum[bs * p.D + d] = dsum;
+  }
+}
+
+// Pass 2: segments 1 .. S - 1 (segment 0 when S is 1) from their true
+// entries; grid (channel blocks, max(S - 1, 1), Bt).
+template <typename BT, bool STATES>
+__global__ void __launch_bounds__(FWD_THREADS)
+selective_scan_fwd_body(ScanParams p, FwdBuffers w) {
+  __shared__ FwdSmem s;
+  const int d0 = blockIdx.x * FWD_CH, seg = blockIdx.y + (w.segments > 1), b = blockIdx.z;
+  const int c0 = seg * w.seg_chunks, c1 = min(p.n_chunks, c0 + w.seg_chunks);
+  stage_first<BT>(p, b, d0, c0, s);  // x and delta in flight during the fold
+  float A2[FWD_NS], h[FWD_NS];
+  load_a2(p, d0, A2);
+#pragma unroll
+  for (int k = 0; k < FWD_NS; ++k) h[k] = 0.f;
+  // the true entry: entry(i + 1) = exit0(i) + exp(A sum delta(i)) entry(i)
+  const int d = d0 + threadIdx.x / FWD_LANES, half = threadIdx.x % FWD_LANES;
+  if (d < p.D) {
+    for (int i = 0; i < seg; ++i) {
+      const long long bs = (long long)b * (w.segments - 1) + i;
+      const float g = w.dsum[bs * p.D + d];
+      const float* ep = w.exits + (bs * N + half * FWD_NS) * p.D + d;
+#pragma unroll
+      for (int k = 0; k < FWD_NS; ++k) h[k] = ep[(long long)k * p.D] + ex2(A2[k] * g) * h[k];
+    }
+  }
+  run_segment<BT, true, STATES>(p, w, b, d0, c0, c1, A2, h, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -580,16 +774,51 @@ selective_scan_bwd_reduce_da(ScanParams p, BwdBuffers w, int rows) {
   }
 }
 
+// K6's segments of seg_chunks chunks each; false unless S is what
+// `fwd_segments` (ops/ssm.py) can give: 1 <= S <= n_chunks, and no segment
+// empty.
+bool fwd_split(int L, int segments, int* seg_chunks) {
+  const int nch = (L + TC - 1) / TC;
+  if (segments < 1 || segments > nch) return false;
+  *seg_chunks = (nch + segments - 1) / segments;
+  return (nch + *seg_chunks - 1) / *seg_chunks == segments;
+}
+
+// The grid of K6's launch `pass` (0: selective_scan_fwd_local, none when S is
+// 1; 1: selective_scan_fwd_body).
+dim3 fwd_grid(int Bt, int D, int segments, int pass) {
+  const unsigned blocks = (D + FWD_CH - 1) / FWD_CH;
+  if (pass == 0) return dim3(blocks, segments - 1, Bt);
+  return dim3(blocks, segments > 1 ? segments - 1 : 1, Bt);
+}
+
+// Floats of workspace K6 needs: the segments' exits (Bt, S - 1, N, D) and
+// sums of delta (Bt, S - 1, D).
+long long fwd_workspace_floats(int Bt, int D, int segments) {
+  return (long long)Bt * (segments - 1) * (N + 1) * D;
+}
+
+bool rows_aligned(const float* ptr, long long s_b, long long s_l) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && s_b % 4 == 0 && s_l % 4 == 0;
+}
+
 template <typename BT>
-cudaError_t launch_fwd(const ScanParams& p, int Bt, float* y, float* states,
+cudaError_t launch_fwd(ScanParams p, int Bt, FwdBuffers w, float* workspace,
                        cudaStream_t stream) {
-  const dim3 grid((p.D + FWD_THREADS - 1) / FWD_THREADS, Bt);
-  if (states != nullptr)
-    selective_scan_fwd_kernel<BT, true>
-        <<<grid, FWD_THREADS, 0, stream>>>(p, y, states);
-  else
-    selective_scan_fwd_kernel<BT, false>
-        <<<grid, FWD_THREADS, 0, stream>>>(p, y, nullptr);
+  p.vec_x = rows_aligned(p.x, p.sx_b, p.sx_l);
+  p.vec_delta = rows_aligned(p.delta, p.sd_b, p.sd_l);
+  w.exits = workspace;
+  w.dsum = workspace + (long long)Bt * (w.segments - 1) * N * p.D;
+  if (w.segments > 1) {
+    auto local = w.states != nullptr ? selective_scan_fwd_local<BT, true>
+                                     : selective_scan_fwd_local<BT, false>;
+    local<<<fwd_grid(Bt, p.D, w.segments, 0), FWD_THREADS, 0, stream>>>(p, w);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  auto body = w.states != nullptr ? selective_scan_fwd_body<BT, true>
+                                  : selective_scan_fwd_body<BT, false>;
+  body<<<fwd_grid(Bt, p.D, w.segments, 1), FWD_THREADS, 0, stream>>>(p, w);
   return cudaGetLastError();
 }
 
@@ -609,6 +838,7 @@ ScanParams make_params(const void* x, const void* delta, const void* A,
   p.n_chunks = (L + TC - 1) / TC;
   p.sx_b = sx_b, p.sx_l = sx_l, p.sd_b = sd_b, p.sd_l = sd_l;
   p.sB_b = sB_b, p.sB_l = sB_l, p.sC_b = sC_b, p.sC_l = sC_l;
+  p.vec_x = p.vec_delta = false;
   return p;
 }
 
@@ -663,22 +893,45 @@ extern "C" {
 // are fp32; `bc_f32` says whether B and C are fp32 (else bf16).
 
 // y (Bt, L, D) fp32 contiguous; `states` is null or (Bt, ceil(L/32), 16, D)
-// fp32 contiguous and receives the state at the entry of every chunk.
+// fp32 contiguous and receives the state at the entry of every chunk;
+// `workspace` fp32 of lcasr_selective_scan_fwd_workspace(Bt, L, D, segments)
+// floats; `segments` as `fwd_segments` gives it.
 int lcasr_selective_scan_fwd(const void* x, const void* delta, const void* A,
                              const void* B, const void* C, void* y,
-                             void* states, int Bt, int L, int D, int n_state,
-                             int bc_f32, long long sx_b, long long sx_l,
-                             long long sd_b, long long sd_l, long long sB_b,
-                             long long sB_l, long long sC_b, long long sC_l,
-                             void* stream) {
-  if (n_state != N || Bt < 1 || L < 1 || D < 1) return cudaErrorInvalidValue;
+                             void* states, void* workspace, int segments, int Bt,
+                             int L, int D, int n_state, int bc_f32, long long sx_b,
+                             long long sx_l, long long sd_b, long long sd_l,
+                             long long sB_b, long long sB_l, long long sC_b,
+                             long long sC_l, void* stream) {
+  FwdBuffers w;
+  if (n_state != N || Bt < 1 || L < 1 || D < 1 || !fwd_split(L, segments, &w.seg_chunks))
+    return cudaErrorInvalidValue;
   const ScanParams p = make_params(x, delta, A, B, C, L, D, sx_b, sx_l, sd_b,
                                    sd_l, sB_b, sB_l, sC_b, sC_l);
-  float* yf = static_cast<float*>(y);
-  float* sf = static_cast<float*>(states);
+  w.y = static_cast<float*>(y);
+  w.states = static_cast<float*>(states);
+  w.segments = segments;
+  float* ws = static_cast<float*>(workspace);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bc_f32) return launch_fwd<float>(p, Bt, yf, sf, s);
-  return launch_fwd<__nv_bfloat16>(p, Bt, yf, sf, s);
+  if (bc_f32) return launch_fwd<float>(p, Bt, w, ws, s);
+  return launch_fwd<__nv_bfloat16>(p, Bt, w, ws, s);
+}
+
+long long lcasr_selective_scan_fwd_workspace(int Bt, int L, int D, int segments) {
+  (void)L;
+  return fwd_workspace_floats(Bt, D, segments);
+}
+
+// The grid (x, y, z) of K6's launch `pass` (0: selective_scan_fwd_local, 1:
+// selective_scan_fwd_body) into grid[3]; returns 1 where that pass does not
+// launch (pass 0 when S is 1), -1 for a split the kernel refuses, else 0.
+int lcasr_selective_scan_fwd_grid(int Bt, int L, int D, int segments, int pass, int* grid) {
+  int seg_chunks;
+  if (Bt < 1 || L < 1 || D < 1 || !fwd_split(L, segments, &seg_chunks)) return -1;
+  if (pass == 0 && segments == 1) return 1;
+  const dim3 g = fwd_grid(Bt, D, segments, pass);
+  grid[0] = (int)g.x, grid[1] = (int)g.y, grid[2] = (int)g.z;
+  return 0;
 }
 
 // g, dx, ddelta (Bt, L, D) fp32 contiguous; `states` as the forward wrote

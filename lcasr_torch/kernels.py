@@ -129,8 +129,13 @@ def _bind(src: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.lcasr_flash_attn_bwd.restype = i
     elif src == "selective_scan.cu":
         tail = [i] * 5 + [ll] * 8 + [p]  # sizes, B/C dtype flag, strides, stream
-        lib.lcasr_selective_scan_fwd.argtypes = [p] * 7 + tail
+        # x, delta, A, B, C, y, states, workspace; segments
+        lib.lcasr_selective_scan_fwd.argtypes = [p] * 8 + [i] + tail
         lib.lcasr_selective_scan_fwd.restype = i
+        lib.lcasr_selective_scan_fwd_workspace.argtypes = [i] * 4
+        lib.lcasr_selective_scan_fwd_workspace.restype = ll
+        lib.lcasr_selective_scan_fwd_grid.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+        lib.lcasr_selective_scan_fwd_grid.restype = i
         lib.lcasr_selective_scan_bwd.argtypes = [p] * 13 + tail
         lib.lcasr_selective_scan_bwd.restype = i
         lib.lcasr_selective_scan_bwd_workspace.argtypes = [i] * 3

@@ -16,9 +16,15 @@ of the mixer's `x_proj` output are not copied.  The wrappers make x, delta
 and A fp32 (the mixer's x is fp32 already: the conv's fp32 bias promotes it)
 and the gradient in y contiguous fp32.
 
-For the backward the forward saves the state at the entry of every chunk of
-`STATE_INTERVAL` steps, (Bt, ceil(L / 32), N, D) fp32; K7 recomputes the
-states inside a chunk on chip.  K7 splits the time axis: a local adjoint per
+K6 cuts the time axis into `fwd_segments(Bt, L, D)` segments of whole
+chunks where rows x channels alone do not fill the card: the segments'
+exits from a zero entry first, then every segment from its true entry (its
+wrapper allocates the exits and sums of delta that join them, and counts
+one `selective_scan_fwd` launch per call).  The count depends on the shape
+only, so y is the same with and without the states.  For the backward the
+forward saves the state at the entry of every chunk of `STATE_INTERVAL`
+steps, (Bt, ceil(L / 32), N, D) fp32; K7 recomputes the states inside a
+chunk on chip.  K7 splits the time axis: a local adjoint per
 chunk, a carry pass over the chunks, then every chunk's gradients from its
 true carry, and sums dB, dC and dA in a fixed order itself (no atomics: the
 same bits each run).  Its wrapper allocates the workspace those passes need
@@ -65,8 +71,44 @@ def flip_with_lengths(x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch
     return torch.take_along_dim(x, src[..., None], dim=1)
 
 
+# K6's split of the time axis (csrc/selective_scan.cu): 64 channels (128
+# threads) a block.  One segment where that gives FWD_FILL_BLOCKS blocks (two
+# 4-warp blocks on each of an H100's 132 SMs: the decode's 384 run best
+# unsplit); else the time axis is cut so that each of K6's two launches has
+# FWD_SPLIT_BLOCKS (eight an SM, faster than two or four at the 16384x4 and
+# 120,000-frame shapes: PERF.md)
+FWD_CHANNELS = 64
+FWD_FILL_BLOCKS = 2 * 132
+FWD_SPLIT_BLOCKS = 8 * 132
+
+
 def _n_chunks(L: int) -> int:
     return -(-L // STATE_INTERVAL)
+
+
+def fwd_segments(Bt: int, L: int, D: int) -> int:
+    """K6's number of time segments at this shape: 1 where Bt x ceil(D / 64)
+    blocks reach FWD_FILL_BLOCKS, else enough that the S - 1 segments of each
+    launch reach FWD_SPLIT_BLOCKS, at most one a chunk.  Segments are whole
+    32-step chunks, all of ceil(n_chunks / S) but the last, none empty."""
+    n_chunks = _n_chunks(L)
+    blocks = Bt * -(-D // FWD_CHANNELS)
+    if blocks >= FWD_FILL_BLOCKS or n_chunks == 1:
+        return 1
+    want = min(1 + -(-FWD_SPLIT_BLOCKS // blocks), n_chunks)
+    per = -(-n_chunks // want)
+    return -(-n_chunks // per)
+
+
+def fwd_grids(Bt: int, L: int, D: int) -> dict:
+    """{kernel: grid (x, y, z)} of K6's launches at this shape, 128 threads
+    each (as `fwd_grid` in csrc/selective_scan.cu gives them)."""
+    S = fwd_segments(Bt, L, D)
+    blocks = -(-D // FWD_CHANNELS)
+    grids = {"selective_scan_fwd_body": (blocks, max(S - 1, 1), Bt)}
+    if S > 1:
+        grids = {"selective_scan_fwd_local": (blocks, S - 1, Bt), **grids}
+    return grids
 
 
 def selective_scan_ref(x, delta, A, B, C, return_states: bool = False,
@@ -179,16 +221,20 @@ def selective_scan_fwd(x, delta, A, B, C, return_states: bool = False):
         return selective_scan_ref(x, delta, A, B, C, return_states)
     (x, delta, A, B, C), tail = _kernel_args(x, delta, A, B, C)
     Bt, L, Dm = x.shape
-    y = torch.empty((Bt, L, Dm), dtype=torch.float32, device=x.device)
+    segments = fwd_segments(Bt, L, Dm)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty((Bt, L, Dm), **f32)
     states = None
     if return_states:
-        states = torch.empty((Bt, _n_chunks(L), A.shape[1], Dm), dtype=torch.float32,
-                             device=x.device)
+        states = torch.empty((Bt, _n_chunks(L), A.shape[1], Dm), **f32)
     lib = kernels.library(_SRC)
+    workspace = torch.empty((lib.lcasr_selective_scan_fwd_workspace(Bt, L, Dm, segments),),
+                            **f32)
     with torch.cuda.device(x.device):
         err = lib.lcasr_selective_scan_fwd(
             x.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-            y.data_ptr(), None if states is None else states.data_ptr(), *tail,
+            y.data_ptr(), None if states is None else states.data_ptr(),
+            workspace.data_ptr(), segments, *tail,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     kernels.check(lib, err, "selective_scan_fwd")

@@ -321,7 +321,12 @@ def test_split_time_bwd_matches_pallas_backward(monkeypatch, L):
 def test_chip_smoke_ssm_cases_hold_the_split_edges():
     """chip_smoke.py holds K7 against `selective_scan_bwd_ref` on the card at
     the edges of its split: D not a multiple of the 128-channel block, L on
-    either side of a 32-step chunk and one past 64 chunks, one row."""
+    either side of a 32-step chunk and one past 64 chunks, one row.  And K6
+    against `selective_scan_ref` at the edges of its own (`fwd_segments`):
+    one segment and several, multi-chunk segments with L one step past and
+    one step short of a segment's end, a one-step last segment at one row
+    and at a D cut by the 64-channel block, rows that are not 16-byte
+    aligned, and every main shape."""
     import chip_smoke
 
     cases = chip_smoke.ssm_cases(torch)
@@ -329,6 +334,20 @@ def test_chip_smoke_ssm_cases_hold_the_split_edges():
     assert {31, 33, 64 * TC + 1} <= Ls and {100, 160} <= Ds
     assert any(c[1] == 1 for c in cases)
     assert chip_smoke.SSM_LONG_SHAPE[:3] in {c[1:4] for c in cases}
+
+    def split(c):
+        _, Bt, L, D = c[:4]
+        S = ssm.fwd_segments(Bt, L, D)
+        return S, -(-ssm._n_chunks(L) // S) * TC, L, D
+
+    splits = [split(c) for c in cases]
+    assert any(S == 1 for S, *_ in splits)
+    multi = [(S, seg, L) for S, seg, L, _ in splits if S > 2 and seg > TC]
+    assert any(L % seg == 1 for _, seg, L in multi) and any(L % seg == seg - 1 for _, seg, L in multi)
+    assert any(S > 1 and L % seg == 1 and D % ssm.FWD_CHANNELS for S, seg, L, D in splits)
+    assert any(c[1] == 1 and split(c)[0] > 1 for c in cases)
+    assert any(c[6] == "odd" and c[3] % 4 for c in cases)  # x's rows unaligned too
+    assert {shape[:3] for shape in chip_smoke.SSM_MAIN_SHAPES.values()} <= {c[1:4] for c in cases}
 
 
 def test_scan_experiment_patches_apply_to_the_source():
@@ -351,3 +370,180 @@ def test_scan_experiment_patches_apply_to_the_source():
             assert text.count(old) == 1, (name, old[:60])
             text = text.replace(old, new)
         assert text != source, name
+
+
+# ---------------------------------------------------------------------------
+# K6's split of the time axis, written out in torch: the algebra the kernel
+# implements (csrc/selective_scan.cu, `selective_scan_fwd_local` and
+# `selective_scan_fwd_body`), held against the JAX reference, the Pallas
+# forward and the plain version's chunk-entry states before the card runs
+# it.  Kept out of the package, which keeps one plain version,
+# `selective_scan_ref`.
+# ---------------------------------------------------------------------------
+def _run_segments(delta, x, A, Bm, Cm, h):
+    """Every segment at once from its entry h (Bt, S, D, N): y (Bt, S, T, D),
+    the state at every step's entry (Bt, S, T, D, N) and the exit.  Past L
+    the inputs are 0 and a step leaves h as it is."""
+    ys, entries = [], []
+    for t in range(delta.shape[2]):
+        entries.append(h)
+        dt = delta[:, :, t, :, None]
+        h = torch.exp(dt * A) * h + (dt * x[:, :, t, :, None]) * Bm[:, :, t, None, :]
+        ys.append((h * Cm[:, :, t, None, :]).sum(-1))
+    return torch.stack(ys, 2), torch.stack(entries, 2), h
+
+
+def split_time_fwd(x, delta, A, Bm, Cm, segments):
+    """y (Bt, L, D) and the chunk-entry states (Bt, ceil(L / 32), N, D)
+    through K6's passes: each segment's exit from a zero entry and its sum of
+    delta; every entry folded from the exits before it,
+    entry(i + 1) = exit0(i) + exp(A sum delta(i)) entry(i); every segment's
+    body from its true entry."""
+    Bt, L, D = x.shape
+    n_chunks = ssm._n_chunks(L)
+    per = -(-n_chunks // segments)
+    assert -(-n_chunks // per) == segments, "an empty segment"
+    seg = per * TC
+    pad = lambda a: torch.cat(  # noqa: E731
+        [a, a.new_zeros((Bt, segments * seg - L) + a.shape[2:])], 1).reshape(
+        (Bt, segments, seg) + a.shape[2:])
+    xs, ds, Bs, Cs = (pad(a) for a in (x, delta, Bm, Cm))
+    zero = torch.zeros((Bt, segments, D, A.shape[1]))
+    _, _, exits = _run_segments(ds, xs, A, Bs, Cs, zero)  # pass 1
+    dsum = ds.sum(2)
+    entry, h = torch.zeros_like(zero), torch.zeros_like(zero[:, 0])
+    for i in range(segments):
+        entry[:, i] = h
+        h = exits[:, i] + torch.exp(A * dsum[:, i, :, None]) * h
+    y, step_entries, _ = _run_segments(ds, xs, A, Bs, Cs, entry)  # pass 2
+    y = y.reshape(Bt, segments * seg, D)[:, :L]
+    states = step_entries.reshape((Bt, segments * seg) + step_entries.shape[3:])
+    return y, states[:, :L:TC].transpose(2, 3).contiguous()
+
+
+def _hold_split(Bt, L, D, segments, seed):
+    x, delta, A, Bm, Cm, _ = _inputs(Bt, L, D, 16, seed=seed)
+    y, states = split_time_fwd(*map(t, (x, delta, A, Bm, Cm)), segments)
+    want = jssm._selective_scan_ref(*map(jnp.asarray, (x, delta, A, Bm, Cm)))
+    _close(y, want, name="y")
+    _, want_states = ssm.selective_scan_ref(*map(t, (x, delta, A, Bm, Cm)), return_states=True)
+    assert states.shape == want_states.shape == (Bt, ssm._n_chunks(L), 16, D)
+    _close(states, want_states.numpy(), name="states")
+    return x, delta, A, Bm, Cm, y
+
+
+# (L, chunks a segment): a segment of 2 chunks (64 steps) with L one step
+# short of it, on it, one past it, and one past several; one-chunk segments
+# around the first chunk's edge
+SPLIT_EDGES = [(1, 1), (31, 1), (32, 1), (33, 1), (63, 2), (64, 2), (65, 2), (3 * 64 + 1, 2),
+               (5 * 32 + 1, 1)]
+
+
+@pytest.mark.parametrize("L,per", SPLIT_EDGES, ids=lambda v: str(v))
+def test_split_time_fwd_matches_jax_reference(L, per):
+    """Bt 1 and D 70, which is not a multiple of K6's 64-channel block."""
+    segments = -(-ssm._n_chunks(L) // per)
+    _hold_split(1, L, 70, segments, seed=30 + L)
+
+
+@pytest.mark.parametrize("L", [33, 97], ids=lambda L: f"L{L}")
+def test_split_time_fwd_matches_pallas_interpret(L):
+    """The Pallas forward in interpret mode, with the segment count the
+    wrapper gives this shape (one-chunk segments at two rows of 128
+    channels)."""
+    segments = ssm.fwd_segments(2, L, 128)
+    assert segments == ssm._n_chunks(L) > 1
+    x, delta, A, Bm, Cm, y = _hold_split(2, L, 128, segments, seed=40 + L)
+    want = jssm._scan_pallas(*map(jnp.asarray, (x, delta, A, Bm, Cm)))
+    _close(y, want)
+
+
+def test_split_time_fwd_at_a_multi_chunk_segment_choice():
+    """The wrapper's own choice where its segments hold several chunks: 16
+    rows of 64 channels over 4,225 steps (133 chunks) give 67 segments of
+    two chunks, the last of one step."""
+    L = 66 * 64 + 1
+    segments = ssm.fwd_segments(16, L, 64)
+    assert segments == 67 and L == (segments - 1) * 64 + 1
+    _hold_split(16, L, 64, segments, seed=50)
+
+
+MAIN_SHAPES = {"decode": (32, 2048, 768), "16384x4": (8, 2048, 768), "8192x8": (16, 1024, 768),
+               "120000x1": (2, 15000, 768)}
+
+
+@pytest.mark.parametrize("label", list(MAIN_SHAPES))
+def test_fwd_grids_fill_the_card_at_the_main_shapes(label):
+    """Each of K6's launches has a block for every one of an H100's 132 SMs
+    at the four shapes the Mamba family runs; the decode shape fills the
+    card without a split (one exp per (t, d, n))."""
+    Bt, L, D = MAIN_SHAPES[label]
+    grids = ssm.fwd_grids(Bt, L, D)
+    for name, (gx, gy, gz) in grids.items():
+        assert name.startswith("selective_scan_fwd_")
+        assert gx * gy * gz >= 132, (name, (gx, gy, gz))
+        assert gx == -(-D // ssm.FWD_CHANNELS) and gz == Bt
+    S = ssm.fwd_segments(Bt, L, D)
+    assert (S == 1) == (label == "decode")
+    assert set(grids) == ({"selective_scan_fwd_body"} if S == 1 else
+                          {"selective_scan_fwd_local", "selective_scan_fwd_body"})
+
+
+def test_fwd_segments_depend_on_the_shape_alone_and_leave_no_segment_empty():
+    """The count is a function of (Bt, L, D): nothing about the states can
+    change y.  Segments are whole chunks, of ceil(n_chunks / S) each but the
+    last, which is not empty."""
+    import inspect
+
+    assert list(inspect.signature(ssm.fwd_segments).parameters) == ["Bt", "L", "D"]
+    for Bt in (1, 2, 3, 8, 32):
+        for D in (1, 37, 64, 100, 768, 1536):
+            for L in (1, 2, 31, 32, 33, 64, 65, 1000, 2048, 15000):
+                S = ssm.fwd_segments(Bt, L, D)
+                n = ssm._n_chunks(L)
+                per = -(-n // S)
+                assert 1 <= S <= n and -(-n // per) == S and (S - 1) * per < n, (Bt, L, D)
+                blocks = Bt * -(-D // ssm.FWD_CHANNELS)
+                if blocks >= ssm.FWD_FILL_BLOCKS:
+                    assert S == 1
+                else:  # the shortest segments of whole chunks that keep S
+                    # within the segments the fill asks for
+                    want = min(1 + -(-ssm.FWD_SPLIT_BLOCKS // blocks), n)
+                    assert S <= want and (per == 1 or -(-n // (per - 1)) > want)
+
+
+def test_fwd_wrapper_refuses_nothing_the_cpu_takes_and_counts_nothing():
+    """On CPU tensors the wrapper runs the plain version whatever the split
+    would be, with and without the states, and counts no launch."""
+    from lcasr_torch import kernels
+
+    kernels.reset_launch_counts()
+    x, delta, A, Bm, Cm, _ = _inputs(2, 65, 37, 16, seed=60)
+    args = list(map(t, (x, delta, A, Bm, Cm)))
+    y = ssm.selective_scan_fwd(*args)
+    y_s, states = ssm.selective_scan_fwd(*args, return_states=True)
+    assert torch.equal(y, y_s) and states.shape == (2, 3, 16, 37)
+    assert kernels.launch_counts["selective_scan_fwd"] == 0
+
+
+def test_scan_fwd_experiment_patches_apply_to_the_sources():
+    """scripts/scan_fwd_experiments.py patches copies of the port: every
+    planted fault of K6's split (three of them) and every design variant must
+    find its text exactly once, or the script checks or measures nothing."""
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "scan_fwd_experiments", os.path.join(root, "scripts", "scan_fwd_experiments.py"))
+    exp = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(exp)
+    assert set(exp.CONTROLS) == {"carry_dropped", "half_gain", "zero_entry"}
+    assert "first_kernel" in exp.VARIANTS
+    for name, patches in {**exp.CONTROLS, **exp.VARIANTS}.items():
+        texts = {}
+        for rel, old, new in patches:
+            text = texts.setdefault(rel, open(os.path.join(root, rel)).read())
+            assert text.count(old) == 1, (name, rel, old[:60])
+            texts[rel] = text.replace(old, new)
+        assert any(texts[rel] != open(os.path.join(root, rel)).read() for rel in texts), name
