@@ -34,8 +34,11 @@ ACTS = {
     "none": lambda v: v,
 }
 _ACT_CODES = {"none": 0, "silu": 1, "relu": 2, "gelu": 3}  # `Act` in the kernel
-KERNEL_CHANNELS = (128, 256)
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+# the kernel's limits beyond `fused_eligible` (`MAX_C`, `MAX_F` in its source):
+# conv channels up to the widest d_model in configs/, and a one-frame tile's
+# 3 F/4 stage-1 positions within its 128-row product
+MAX_CHANNELS, MAX_FEATURES = 2048, 168
 _SRC = "subsampling_fused.cu"
 
 
@@ -100,30 +103,46 @@ def _check_fused_inputs(x: torch.Tensor, params: Sequence[torch.Tensor], act: st
     return C
 
 
+def check_kernel_takes(B: int, T: int, Fin: int, C: int, dtype: torch.dtype) -> None:
+    """Raise unless the kernel takes a chain `fused_eligible` accepts at these
+    sizes and dtype: bf16 or fp32, every multiple of 128 up to MAX_CHANNELS
+    conv channels, feat_in up to MAX_FEATURES, a batch within the grid.
+    Needs no card (the launch calls it first)."""
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the fused subsampling kernel takes bf16 or fp32, not {dtype}")
+    if not fused_eligible(T, Fin, C, 3):
+        raise ValueError(f"fused_dw_striding needs T % 8 == 0, F % 8 == 0 and C % 128 == 0, "
+                         f"got T {T}, F {Fin}, C {C}")
+    if C > MAX_CHANNELS:
+        raise ValueError(f"the fused subsampling kernel takes at most {MAX_CHANNELS} conv "
+                         f"channels, got {C}")
+    if Fin > MAX_FEATURES:
+        raise ValueError(f"the fused subsampling kernel takes at most {MAX_FEATURES} input "
+                         f"features, got {Fin}")
+    if B > 65535:
+        raise ValueError(f"fused_dw_striding: batch {B} exceeds the grid's 65535")
+
+
 def _launch_fused(x: torch.Tensor, params: Sequence[torch.Tensor], act: str) -> torch.Tensor:
     C = _check_fused_inputs(x, params, act)
-    if x.dtype not in KERNEL_DTYPES:
-        raise TypeError(f"the fused subsampling kernel takes bf16 or fp32, not {x.dtype}")
-    if C not in KERNEL_CHANNELS:
-        raise ValueError(f"the fused subsampling kernel supports conv channels "
-                         f"{KERNEL_CHANNELS}, got {C}")
+    B, T, Fin = x.shape
+    check_kernel_takes(B, T, Fin, C, x.dtype)
     for i, t in enumerate(params):
         if t.device != x.device or t.dtype != x.dtype:
             raise TypeError(f"fused_dw_striding: parameter {i} is {t.dtype} on {t.device}, "
                             f"x is {x.dtype} on {x.device}")
-    B, T, Fin = x.shape
-    if B > 65535:
-        raise ValueError(f"fused_dw_striding: batch {B} exceeds the grid's 65535")
     x = x.contiguous()
+    x = x if x.data_ptr() % 16 == 0 else x.clone()  # 16-byte copies of its rows
     fp32 = x.dtype == torch.float32
-    # weights as the module holds them (OIHW); the fp32 kernel's SIMT product
-    # reads the pointwise weights transposed, (C in, C out)
+    # weights as the module holds them (OIHW; the bf16 kernel's tensor maps
+    # read the pointwise weights (C out, C in) from 16-byte aligned bases); the
+    # fp32 kernel's SIMT product reads them transposed, (C in, C out)
     flat = [t.detach().contiguous() for t in params]
-    flat = [t if t.data_ptr() % 16 == 0 else t.clone() for t in flat]  # 16-byte loads
+    flat = [t if t.data_ptr() % 16 == 0 else t.clone() for t in flat]
     for i in (4, 8):
         flat[i] = flat[i].view(C, C).t().contiguous() if fp32 else flat[i]
     out = torch.empty((B, T // 8, Fin // 8, C), dtype=x.dtype, device=x.device)
-    tile = int(os.environ.get("LCASR_SUB_TILE", "0"))  # output frames per CTA; 0: the largest that fits
+    tile = int(os.environ.get("LCASR_SUB_TILE", "0"))  # output frames per tile; 0: the largest that fits
     lib = kernels.library(_SRC)
     with torch.cuda.device(x.device):
         err = lib.lcasr_subsampling_fused(

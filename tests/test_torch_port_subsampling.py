@@ -167,3 +167,90 @@ def test_module_keeps_the_conv_chain_for_ineligible_shapes(monkeypatch):
         m = tconv.ConvSubsampling(feat_in=80, feat_out=16, **kw)
         y, _ = m(torch.randn(1, T, 80), torch.tensor([T]))
         assert torch.isfinite(y).all()
+
+
+@pytest.mark.parametrize("C", range(128, 2049, 128))
+def test_kernel_takes_every_channel_count_the_gate_accepts(C):
+    """Every C that `fused_eligible` accepts up to 2048 (the widest d_model
+    in configs/) is one the launch's input check passes, in bf16 and fp32,
+    at the decode's window batch and at the 120,000-frame step."""
+    for B, T in ((16, 16384), (1, 120000)):
+        assert ts.fused_eligible(T, 80, C, 3)
+        for dtype in (torch.bfloat16, torch.float32):
+            ts.check_kernel_takes(B, T, 80, C, dtype)
+
+
+@pytest.mark.parametrize("C,F,limit", [(2176, 80, "2048 conv channels"),
+                                       (256, 176, "168 input features")])
+def test_kernel_refuses_past_its_limits_with_a_message(C, F, limit):
+    """Past the kernel's limits the check raises and names the limit, though
+    the gate accepts the shape (so such a model raises under the flag on the
+    card)."""
+    assert ts.fused_eligible(16384, F, C, 3)
+    with pytest.raises(ValueError, match=limit):
+        ts.check_kernel_takes(16, 16384, F, C, torch.bfloat16)
+
+
+def test_kernel_refuses_other_dtypes():
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        ts.check_kernel_takes(16, 16384, 80, 256, torch.float16)
+
+
+def _wide_params(rng, C):
+    """A random 3-stage chain of C channels, HWIO for JAX and OIHW for the
+    port; pointwise weights scaled by 1 / sqrt(C) so that the outputs stay
+    O(1) at any width."""
+    hwio = [rng.normal(size=(3, 3, 1, C)) * 0.2, rng.normal(size=(C,)) * 0.2]
+    for _ in range(2):
+        hwio += [rng.normal(size=(3, 3, 1, C)) * 0.2, rng.normal(size=(C,)) * 0.2,
+                 rng.normal(size=(1, 1, C, C)) * (0.06 * np.sqrt(128 / C)),
+                 rng.normal(size=(C,)) * 0.2]
+    hwio = [a.astype(np.float32) for a in hwio]
+    oihw = [t(np.ascontiguousarray(a.transpose(3, 2, 0, 1))) if a.ndim == 4 else t(a)
+            for a in hwio]
+    return tuple(jnp.asarray(a) for a in hwio), oihw
+
+
+@pytest.mark.parametrize("C,T", [(384, 328), (512, 256)])
+def test_fused_matches_jax_fused_at_wide_channels(C, T):
+    """The channel counts the kernel now takes beyond 256, against the JAX
+    fused kernel in interpret mode, fp32 on both sides: 2e-5, as at 128
+    (T = 328 leaves a ragged last tile on both sides)."""
+    rng = np.random.default_rng(C + T)
+    x = rng.normal(size=(1, T, 80)).astype(np.float32)
+    jp, tp = _wide_params(rng, C)
+    want = np.asarray(jax_fused(jnp.asarray(x), jp, "silu", True))  # interpret mode
+    got = ts.fused_dw_striding(t(x), tp, "silu")
+    assert got.shape == want.shape == (1, T // 8, 10, C)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_chip_smoke_bounds_k8_by_one_exponential_per_chain_value():
+    """K8's bound in chip_smoke.py: at the decode shape, one special-function
+    operation for each of the chain's 1.7616 G activation values (16 a clock
+    on each of 132 SMs at 1,980 MHz) takes 0.4212 ms, above the tensor
+    cores' 0.2492 ms and the bytes' 0.063 ms; without silu the tensor cores
+    bound it."""
+    import chip_smoke as cs
+
+    B, T, F, C = cs.SUB_DECODE_SHAPE
+    ms, by, parts, flops = cs.sub_bound(B, T, F, C, 2, "bf16", 132, 1.98e9)
+    assert parts["by"] == "special functions" and by == "operations"
+    assert ms == pytest.approx(0.4212, abs=1e-4)
+    assert parts["tensor cores"] == pytest.approx(0.2492, abs=1e-4)
+    assert parts["bytes"] == pytest.approx(0.063, abs=1e-3)
+    assert flops == pytest.approx(246.4e9, rel=1e-3)
+    ms, by, parts, _ = cs.sub_bound(B, T, F, C, 2, "bf16", 132, 1.98e9, act="relu")
+    assert parts["by"] == "tensor cores" and ms == parts["tensor cores"]
+
+
+@pytest.mark.parametrize("ref", [1.0, -3.0, 0.0078125, 200.0])
+def test_chip_smoke_counts_bf16_ulps_at_the_reference(ref):
+    """The silu-tail case's measure: one bf16 ulp at ref is 2^(e - 8) for
+    |ref| in [2^(e-1), 2^e), so ref plus k of its ulps reads k."""
+    import chip_smoke as cs
+
+    r = torch.tensor([ref])
+    ulp = torch.ldexp(torch.ones(1), torch.frexp(r)[1] - 8)
+    for k in (0.0, 1.0, 2.5):
+        assert cs.bf16_ulps(torch, r + k * ulp, r).item() == pytest.approx(k)
