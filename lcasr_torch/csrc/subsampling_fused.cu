@@ -64,8 +64,9 @@
 // KC channels and rebuilt for each group of pointwise 1: correct at every C
 // up to MAX_C, and slower by the recomputation.
 // The fp32 kernel keeps SIMT products (its tolerance against the fp32 chain
-// rules out TF32) on the same tiling: groups of 128 output channels, K-slices
-// of 32 channels, stage 2's operand whole; its speed is not this design's aim.
+// rules out TF32) in groups of 128 output channels, A whole where it fits
+// (C 256 at To 2, built once), else rebuilt in slices of 32 channels for
+// each group; stage 2's operand whole.
 
 #include <algorithm>
 #include <type_traits>
@@ -140,7 +141,7 @@ struct Layout {
                 // rounded up to the swizzle atom's 8)
   int KC;  // bf16: channels of A held at once (C, or a chunk of it rebuilt per group)
   int NS;  // bf16: weight slots
-  int LD1, LDH2;  // channel strides of a position: stage 1's group, stage 2's operand (fp32)
+  int LD1, LDH2, LDA;  // channel strides of a position: stage 1's group; fp32: stage 2's operand, A
   size_t off_a, off_w, off_s, off_h2, off_x, off_b, off_bar, total;  // bytes from the aligned base
 };
 
@@ -163,7 +164,7 @@ __host__ __device__ inline size_t align_up(size_t a, size_t b) { return (a + b -
 // bf16: a warp's rolling window of three stage-0 rows, 16 channels a position
 constexpr int WIN_ROWS = 3, WIN_CH = 16;
 
-// KC and NS matter for bf16 only.
+// NS matters for bf16 only.
 inline Layout make_layout(int To, int F, int C, int KC, int NS, bool f32) {
   Layout L;
   L.RX = 8 * To + 7;
@@ -204,13 +205,14 @@ inline Layout make_layout(int To, int F, int C, int KC, int NS, bool f32) {
     L.off_bar = L.off_b + (size_t)2 * C * 4;
     L.total = std::max(L.off_bar + 2 * NS * 8, h2_end + (size_t)(64 - L.MA2) * 128);
   } else {
-    // fp32: the input tile with one zero column on the left; stage 1's
-    // slice rows 16-byte aligned for float4 reads
+    // fp32: A (M1 positions x KC channels), the input tile with one zero
+    // column on the left; rows 16-byte aligned for float4 reads
     L.LDX = F + 4;
     L.LD1 = NG32;
     L.LDH2 = C + 4;
-    L.off_a = L.off_w = 0;  // the slice of the A operand: (M1, 36)
-    L.off_x = align_up((size_t)L.M1 * 36 * 4, 16);
+    L.LDA = KC + 4;
+    L.off_a = L.off_w = 0;
+    L.off_x = align_up((size_t)L.M1 * L.LDA * 4, 16);
     L.off_s = L.off_x + align_up((size_t)L.RX * L.LDX * 4, 16);
     const size_t s0 = (size_t)L.R0 * (L.F0 + 1) * KS32 * 4;
     const size_t s1 = (size_t)L.R1 * (L.F1 + 1) * L.LD1 * 4;
@@ -773,44 +775,53 @@ __global__ void __launch_bounds__(NTHREADS, 1) subsampling_fused_f32(const SubPa
     for (int r = tid; r < L.RX; r += NTHREADS) sX[r * LDX] = 0.f;  // frequency -1
   }
 
+  // A holds KC input channels of pointwise 1: all C where it fits, built
+  // once; else slices of 32 channels, rebuilt for each group
+  const int KC = L.KC;
   for (int grp = 0; grp < C / NG32; ++grp) {
     float acc[MR1];
 #pragma unroll
     for (int i = 0; i < MR1; ++i) acc[i] = 0.f;
-    for (int i = tid; i < L.R0 * KS32; i += NTHREADS)
-      sS[(size_t)(i / KS32) * (F0 + 1) * KS32 + i % KS32] = 0.f;
-    __syncthreads();
-    for (int c0 = 0; c0 < C; c0 += KS32) {
-      stage0_simt(p, L, sX, sS, c0, j0);
-      __syncthreads();
-      {  // the first depthwise conv: a lane owns a channel of the slice
-        const int c = c0 + lane;
-        float w[9];
+    for (int cb = 0; cb < C; cb += KC) {
+      if (KC < C || grp == 0) {
+        for (int i = tid; i < L.R0 * KS32; i += NTHREADS)
+          sS[(size_t)(i / KS32) * (F0 + 1) * KS32 + i % KS32] = 0.f;
+        __syncthreads();
+        for (int c0 = cb; c0 < cb + KC; c0 += KS32) {
+          stage0_simt(p, L, sX, sS, c0, j0);
+          __syncthreads();
+          {  // the first depthwise conv: a lane owns a channel of the slice
+            const int c = c0 + lane;
+            float w[9];
 #pragma unroll
-        for (int i = 0; i < 9; ++i) w[i] = f32(p.kd[0], c * 9 + i);
-        const float bias = f32(p.bd[0], c);
-        for (int m = warp; m < L.M1; m += NTHREADS / 32) {
-          const int r1 = m / F1, f1 = m % F1;
-          const float* src = sS + ((size_t)2 * r1 * (F0 + 1) + 2 * f1) * KS32 + lane;
-          float a = bias;
+            for (int i = 0; i < 9; ++i) w[i] = f32(p.kd[0], c * 9 + i);
+            const float bias = f32(p.bd[0], c);
+            for (int m = warp; m < L.M1; m += NTHREADS / 32) {
+              const int r1 = m / F1, f1 = m % F1;
+              const float* src = sS + ((size_t)2 * r1 * (F0 + 1) + 2 * f1) * KS32 + lane;
+              float a = bias;
 #pragma unroll
-          for (int dt = 0; dt < 3; ++dt)
+              for (int dt = 0; dt < 3; ++dt)
 #pragma unroll
-            for (int df = 0; df < 3; ++df) a = fmaf(w[dt * 3 + df], src[(dt * (F0 + 1) + df) * KS32], a);
-          sA[m * 36 + lane] = a;
+                for (int df = 0; df < 3; ++df)
+                  a = fmaf(w[dt * 3 + df], src[(dt * (F0 + 1) + df) * KS32], a);
+              sA[m * L.LDA + c0 - cb + lane] = a;
+            }
+          }
+          __syncthreads();
         }
       }
-      __syncthreads();
-      // pointwise 1, this K-slice: the rows of a warp are the same (a
+      // pointwise 1 over A's channels: the rows of a warp are the same (a
       // broadcast), its lanes read 32 neighbouring output channels
-      const float* wk = W1 + (size_t)c0 * C + grp * NG32 + n;
-      for (int k = 0; k < KS32; k += 4) {
+      const float* wk = W1 + (size_t)cb * C + grp * NG32 + n;
+      for (int k = 0; k < KC; k += 4) {
         float w[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) w[i] = wk[(size_t)(k + i) * C];
 #pragma unroll
         for (int i = 0; i < MR1; ++i) {
-          const float4 a = *reinterpret_cast<const float4*>(sA + min(rq + 4 * i, L.M1 - 1) * 36 + k);
+          const float4 a =
+              *reinterpret_cast<const float4*>(sA + min(rq + 4 * i, L.M1 - 1) * L.LDA + k);
           acc[i] = fmaf(a.x, w[0], acc[i]);
           acc[i] = fmaf(a.y, w[1], acc[i]);
           acc[i] = fmaf(a.z, w[2], acc[i]);
@@ -891,11 +902,17 @@ __global__ void __launch_bounds__(NTHREADS, 1) subsampling_fused_f32(const SubPa
 // launch
 // ---------------------------------------------------------------------------
 
-// fp32: the largest tile that fits (or `tile`'s); 0 if none.
-int pick_tile_f32(int tile, int F, int C, int max_smem) {
-  for (int cand = tile > 0 ? tile : 8; cand >= (tile > 0 ? tile : 1); --cand)
-    if (tile_fits(cand, F, C, 0, 0, true, max_smem)) return cand;
-  return 0;
+// fp32: A whole (KC = C) at the largest tile that fits (or `tile`'s), else
+// slices of 32 channels.  False if nothing fits.
+bool pick_f32(int tile, int F, int C, int max_smem, int* To, int* KC) {
+  for (int kc : {C, KS32})
+    for (int to = tile > 0 ? tile : 8; to >= (tile > 0 ? tile : 1); --to)
+      if (tile_fits(to, F, C, kc, 0, true, max_smem)) {
+        *To = to;
+        *KC = kc;
+        return true;
+      }
+  return false;
 }
 
 // bf16: A whole (KC = C) at the largest tile that fits (or `tile`'s), with as
@@ -935,8 +952,8 @@ cudaError_t launch_bf16(SubParams p, int KC, int NS, int sms, cudaStream_t strea
   return cudaGetLastError();
 }
 
-cudaError_t launch_f32(SubParams p, cudaStream_t stream) {
-  p.L = make_layout(p.To, p.F, p.C, 0, 0, true);
+cudaError_t launch_f32(SubParams p, int KC, cudaStream_t stream) {
+  p.L = make_layout(p.To, p.F, p.C, KC, 0, true);
   const size_t smem = p.L.total;
   cudaError_t err = cudaFuncSetAttribute(subsampling_fused_f32,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -987,11 +1004,10 @@ int lcasr_subsampling_fused(const void* x, void* out, const void* k0, const void
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_f32) {
-    p.To = pick_tile_f32(tile, F, C, max_smem);
-    return p.To ? (int)launch_f32(p, s) : (int)cudaErrorInvalidValue;
-  }
   int KC = 0, NS = 0;
+  if (is_f32)
+    return pick_f32(tile, F, C, max_smem, &p.To, &KC) ? (int)launch_f32(p, KC, s)
+                                                      : (int)cudaErrorInvalidValue;
   if (!pick_bf16(tile, F, C, max_smem, &p.To, &KC, &NS)) return (int)cudaErrorInvalidValue;
   switch (act) {
     case ACT_SILU:
