@@ -245,17 +245,26 @@ __device__ __forceinline__ float activate(float v, int act) {
   }
 }
 
+// 1 / x, 1 ulp, denormals flushed
+__device__ __forceinline__ float rcp_ftz(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
 // The bf16 kernel's activations, fixed at compile time: a switch on a
 // runtime code at every value kept the compiler from interleaving a thread's
 // independent exponentials (stage 0 then ran at 3x its special-function
 // floor).  silu by ex2.approx and rcp.approx, a relative error near 1e-6
 // over the whole range, which the rounding of the result to bf16 (2e-3)
-// hides.  (silu as h + h tanh.approx(h), h = v / 2, needs one
-// special-function operation instead of two, but loses the negative tail
-// below v = -8 on the H100; chip_smoke.py's silu-tail case catches it.)
+// hides; their flush-to-zero forms (the same bits wherever the values are
+// normal) spare each value the three instructions of the denormal range.
+// (silu as h + h tanh.approx(h), h = v / 2, needs one special-function
+// operation instead of two, but loses the negative tail below v = -8 on the
+// H100; chip_smoke.py's silu-tail case catches it.)
 template <int ACT>
 __device__ __forceinline__ float act_fast(float v) {
-  if constexpr (ACT == ACT_SILU) return __fdividef(v, 1.f + __expf(-v));
+  if constexpr (ACT == ACT_SILU) return v * rcp_ftz(1.f + hopper::ex2(v * -1.4426950408889634f));
   if constexpr (ACT == ACT_RELU) return fmaxf(v, 0.f);
   if constexpr (ACT == ACT_GELU) return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
   return v;
@@ -334,14 +343,18 @@ __device__ __forceinline__ void stage0_rows(const Layout& L, const unsigned shor
   const int off_lo = (2 * t) / 3 * LDX + (2 * t) % 3;
   const int off_hi = (2 * t + 1) / 3 * LDX + (2 * t + 1) % 3;
   const unsigned short* xr = xs + 2 * a * LDX + 7;  // frequency 2f - 1 sits at column 2f + 7
-  for (int j = 0; j * 16 < F0; ++j) {
+  // frequencies [16 j, 16 j + 16); only the last block may reach past F0,
+  // so only it checks (the others store without branches)
+  auto block = [&](int j, auto edge_type) {
+    constexpr bool edge = decltype(edge_type)::value;
     uint32_t afrag[NR][4];
 #pragma unroll
     for (int r = 0; r < NR; ++r)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {  // rows g and g + 8 of the m-tile
+        const int f = 16 * j + g + 8 * h;
         // rows past F0 are not stored
-        const unsigned short* xp = xr + 2 * r * LDX + 2 * min(16 * j + g + 8 * h, F0 - 1);
+        const unsigned short* xp = xr + 2 * r * LDX + 2 * (edge ? min(f, F0 - 1) : f);
         afrag[r][h] = xp[off_lo] | ((uint32_t)xp[off_hi] << 16);
         afrag[r][2 + h] = t == 0 ? xp[2 * LDX + 2] | 0x3f800000u : 0u;  // tap 9: bf16 1
       }
@@ -354,12 +367,15 @@ __device__ __forceinline__ void stage0_rows(const Layout& L, const unsigned shor
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int f = 16 * j + g + 8 * h;
-          if (f < F0)
+          if (!edge || f < F0)
             *reinterpret_cast<uint32_t*>(dst[r] + (f + 1) * WIN_CH + nt * 8 + 2 * t) =
                 pack_bf16(act_fast<ACT>(acc[2 * h]), act_fast<ACT>(acc[2 * h + 1]));
         }
       }
-  }
+  };
+  int j = 0;
+  for (; j < F0 / 16; ++j) block(j, std::false_type{});
+  if (F0 % 16) block(j, std::true_type{});
 }
 
 // A stage-0 row left of the input: the next stage's zero padding.
@@ -434,21 +450,24 @@ __device__ void build_a(const SubParams& p, const Layout& L, const __nv_bfloat16
       }
       __syncwarp();
       K8_MARK(clk, K8_STAGE0);
-      const __nv_bfloat16* rows[3] = {win + ((2 * i) % WIN_ROWS) * RS,
-                                      win + ((2 * i + 1) % WIN_ROWS) * RS,
-                                      win + ((2 * i + 2) % WIN_ROWS) * RS};
-      for (int f1 = ps; f1 < F1; f1 += PP) {
+      // this lane's first channel pair of each row, as 4-byte words
+      const uint32_t* rows[3];
+#pragma unroll
+      for (int dt = 0; dt < 3; ++dt)
+        rows[dt] = reinterpret_cast<const uint32_t*>(win + ((2 * i + dt) % WIN_ROWS) * RS +
+                                                     2 * ps * WIN_CH + 2 * cpair);
+      int m = i * F1 + ps;
+      for (int o = 0; m < (i + 1) * F1; o += PP * WIN_CH, m += PP) {
         float acc0 = bias0, acc1 = bias1;
 #pragma unroll
         for (int dt = 0; dt < 3; ++dt)
 #pragma unroll
           for (int df = 0; df < 3; ++df) {
-            const uint32_t x2 =
-                *reinterpret_cast<const uint32_t*>(rows[dt] + (2 * f1 + df) * WIN_CH + 2 * cpair);
+            const uint32_t x2 = rows[dt][o + df * (WIN_CH / 2)];
             acc0 = fmaf(w[dt * 3 + df][0], __uint_as_float(x2 << 16), acc0);
             acc1 = fmaf(w[dt * 3 + df][1], __uint_as_float(x2 & 0xffff0000u), acc1);
           }
-        *reinterpret_cast<uint32_t*>(acol + swz(i * F1 + f1, chunk)) = pack_bf16(acc0, acc1);
+        *reinterpret_cast<uint32_t*>(acol + swz(m, chunk)) = pack_bf16(acc0, acc1);
       }
       __syncwarp();  // the slots are rewritten next
       K8_MARK(clk, K8_DW1);
@@ -618,25 +637,35 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       hopper::named_sync(1, CONSUMERS);
       K8_MARK(clk, K8_EPILOGUE1);
       // the second depthwise conv on the group's channels: (To, F/8) into
-      // stage 2's operand (A's layout), channels [grp NG, grp NG + NG)
+      // stage 2's operand (A's layout), channels [grp NG, grp NG + NG); a
+      // thread keeps a pair of neighbouring channels (one 4-byte load a tap)
       {
-        const int c = tid % NG;  // CONSUMERS % NG == 0: a thread keeps its channel
-        const int cg = grp * NG + c;
-        float w[9];
+        constexpr int PAIRS = NG / 2;  // CONSUMERS % PAIRS == 0
+        const int cg = grp * NG + 2 * (tid % PAIRS);
+        float w[9][2];
 #pragma unroll
-        for (int i = 0; i < 9; ++i) w[i] = bf(p.kd[1], cg * 9 + i);
-        const float bias = bf(p.bd[1], cg);
+        for (int i = 0; i < 9; ++i) {
+          w[i][0] = bf(p.kd[1], cg * 9 + i);
+          w[i][1] = bf(p.kd[1], (cg + 1) * 9 + i);
+        }
+        const float bias0 = bf(p.bd[1], cg), bias1 = bf(p.bd[1], cg + 1);
         unsigned char* hcol = sH2 + (size_t)(cg / KS) * L.MA2 * 128 + (cg % 8) * 2;
-        for (int pos = tid / NG; pos < L.M2; pos += CONSUMERS / NG) {
+        const int chunk = (cg % KS) / 8;
+        for (int pos = tid / PAIRS; pos < L.M2; pos += CONSUMERS / PAIRS) {
           const int j = pos / F8, f8 = pos - (pos / F8) * F8;
-          const __nv_bfloat16* src = sS + ((size_t)2 * j * (F1 + 1) + 2 * f8) * L.LD1 + c;
-          float a = bias;
+          const __nv_bfloat16* src =
+              sS + ((size_t)2 * j * (F1 + 1) + 2 * f8) * L.LD1 + cg - grp * NG;
+          float a0 = bias0, a1 = bias1;
 #pragma unroll
           for (int dt = 0; dt < 3; ++dt)
 #pragma unroll
-            for (int df = 0; df < 3; ++df)
-              a = fmaf(w[dt * 3 + df], __bfloat162float(src[(dt * (F1 + 1) + df) * L.LD1]), a);
-          *reinterpret_cast<__nv_bfloat16*>(hcol + swz(pos, (cg % KS) / 8)) = __float2bfloat16(a);
+            for (int df = 0; df < 3; ++df) {
+              const uint32_t x2 =
+                  *reinterpret_cast<const uint32_t*>(src + (dt * (F1 + 1) + df) * L.LD1);
+              a0 = fmaf(w[dt * 3 + df][0], __uint_as_float(x2 << 16), a0);
+              a1 = fmaf(w[dt * 3 + df][1], __uint_as_float(x2 & 0xffff0000u), a1);
+            }
+          *reinterpret_cast<uint32_t*>(hcol + swz(pos, chunk)) = pack_bf16(a0, a1);
         }
       }
       hopper::fence_proxy_async();

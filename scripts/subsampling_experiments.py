@@ -67,7 +67,7 @@ TANH = ("[&] {\n"
         "        asm(\"tanh.approx.f32 %0, %1;\" : \"=f\"(th) : \"f\"(h));\n"
         "        return fmaf(h, th, h);\n"
         "      }()")
-TANH_SILU = ("  if constexpr (ACT == ACT_SILU) return __fdividef(v, 1.f + __expf(-v));",
+TANH_SILU = ("  if constexpr (ACT == ACT_SILU) return v * rcp_ftz(1.f + hopper::ex2(v * -1.4426950408889634f));",
              "  if constexpr (ACT == ACT_SILU) return " + TANH + ";")
 FIRST_TANH_SILU = ("      return FAST ? __fdividef(v, 1.f + __expf(-v)) : v / (1.f + expf(-v));",
                    "      return FAST ? " + TANH + " : v / (1.f + expf(-v));")
@@ -152,13 +152,6 @@ VARIANTS.update({
     # slots (the default at F 80, C 256: 4 frames, 2 slots)
     "tile_3": [env_patch("LCASR_SUB_TILE", "3")],
     "tile_3_clocks": [env_patch("LCASR_SUB_TILE", "3"), CLOCKS],
-    # both depthwise convs two positions an iteration (two FMA chains a
-    # channel in flight)
-    "dw_unroll2": [
-        (SOURCE, "      for (int f1 = ps; f1 < F1; f1 += PP) {",
-         "#pragma unroll 2\n      for (int f1 = ps; f1 < F1; f1 += PP) {"),
-        (SOURCE, "        for (int pos = tid / NG; pos < L.M2; pos += CONSUMERS / NG) {",
-         "#pragma unroll 2\n        for (int pos = tid / NG; pos < L.M2; pos += CONSUMERS / NG) {")],
     # stage 0 one row a pass, not two
     "stage0_one_row": [(SOURCE, "constexpr int STAGE0_ROWS = 2;", "constexpr int STAGE0_ROWS = 1;")],
     # the repo's kernel with its phase clocks (timed with their cost)
@@ -188,8 +181,13 @@ VARIANTS.update({
     "silu_fma": [
         (SOURCE, "template <int ACT>\n__device__ __forceinline__ float act_fast(float v) {",
          SILU_FMA + "template <int ACT>\n__device__ __forceinline__ float act_fast(float v) {"),
-        (SOURCE, "  if constexpr (ACT == ACT_SILU) return __fdividef(v, 1.f + __expf(-v));",
+        (SOURCE, "  if constexpr (ACT == ACT_SILU) return v * rcp_ftz(1.f + hopper::ex2(v * -1.4426950408889634f));",
          "  if constexpr (ACT == ACT_SILU) return silu_fma(v);")],
+    # the silu by __expf and __fdividef (their denormal-range handling: three
+    # more instructions a value)
+    "silu_no_ftz": [
+        (SOURCE, "  if constexpr (ACT == ACT_SILU) return v * rcp_ftz(1.f + hopper::ex2(v * -1.4426950408889634f));",
+         "  if constexpr (ACT == ACT_SILU) return __fdividef(v, 1.f + __expf(-v));")],
 })
 TIMED_ONLY = {"first_stop_after_load", "first_stop_after_stage0_dw1", "first_stop_after_pw1",
               "no_build_a", "no_build_a_clocks", "no_weight_loads", "no_pw1_products", "no_pw2_products"}
