@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases train   # build + the training path only
     python3 chip_smoke.py --phases mamba_decode,mamba_train  # the Mamba family only
     python3 chip_smoke.py --phases decode_opt,train_opt  # the opt-in configuration only
+    python3 chip_smoke.py --phases audio,serve   # WAV -> WER and the server only
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -28,7 +29,10 @@ Phases, in order; any failure raises and exits non-zero:
               and K5's those of K3; K6's y and states and K7's five gradients
               the same bits in two runs; K6's grids at the four main shapes
               logged, each launch a block for every SM; the build fails on
-              serialised wgmma or spills in the bf16 entries of K1-K5;
+              serialised wgmma or spills in the bf16 entries of K1-K5; K1
+              and K2 again at head_dim 256 (64-key tiles: bf16 and fp32,
+              ragged, banded, offset; timed at (16, 2048, 3, 256) beside the
+              bound and SDPA), and the backward's refusal of D = 256;
   3. model    the flagship SCConformerXL (9L-768D-6H, bf16, random weights
               from a numpy seed) on one (16, 80, 16384) window batch: finite,
               normalised log-probs, compared with the same model whose
@@ -71,6 +75,18 @@ Phases, in order; any failure raises and exits non-zero:
               whole gradient): K2 alone within a rerun's difference, the
               steps with K8 within that of two other computations of the
               conv chain.
+ 10. audio    a seeded 20-minute stereo WAV at 44.1 kHz (`--seed`): the
+              port's reader on the host, its resampler and mel frontend on
+              the card (timed; held against the plain float64 frontend on
+              the CPU); `evaluate` from that file to a WER with the
+              flagship (36 K1 launches), `evaluate` on `synthetic` at
+              120,000 frames in its three modes (36, 531 and 9 K1
+              launches), and the head_dim-256 model lcasr_6l_768d_3h from
+              the file (24 K1 launches; 24 K2 under LCASR_ATTN_FWD_DB=1);
+ 11. serve    the flagship behind a TranscriptionServer: 4 sessions fed 60 s
+              each in 0.5 s chunks, each session's ids equal to a
+              single-stream OnlineTranscriber's, pump latency and RTFx;
+              then `python -m lcasr_torch.serving` on a 30 s WAV file.
 
 The line before the last two is one JSON object with each kernel's numbers;
 the last line is the device record.  Without a GPU, or without the repo
@@ -88,7 +104,7 @@ import sys
 import time
 
 PHASES = ("kernels", "model", "decode", "train", "mamba_decode", "mamba_train",
-          "decode_opt", "train_opt")
+          "decode_opt", "train_opt", "audio", "serve")
 
 # configs/ladder_9l_768d_6h.yaml, written out: the machine with the card is
 # not promised pyyaml (tests/test_torch_port_train.py holds the two equal)
@@ -325,6 +341,10 @@ def check_hopper_build(build_log: dict) -> dict:
             if e.get("spill_stores", 0) or e.get("spill_loads", 0):
                 raise AssertionError(f"{src}: {fn} spills: {e}")
         report[src] = entries
+    # the forward's head_dim 256 instantiations (64-key tiles) are among them
+    for src, flag in (("flash_attn_fwd.cu", "false"), ("flash_attn_fwd_db.cu", "true")):
+        if f"{HOPPER_FWD_SYMBOL}<256, {flag}>" not in template_entries(build_log[src]):
+            raise AssertionError(f"{src}: no {HOPPER_FWD_SYMBOL}<256, {flag}> in ptxas's report")
     return report
 
 
@@ -404,13 +424,13 @@ def attention_cases(torch):
     ]
 
 
-def check_layout_refused(torch, kernel: str):
+def check_layout_refused(torch, kernel: str, D: int = 128):
     """A bf16 view whose H stride is odd (not a multiple of 16 bytes) cannot
     be read by a TMA tensor map: the wrapper must raise and launch nothing."""
     from lcasr_torch import kernels
     from lcasr_torch.ops.flash_attention import flash_attention_with_lse
 
-    x = torch.randn((2, 64, 2, 129), device="cuda").to(torch.bfloat16)[..., :128]
+    x = torch.randn((2, 64, 2, D + 1), device="cuda").to(torch.bfloat16)[..., :D]
     kernels.reset_launch_counts()
     try:
         flash_attention_with_lse(x, x, x)
@@ -657,6 +677,122 @@ def phase_kernels_db(torch):
         "k1_wrapper_ms_same_turns": min(t1a, t1b), "plain_ms": plain_ms,
         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
     }
+
+
+# ---------------------------------------------------------------------------
+# phase 2a'': K1 and K2 at head_dim 256 (64-key tiles), the forward only
+# ---------------------------------------------------------------------------
+D256_SHAPE = (16, 2048, 3, 256)  # lcasr_6l_768d_3h's window batch: 3 heads x 256
+
+
+def d256_cases(torch):
+    """K1 / K2 cases at D = 256 (`attention_cases`' tuple), at the edges of
+    its 64-key tiles: ragged lengths with a zero, T off the tile grid, a band
+    whose tiles are skipped, q/kv offsets, fp32 (the SIMT bodies' largest
+    tiles), the decode's shape and its last batch."""
+    bf, f32 = torch.bfloat16, torch.float32
+    B, T, H, D = D256_SHAPE
+    decode_last = [2048, 2048, 2048, 1944] + [0] * 12
+    return [
+        ("D256_decode_shape_full", B, T, H, D, bf, None, (-1, -1), 0, 0, True),
+        ("D256_decode_last_batch", B, T, H, D, bf, decode_last, (-1, -1), 0, 0, True),
+        ("D256_ragged_with_zero", 3, 200, 2, D, bf, [200, 131, 0], (-1, -1), 0, 0, False),
+        ("D256_T_not_multiple_of_64", 2, 333, 3, D, bf, [333, 100], (-1, -1), 0, 0, False),
+        ("D256_T65", 2, 65, 2, D, bf, [65, 64], (-1, -1), 0, 0, False),
+        ("D256_T191", 2, 191, 2, D, bf, [191, 129], (-1, -1), 0, 0, True),
+        ("D256_band_256_256", 2, 1000, 2, D, bf, [1000, 700], (256, 256), 0, 0, False),
+        ("D256_band_left_only", 2, 300, 2, D, bf, [300, 211], (64, -1), 0, 0, False),
+        # rows 128.. begin their window at key 64.., a tile edge
+        ("D256_left_window_on_tile_edge", 2, 384, 2, D, bf, [384, 300], (64, -1), 0, 0, False),
+        ("D256_q_kv_offsets", 2, 300, 2, D, bf, [320, 150], (-1, -1), 37, 20, False),
+        ("D256_offsets_band", 2, 300, 2, D, bf, [300, 250], (40, 30), 37, 20, False),
+        ("D256_shard_offsets_64", 2, 300, 2, D, bf, [364, 280], (-1, 40), 64, 64, True),
+        ("D256_fp32", 2, 333, 2, D, f32, [333, 120], (-1, -1), 0, 0, True),
+        ("D256_fp32_band", 2, 300, 2, D, f32, [300, 0], (32, 8), 5, 0, False),
+        ("D256_fp32_offsets", 2, 130, 2, D, f32, [150, 129], (-1, -1), 20, 10, False),
+    ]
+
+
+def check_bwd_refuses_d256(torch):
+    """The backward kernels K3-K5 take D <= 128: at D = 256 the wrapper must
+    raise, naming the missing port, and launch nothing (no plain version)."""
+    from lcasr_torch import kernels
+    from lcasr_torch.ops.flash_attention import flash_attention_bwd, flash_attention_with_lse
+
+    q, k, v = make_qkv(torch, 2, 128, 2, 256, torch.bfloat16, False,
+                       torch.Generator(device="cuda").manual_seed(5))
+    o, lse = flash_attention_with_lse(q, k, v)
+    for fused in ("1", "0"):
+        kernels.reset_launch_counts()
+        try:
+            with env_flags(LCASR_FUSED_ATTN_BWD=fused):
+                flash_attention_bwd(q, k, v, o, lse, torch.ones_like(o))
+        except NotImplementedError as e:
+            if "K3-K5" not in str(e) or any(kernels.launch_counts.values()):
+                raise AssertionError(f"D = 256 backward: {e}; launched {kernels.launch_counts}")
+            log(f"  D = 256 backward refused (LCASR_FUSED_ATTN_BWD={fused}): {e}")
+            continue
+        raise AssertionError("the backward took D = 256 instead of refusing it")
+
+
+def phase_kernels_d256(torch, registers: dict):
+    """K1 and K2 at D = 256 against `flash_attention_ref` on `d256_cases`
+    (K2 on the cases not banded on both sides, bit-equal to K1 on the bf16
+    ones), the refused layout, the backward's refusal; then device time at
+    (16, 2048, 3, 256) in turns (K1, K2, SDPA, K2, K1) beside the bound.
+    `registers`: ptxas's entries of flash_attn_fwd{,_db}.cu's templates.
+    Returns {kernel name: its D = 256 numbers}."""
+    import torch.nn.functional as F
+
+    from lcasr_torch.ops.flash_attention import flash_attention_ref
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst = {"flash_attention_fwd": 0.0, "flash_attention_fwd_db": 0.0}
+    for case in d256_cases(torch):
+        err_o, err_lse, _ = check_attention_case(torch, case, gen, "flash_attention_fwd")
+        if case[5] == bf:
+            worst["flash_attention_fwd"] = max(worst["flash_attention_fwd"], err_o, err_lse)
+    db_cases = [c for c in d256_cases(torch) if not (c[7][0] >= 0 and c[7][1] >= 0)]
+    with env_flags(LCASR_ATTN_FWD_DB="1"):
+        for case in db_cases:
+            err_o, err_lse, _ = check_attention_case(torch, case, gen, "flash_attention_fwd_db")
+            if case[5] == bf:
+                worst["flash_attention_fwd_db"] = max(worst["flash_attention_fwd_db"],
+                                                      err_o, err_lse)
+    for case in (c for c in db_cases if c[5] == bf):
+        require_k2_equals_k1(torch, case, gen)
+    log(f"  D = 256: K2 bit-equal to K1 on {sum(c[5] == bf for c in db_cases)} bf16 cases")
+    check_layout_refused(torch, "flash_attention_fwd", D=256)
+    with env_flags(LCASR_ATTN_FWD_DB="1"):
+        check_layout_refused(torch, "flash_attention_fwd_db", D=256)
+    check_bwd_refuses_d256(torch)
+
+    B, T, H, D = D256_SHAPE
+    q, k, v = make_qkv(torch, B, T, H, D, bf, True, gen)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    e1, e2 = fwd_entry(torch, q, k, v), fwd_entry(torch, q, k, v, db=True)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)
+    d1a, d2a = device_ms(torch, e1), device_ms(torch, e2)
+    library_ms = device_ms(torch, sdpa)
+    d2b, d1b = device_ms(torch, e2), device_ms(torch, e1)
+    plain_ms = time_ms(torch, lambda: flash_attention_ref(q, k, v), n=3, warmup=1)
+    bound_ms, bound_by, flops = attention_bound(B, T, H, D)
+    out = {}
+    for name, (a, b_), flag in (("flash_attention_fwd", (d1a, d1b), "false"),
+                                ("flash_attention_fwd_db", (d2a, d2b), "true")):
+        ms = min(a, b_)
+        entry = registers.get(f"flash_fwd_hopper<256, {flag}>", {})
+        out[name] = {"ms_d256": ms, "ms_d256_turns": [a, b_], "bound_ms_d256": bound_ms,
+                     "bound_by_d256": bound_by, "plain_ms_d256": plain_ms,
+                     "library_ms_d256": library_ms, "max_abs_err_d256": worst[name],
+                     "registers_d256": entry.get("registers"),
+                     "spill_bytes_d256": entry.get("spill_stores", 0) + entry.get("spill_loads", 0)}
+        log(f"  {name} at {D256_SHAPE} bf16: device {a:.4f} / {b_:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of its bound), "
+            f"scaled_dot_product_attention {library_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}); ptxas {entry}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2350,10 +2486,321 @@ def phase_mamba_train(torch, workdir: str):
     return launches, k6_step, k7_step
 
 
+# ---------------------------------------------------------------------------
+# phases 10 and 11: from a WAV file to a transcript and a WER, and the
+# streaming server
+# ---------------------------------------------------------------------------
+WAV_SECONDS, WAV_RATE = 20 * 60, 44_100  # the paper's 20-minute bucket, a CD rate
+D256_MODEL = dict(n_layers=6, n_heads=3, head_dim=256)  # configs/model_zoo.yaml:63-68
+SERVE_STREAMS, SERVE_SECONDS, SERVE_CHUNK_S = 4, 60, 0.5
+SERVE_KW = dict(context_frames=2048, stride_frames=512, right_delay_frames=512)
+# the card's fp32 mel against the plain float64 frontend on the CPU, both
+# normalised: fp32 FFT and filterbank sums carry ~1e-7 of each frame's
+# power; after the per-bin normalisation that stays far below this
+MEL_TOL = 1e-4  # of the largest |value|
+RESAMPLE_TOL = 1e-5  # of the largest |sample|: fp32 taps and sums against float64
+
+
+def amw_forwards(n_frames: int) -> int:
+    """Forwards of an averaged-moving-window decode of n_frames: window
+    batches of WINDOW_BATCH (4 at 120,000 frames)."""
+    from lcasr_torch.evaluation.streaming import _window_positions
+
+    return -(-len(_window_positions(n_frames, SEQ_LEN, OVERLAP)) // WINDOW_BATCH)
+
+
+def buffered_forwards(n_frames: int) -> int:
+    """Forwards of a buffered decode: one per chunk of SEQ_LEN - OVERLAP
+    frames (59 at 120,000 frames)."""
+    return -(-n_frames // (SEQ_LEN - OVERLAP))
+
+
+def write_wav(path: str, seconds: int, rate: int, seed: int) -> None:
+    """A stereo int16 WAV of tones that glide and noise, from `seed`,
+    written with its RIFF header by hand (the port reads it)."""
+    import struct
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = seconds * rate
+    t = np.arange(n, dtype=np.float64) / rate
+    f = 220.0 * 2 ** (np.sin(2 * np.pi * t / 7.0) + 0.5 * np.sin(2 * np.pi * t / 53.0))
+    phase = 2 * np.pi * np.cumsum(f) / rate
+    left = 0.35 * np.sin(phase) + 0.15 * np.sin(3.01 * phase) + 0.05 * rng.standard_normal(n)
+    right = 0.3 * np.sin(2 * np.pi * 330.0 * t) + 0.05 * rng.standard_normal(n)
+    data = np.clip(np.stack([left, right], 1) * 32767, -32768, 32767).astype("<i2").tobytes()
+    fmt = struct.pack("<HHIIHH", 1, 2, rate, rate * 4, 4, 16)
+    with open(path, "wb") as fh:
+        fh.write(b"RIFF" + struct.pack("<I", 4 + 8 + len(fmt) + 8 + len(data)) + b"WAVE")
+        fh.write(b"fmt " + struct.pack("<I", len(fmt)) + fmt)
+        fh.write(b"data" + struct.pack("<I", len(data)) + data)
+
+
+def save_port_checkpoint(torch, directory: str, model_cfg: dict, seed: int) -> str:
+    """A checkpoint directory of the port (`training/checkpointing.py`) for
+    an SCConformerXL of `model_cfg` (bf16 compute), weights from `seed`."""
+    from lcasr_torch.config import Config
+    from lcasr_torch.models.sconformer_xl import SCConformerXL, init_weights_
+    from lcasr_torch.training.checkpointing import save_checkpoint
+
+    model = init_weights_(SCConformerXL(**model_cfg, dtype=torch.bfloat16, device="cpu"), seed)
+    cfg = {k: v for k, v in model_cfg.items() if k != "vocab_size"}
+    return save_checkpoint(directory, 0, model.state_dict(),
+                           config=Config({"model": dict(cfg, dtype="bfloat16")}))
+
+
+def rev16_layout(base: str, wav: str, text: str) -> None:
+    """The rev16 adapter's layout (test.txt, audio/<id>.wav,
+    transcripts/<id>.txt) around one file, so that `evaluate` reads it."""
+    os.makedirs(os.path.join(base, "audio"), exist_ok=True)
+    os.makedirs(os.path.join(base, "transcripts"), exist_ok=True)
+    os.replace(wav, os.path.join(base, "audio", "smoke.wav"))
+    with open(os.path.join(base, "test.txt"), "w") as fh:
+        fh.write("smoke")
+    with open(os.path.join(base, "transcripts", "smoke.txt"), "w") as fh:
+        fh.write(text)
+
+
+def synced_s(torch, fn, n: int = 3):
+    """(result, median wall seconds of n synchronised calls after a warm one)."""
+    import numpy as np
+
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, float(np.median(times))
+
+
+def run_evaluate(checkpoint: str, expected: dict, what: str, **kw):
+    """`evaluate` with the launch counts zeroed just before and read just
+    after: they must be `expected` (0 of every other kernel)."""
+    import math
+
+    from lcasr_torch import kernels
+    from lcasr_torch.evaluation.run import evaluate
+
+    kernels.reset_launch_counts()
+    summary = evaluate(checkpoint=checkpoint, verbose=False, device=DEVICE, **kw)
+    launches = expect_launches(expected, what)
+    rows = summary["rows"]
+    if not rows or any(r["words"] <= 0 or not math.isfinite(r["wer"]) for r in rows):
+        raise AssertionError(f"{what}: rows {rows}")
+    if summary["device"] != DEVICE:
+        raise AssertionError(f"{what} ran on {summary['device']}")
+    log(f"  {what}: {len(rows)} row(s), WER {summary['wer']:.4f} over {summary['words']} "
+        f"words, RTFx {summary['rtfx']:.1f}, launches {launches}")
+    return summary, launches
+
+
+def phase_audio(torch, workdir: str, seed: int) -> dict:
+    """A seeded 20-minute stereo WAV at 44.1 kHz through the port's
+    frontend on the card (timed, and held against the plain float64 CPU
+    frontend), then through `evaluate`: the flagship's averaged moving
+    window (36 K1 launches), the three modes on `synthetic`, and the
+    head_dim-256 model (24 K1 launches; again on K2 under its flag)."""
+    import math
+
+    import numpy as np
+
+    from lcasr_torch.data import audio
+    from lcasr_torch.data.audio import SR, grab_left_channel, load_audio, mel_spectrogram, resample
+    from lcasr_torch.models.sconformer_xl import FLAGSHIP
+
+    wav = os.path.join(workdir, "smoke.wav")
+    write_wav(wav, WAV_SECONDS, WAV_RATE, seed)
+    out = {}
+    # the frontend, stage by stage: host parse, then the card
+    t0 = time.perf_counter()
+    wave, sr = load_audio(wav)
+    load_s = time.perf_counter() - t0
+    left = torch.from_numpy(np.ascontiguousarray(grab_left_channel(wave))).to(DEVICE)
+    wave16, resample_s = synced_s(torch, lambda: resample(left, sr, SR))
+    mel, mel_s = synced_s(torch, lambda: mel_spectrogram(wave16))
+    if tuple(mel.shape) != (1, 80, WAV_SECONDS * 100 + 1) or not torch.isfinite(mel).all():
+        raise AssertionError(f"mel {tuple(mel.shape)}, finite {bool(torch.isfinite(mel).all())}")
+    # the plain float64 frontend on the CPU on the same samples: the
+    # resampler on the first minute, the mel on the whole 16 kHz waveform
+    head = torch.from_numpy(grab_left_channel(wave)[:, : 60 * sr].astype(np.float64))
+    g = math.gcd(sr, SR)
+    ref16 = audio._resample_poly(head, SR // g, sr // g)  # float64 on the CPU
+    got16 = resample(head.to(DEVICE).float(), sr, SR).double().cpu()
+    r_err = float((got16 - ref16).abs().max() / ref16.abs().max())
+    ref_mel = mel_spectrogram(wave16.double().cpu())
+    m_err = float((mel.double().cpu() - ref_mel).abs().max() / ref_mel.abs().max())
+    log(f"  frontend of {WAV_SECONDS} s at {sr} Hz stereo int16: load_audio {1e3 * load_s:.1f} ms "
+        f"(host), resample on the card {1e3 * resample_s:.2f} ms, mel {1e3 * mel_s:.2f} ms; "
+        f"card against float64 CPU: resample {r_err:.2e} (tol {RESAMPLE_TOL:g}), mel "
+        f"{m_err:.2e} of the largest value (tol {MEL_TOL:g})")
+    if not (r_err <= RESAMPLE_TOL and m_err <= MEL_TOL):
+        raise AssertionError(f"the card's frontend disagrees: resample {r_err}, mel {m_err}")
+    out.update(load_audio_ms=1e3 * load_s, resample_ms=1e3 * resample_s, mel_ms=1e3 * mel_s,
+               resample_err=r_err, mel_err=m_err)
+    del left, wave16, mel, ref_mel, wave
+
+    base = os.path.join(workdir, "rev16")
+    rev16_layout(base, wav, "the podcast has these words about long context speech")
+    flagship = save_port_checkpoint(torch, os.path.join(workdir, "flagship"), FLAGSHIP, seed)
+    d256 = save_port_checkpoint(torch, os.path.join(workdir, "d256"),
+                                dict(FLAGSHIP, **D256_MODEL), seed)
+    amw = dict(seq_len=SEQ_LEN, overlap=OVERLAP)
+    wav_kw = dict(dataset="rev16", dataset_kwargs={"base_path": base}, **amw)
+    n_layers = FLAGSHIP["n_layers"]
+    # `synthetic` first: its first decode also warms the process up (the
+    # RTFx of `evaluate` times the decode of each recording, not the frontend)
+    synth = dict(dataset="synthetic", dataset_kwargs={"n_recordings": 1,
+                                                      "n_frames": TOTAL_FRAMES})
+    for mode, n_fwd in (("averaged_moving_window", amw_forwards(TOTAL_FRAMES)),
+                        ("buffered", buffered_forwards(TOTAL_FRAMES)),
+                        ("windowed_attention", 1)):
+        summary, launches = run_evaluate(
+            flagship, {"flash_attention_fwd": n_layers * n_fwd},
+            f"flagship, synthetic 120,000 frames, {mode}", evaluation_mode=mode, **synth, **amw)
+        out[f"synthetic_{mode}"] = {"rtfx": summary["rtfx"], "wer": summary["wer"],
+                                    "launches": launches["flash_attention_fwd"]}
+    wav_fwd = amw_forwards(WAV_SECONDS * 100 + 1)
+    summary, _ = run_evaluate(flagship, {"flash_attention_fwd": n_layers * wav_fwd},
+                              "flagship, WAV -> WER, averaged moving window", **wav_kw)
+    decode_ms = 1e3 * WAV_SECONDS / summary["rtfx"]
+    frontend_ms = out["load_audio_ms"] + out["resample_ms"] + out["mel_ms"]
+    share = frontend_ms / (frontend_ms + decode_ms)
+    log(f"  the frontend's share of the 20-minute decode from the WAV file: {frontend_ms:.1f} ms "
+        f"of {frontend_ms + decode_ms:.1f} ms ({100 * share:.1f}%; the host's WAV parse "
+        f"{out['load_audio_ms']:.1f} ms of it)")
+    out["wav_flagship"] = {"rtfx": summary["rtfx"], "wer": summary["wer"],
+                           "decode_ms": decode_ms, "frontend_share": share}
+    d256_launches = D256_MODEL["n_layers"] * wav_fwd
+    summary, _ = run_evaluate(d256, {"flash_attention_fwd": d256_launches},
+                              "lcasr_6l_768d_3h (D = 256), WAV -> WER", **wav_kw)
+    out["wav_d256"] = {"rtfx": summary["rtfx"], "launches": d256_launches}
+    with env_flags(LCASR_ATTN_FWD_DB="1"):
+        summary, _ = run_evaluate(d256, {"flash_attention_fwd_db": d256_launches},
+                                  "lcasr_6l_768d_3h (D = 256) under LCASR_ATTN_FWD_DB=1",
+                                  **wav_kw)
+    out["wav_d256_k2"] = {"rtfx": summary["rtfx"], "launches": d256_launches}
+    return out
+
+
+def finalised_frames(tr) -> list:
+    """The argmax id of every output frame `tr` finalises, in order (before
+    the CTC collapse), recorded from its `_emit`."""
+    import numpy as np
+
+    out, real = [], tr._emit
+
+    def emit(g0, g1, win_start, frame_ids, out_len, tail):
+        r0 = (g0 - win_start) // tr.sf
+        r1 = out_len if tail else min((g1 - win_start) // tr.sf, out_len)
+        out.extend(np.asarray(frame_ids[r0:r1]).tolist())
+        return real(g0, g1, win_start, frame_ids, out_len, tail)
+
+    tr._emit = emit
+    return out
+
+
+def phase_serve(torch, workdir: str, seed: int) -> dict:
+    """The flagship behind a TranscriptionServer: 4 sessions, each fed 60 s
+    of a seeded WAV's left channel in 0.5 s chunks, pumped once a tick;
+    every session's finalised frame ids (and so its token ids) equal to a
+    single-stream OnlineTranscriber's on the same chunks; pump latency and
+    the streams' RTFx; then the serving CLI as a subprocess on a WAV file of
+    its own."""
+    import numpy as np
+
+    from lcasr_torch import kernels
+    from lcasr_torch.data.audio import SR, grab_left_channel, load_audio, resample
+    from lcasr_torch.data.tokenizer import load_tokenizer
+    from lcasr_torch.models.sconformer_xl import FLAGSHIP
+    from lcasr_torch.serving import OnlineTranscriber, TranscriptionServer
+
+    wav = os.path.join(workdir, "serve.wav")
+    write_wav(wav, SERVE_STREAMS * SERVE_SECONDS, WAV_RATE, seed + 1)
+    wave, sr = load_audio(wav)
+    left = resample(grab_left_channel(wave), sr, SR, device=DEVICE)[0].cpu().numpy()
+    n = SERVE_SECONDS * SR
+    streams = [left[i * n : (i + 1) * n] for i in range(SERVE_STREAMS)]
+    chunk = int(SERVE_CHUNK_S * SR)
+    tok = load_tokenizer()
+    model = flagship_model(torch)
+
+    server = TranscriptionServer(model, tok, max_streams=SERVE_STREAMS, device=DEVICE,
+                                 **SERVE_KW)
+    sids = [server.open() for _ in streams]
+    frames = [finalised_frames(server._session(sid)) for sid in sids]
+    kernels.reset_launch_counts()
+    pump_ms, busy = [], []  # every tick's pump; the pumps that ran a wave
+    t0 = time.perf_counter()
+    for pos in range(0, n, chunk):
+        for sid, audio in zip(sids, streams):
+            server.feed(sid, audio[pos : pos + chunk], pump=False)
+        t1, w0 = time.perf_counter(), server.wave_count
+        server.pump()
+        torch.cuda.synchronize()
+        pump_ms.append(1e3 * (time.perf_counter() - t1))
+        if server.wave_count > w0:
+            busy.append(pump_ms[-1])
+    for sid in sids:
+        server.finish(sid)
+    wall = time.perf_counter() - t0
+    n_layers, waves = len(model.layers), server.wave_count
+    launches = expect_launches({"flash_attention_fwd": n_layers * waves}, "the server's run")
+    rtfx = SERVE_STREAMS * SERVE_SECONDS / wall
+    log(f"  server, {SERVE_STREAMS} sessions x {SERVE_SECONDS} s in {SERVE_CHUNK_S} s chunks: "
+        f"{waves} waves ({server.delta_wave_count} delta), launches {launches}; "
+        f"pump over all {len(pump_ms)} ticks median {np.median(pump_ms):.2f} ms, p90 "
+        f"{np.percentile(pump_ms, 90):.2f} ms; over the {len(busy)} ticks with a wave median "
+        f"{np.median(busy):.2f} ms, p90 {np.percentile(busy, 90):.2f} ms; streams' RTFx "
+        f"{rtfx:.1f} (fed as fast as they are taken)")
+
+    n_ids = []
+    for i, audio in enumerate(streams):
+        tr = OnlineTranscriber(model, tok, device=DEVICE, **SERVE_KW)
+        single = finalised_frames(tr)
+        for pos in range(0, n, chunk):
+            tr.feed(audio[pos : pos + chunk])
+        tr.finish()
+        n_ids.append(len(tr._ids))
+        if single != frames[i]:
+            same = sum(a == b for a, b in zip(frames[i], single))
+            raise AssertionError(f"session {i}: {len(frames[i])} finalised frames from the "
+                                 f"server, {len(single)} single-stream, {same} equal")
+    log(f"  every session's finalised frame ids ({[len(f) for f in frames]}) equal the "
+        f"single-stream transcriber's, so do its token ids ({n_ids})")
+    del model, server
+
+    # the serving CLI on a 30 s excerpt at 44.1 kHz (the resampler runs)
+    ckpt = save_port_checkpoint(torch, os.path.join(workdir, "serve_ckpt"), FLAGSHIP, seed)
+    clip = os.path.join(workdir, "clip.wav")
+    write_wav(clip, 30, WAV_RATE, seed + 2)
+    res = subprocess.run([sys.executable, "-m", "lcasr_torch.serving", ckpt, clip,
+                          "--device", DEVICE],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = res.stdout.strip().splitlines()
+    if res.returncode != 0 or not lines or not lines[-1].startswith("-- ") or len(lines) < 2:
+        raise AssertionError(f"python -m lcasr_torch.serving: rc {res.returncode}, stdout "
+                             f"{res.stdout[-2000:]!r}, stderr {res.stderr[-2000:]!r}")
+    log(f"  python -m lcasr_torch.serving: rc 0, {len(lines) - 1} transcript lines, "
+        f"'{lines[-1]}'")
+    return {"pump_ms_median": float(np.median(pump_ms)),
+            "pump_ms_p90": float(np.percentile(pump_ms, 90)),
+            "pump_ms_median_waves": float(np.median(busy)),
+            "pump_ms_p90_waves": float(np.percentile(busy, 90)),
+            "waves": waves,
+            "launches": launches["flash_attention_fwd"], "rtfx": rtfx}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated subset of " + ",".join(PHASES))
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the WAV files and weights of phases audio and serve")
     args = parser.parse_args()
     phases = args.phases.split(",")
     unknown = sorted(set(phases) - set(PHASES))
@@ -2374,7 +2821,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gpu = gpu_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
-    log("[1/9] build")
+    log("[1/11] build")
     build_s = kernels.build()
     log(f"  build {build_s:.2f} s into {kernels.BUILD_DIR}")
     for src, text in kernels.build_log.items():
@@ -2390,9 +2837,13 @@ def main() -> int:
     results = {}
     workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_train")
     if "kernels" in phases:
-        log("[2/9] kernels against their plain versions")
+        log("[2/11] kernels against their plain versions")
         results["flash_attention_fwd"] = phase_kernels(torch)
         results["flash_attention_fwd_db"] = phase_kernels_db(torch)
+        fwd_registers = {**template_entries(kernels.build_log["flash_attn_fwd.cu"]),
+                         **template_entries(kernels.build_log["flash_attn_fwd_db.cu"])}
+        for name, numbers in phase_kernels_d256(torch, fwd_registers).items():
+            results[name].update(numbers)
         bwd_registers = {name: e.get("registers") for name, e in
                          template_entries(kernels.build_log["flash_attn_bwd.cu"]).items()}
         results.update(phase_kernels_bwd(torch, bwd_registers))
@@ -2400,11 +2851,11 @@ def main() -> int:
         results["subsampling_fused"] = phase_kernels_sub(torch)
     model = None
     if "model" in phases:
-        log("[3/9] flagship model, one window batch")
+        log("[3/11] flagship model, one window batch")
         model = flagship_model(torch)
         phase_model(torch, model, plain_attention(), "flagship")
     if "decode" in phases:
-        log("[4/9] 20-minute streaming greedy decode (the serving path)")
+        log("[4/11] 20-minute streaming greedy decode (the serving path)")
         model = model or flagship_model(torch)
         launches, _, rows = phase_decode(torch, model,
                                          {"flash_attention_fwd": EXPECTED_LAUNCHES},
@@ -2419,7 +2870,7 @@ def main() -> int:
             f"(kernel phase, launches back to back: {k1.get('ms')} ms)")
     del model
     if "train" in phases:
-        log("[5/9] training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1 "
+        log("[5/11] training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1 "
             "(the training path)")
         os.makedirs(workdir, exist_ok=True)
         try:
@@ -2437,7 +2888,7 @@ def main() -> int:
             "launches_ladder"] = ladder["flash_attention_fwd"]
         results["flash_attention_bwd_fused"]["train_step_profile"] = k3_step
     if "mamba_decode" in phases:
-        log("[6/9] Mamba: one window batch, then the 20-minute streaming greedy decode")
+        log("[6/11] Mamba: one window batch, then the 20-minute streaming greedy decode")
         model = mamba_model(torch)
         phase_model(torch, model, plain_scan(torch.float32), "Mamba")
         launches, rtfx, rows = phase_decode(
@@ -2449,7 +2900,7 @@ def main() -> int:
         k6["decode_profile"] = dict(profile_share(rows, SSM_KERNELS["selective_scan_fwd"][0],
                                                   "K6", "the Mamba decode"), rtfx=rtfx)
     if "mamba_train" in phases:
-        log("[7/9] Mamba training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1")
+        log("[7/11] Mamba training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1")
         os.makedirs(workdir, exist_ok=True)
         try:
             ladder, k6_step, k7_step = phase_mamba_train(torch, workdir)
@@ -2463,14 +2914,14 @@ def main() -> int:
         k6["launches_ladder"] = ladder["selective_scan_fwd"]
         k6["train_step_profile"] = k6_step
     if "decode_opt" in phases:
-        log("[8/9] the opt-in decode configuration (K2, K8) and the decoder's options")
+        log("[8/11] the opt-in decode configuration (K2, K8) and the decoder's options")
         launches, mamba_launches, numbers = phase_decode_opt(torch)
         for key in ("flash_attention_fwd_db", "subsampling_fused"):
             results.setdefault(key, {"name": key})["launches"] = launches[key]
         results["subsampling_fused"]["launches_mamba_decode"] = mamba_launches["subsampling_fused"]
         results["subsampling_fused"].update(numbers)
     if "train_opt" in phases:
-        log("[9/9] one training step under both flags, and under each alone, against the "
+        log("[9/11] one training step under both flags, and under each alone, against the "
             "same step without")
         os.makedirs(workdir, exist_ok=True)
         try:
@@ -2481,6 +2932,25 @@ def main() -> int:
             entry = results.setdefault(key, {"name": key})
             entry["launches_train_step"] = launches[key]
             entry["train_step_alone"] = gates[gate]
+    if "audio" in phases or "serve" in phases:
+        audio_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                 "smoke_audio")
+        os.makedirs(audio_dir, exist_ok=True)
+        try:
+            k1 = results.setdefault("flash_attention_fwd", {"name": "flash_attention_fwd"})
+            if "audio" in phases:
+                log("[10/11] from a WAV file to a transcript and a WER: the frontend on the "
+                    "card, evaluate in its three modes, the head_dim-256 model")
+                audio = phase_audio(torch, audio_dir, args.seed)
+                k1["audio_phase"] = audio
+                k1["launches_d256_decode"] = audio["wav_d256"]["launches"]
+                results.setdefault("flash_attention_fwd_db", {"name": "flash_attention_fwd_db"})[
+                    "launches_d256_decode"] = audio["wav_d256_k2"]["launches"]
+            if "serve" in phases:
+                log("[11/11] the streaming server: 4 sessions on the flagship, then the CLI")
+                k1["serve_phase"] = phase_serve(torch, audio_dir, args.seed)
+        finally:
+            shutil.rmtree(audio_dir, ignore_errors=True)
     name, power = [s.strip() for s in gpu.split(",", 1)]
     for entry in results.values():
         entry.update(gpu=name, power_limit=power)

@@ -12,7 +12,9 @@
 //
 // Bound on the H100: at the decode shape (B 16, T 2048, H 6, D 128, bf16)
 // one launch does 4*B*H*T^2*D = 206 GFLOP on 50 MB of q/k/v/o, about 4,000
-// FLOP per byte, so the tensor cores and not the memory bound it.
+// FLOP per byte, so the tensor cores and not the memory bound it; so does
+// (B 16, T 2048, H 3, D 256), the same work with half the heads.  D is 32,
+// 64, 128 or 256.
 //
 // Design: bf16 runs flash_fwd_hopper<D, false> (flash_fwd_hopper.cuh): TMA
 // loads by a producer warp into a ring of k/v stages, wgmma products in two
@@ -100,6 +102,8 @@ int lcasr_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
       return dispatch_dtype<64>(p, is_f32, s);
     case 128:
       return dispatch_dtype<128>(p, is_f32, s);
+    case 256:
+      return dispatch_dtype<256>(p, is_f32, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

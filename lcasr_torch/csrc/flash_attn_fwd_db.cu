@@ -114,6 +114,8 @@ int lcasr_flash_attn_fwd_db(const void* q, const void* k, const void* v,
       return dispatch_dtype<64>(p, is_f32, s);
     case 128:
       return dispatch_dtype<128>(p, is_f32, s);
+    case 256:
+      return dispatch_dtype<256>(p, is_f32, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

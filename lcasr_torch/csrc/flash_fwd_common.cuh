@@ -150,11 +150,14 @@ __device__ __forceinline__ void finish_f32(const Params& p, const Bounds& bd,
 }
 
 // Shared-memory sizes of the fp32 kernels: Q (BQ x D+1), one K tile
-// (BK x D+1), one V tile (BK x D), P (BQ x BK+1).
+// (BK x D+1), one V tile (BK x D), P (BQ x BK+1).  At D = 256 that is
+// 213,760 bytes, within the 232,448 a block may use, and each thread holds
+// 128 floats of O: the same 64 x 64 tiles serve every D.
 template <int D>
 constexpr size_t smem_f32() {
   return sizeof(float) * ((size_t)(BQ + BK) * (D + 1) + BK * D + BQ * (BK + 1));
 }
+static_assert(smem_f32<256>() <= 232448, "fp32 tiles at D = 256 exceed shared memory");
 
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, const Params& p, size_t smem,

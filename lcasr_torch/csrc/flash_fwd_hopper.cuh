@@ -5,15 +5,17 @@
 // One CTA of three warpgroups per (128 query rows, head, batch):
 //   * warpgroup 0, the producer, gives up registers (setmaxnreg 40); one of
 //     its threads loads the CTA's Q tile once and keeps a ring of HSTAGES
-//     (two) K and V tiles of 128 keys in flight by TMA, each stage with a
-//     full and an empty mbarrier, separate for K and V.  The tensor maps read q, k
-//     and v through their (B, T, H, D) strides and zero-fill rows past T;
+//     (two) K and V tiles of BK keys (128; 64 at D = 256) in flight by TMA,
+//     each stage with a full and an empty mbarrier, separate for K and V.
+//     The tensor maps read q, k and v through their (B, T, H, D) strides
+//     and zero-fill rows past T;
 //   * warpgroups 1 and 2, the consumers (setmaxnreg 232), own 64 query rows
-//     each.  S = Q K^T is one wgmma m64n128k16 per 16 columns of D, both
-//     operands from swizzled shared memory; the fp32 online softmax runs on
-//     S in registers (exp2 on scores scaled by log2 e); P is rounded to bf16
-//     in registers and is the A operand of O += P V (wgmma m64nDk16, V read
-//     as an MN-major B operand straight from its TMA tile);
+//     each.  S = Q K^T is one wgmma m64n128k16 (m64n64k16 at D = 256) per
+//     16 columns of D, both operands from swizzled shared memory; the fp32
+//     online softmax runs on S in registers (exp2 on scores scaled by
+//     log2 e); P is rounded to bf16 in registers and is the A operand of
+//     O += P V (wgmma m64nDk16, V read as an MN-major B operand straight
+//     from its TMA tile);
 //   * the two consumers take turns at the tensor cores (named barriers 1
 //     and 2): one issues its products while the other runs its softmax.
 // K2 also keeps two kv tiles in flight inside each consumer, which is what
@@ -23,9 +25,13 @@
 //
 // Shared memory at D = 128: Q 32 KB, two stages of K and V 32 KB each, 160 KB
 // in all: one CTA per SM.  D = 64 uses the same 128-byte rows (one column
-// block); D = 32 has 64-byte rows and the 64-byte swizzle.  The masks of the
-// lengths and the band are applied only on tiles that cross an edge, and
-// tiles outside `cta_bounds` are never loaded.
+// block); D = 32 has 64-byte rows and the 64-byte swizzle.  D = 256 (four
+// column blocks) takes 64-key tiles: Q 64 KB and two stages of K and V 32 KB
+// each, 192 KB, where 128-key tiles would need 320 KB; its consumers hold O
+// in 128 registers a thread, S in 32 and P in 16, within the 232 of
+// setmaxnreg, and O += P V is one wgmma m64n256k16 per 16 keys.  The masks
+// of the lengths and the band are applied only on tiles that cross an edge,
+// and tiles outside `cta_bounds` are never loaded.
 #pragma once
 
 #include "flash_fwd_common.cuh"
@@ -34,7 +40,6 @@
 namespace {
 
 constexpr int HBQ = 128;  // query rows per CTA: 64 per consumer warpgroup
-constexpr int HBK = 128;  // keys per k/v tile
 constexpr int HSTAGES = 2;  // a third stage fits at D = 128 and measured no faster
 constexpr int HTHREADS = 384;  // the producer and two consumer warpgroups
 constexpr int CONSUMER_THREADS = 256;
@@ -55,8 +60,10 @@ struct HopperTile {
   static constexpr CUtensorMapSwizzle TMA_SWIZZLE =
       D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   static constexpr int SBO = 8 * ROW_BYTES;  // bytes between 8-row groups
+  // keys per k/v tile: 128, or 64 at D = 256 for shared memory
+  static constexpr int BK = D > 128 ? 64 : 128;
   static constexpr int Q_ELEMS = HBQ * D;
-  static constexpr int KV_ELEMS = HBK * D;
+  static constexpr int KV_ELEMS = BK * D;
   static constexpr uint32_t Q_BYTES = Q_ELEMS * 2;
   static constexpr uint32_t KV_BYTES = KV_ELEMS * 2;
   // 1024 bytes of slack to align the tiles to the swizzle atom
@@ -70,19 +77,22 @@ __device__ __forceinline__ void issue_scores(float* s,
                                              const __nv_bfloat16* sQw,
                                              const __nv_bfloat16* sK) {
   using TL = HopperTile<D>;
-  hopper::fence_all<HBK / 2>(s);
+  hopper::fence_all<TL::BK / 2>(s);
   hopper::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int blk = kk * 16 / TL::COLS, col = kk * 16 % TL::COLS;
     const uint64_t dq = hopper::smem_desc(sQw + blk * HBQ * TL::COLS + col, 16,
                                           TL::SBO, TL::LAYOUT);
-    const uint64_t dk = hopper::smem_desc(sK + blk * HBK * TL::COLS + col, 16,
-                                          TL::SBO, TL::LAYOUT);
-    hopper::wgmma_m64n128k16_ss(s, dq, dk, kk > 0);
+    const uint64_t dk = hopper::smem_desc(sK + blk * TL::BK * TL::COLS + col,
+                                          16, TL::SBO, TL::LAYOUT);
+    if constexpr (TL::BK == 128)
+      hopper::wgmma_m64n128k16_ss(s, dq, dk, kk > 0);
+    else
+      hopper::wgmma_m64n64k16_ss<0, 0>(s, dq, dk, kk > 0);
   }
   hopper::wgmma_commit();
-  hopper::fence_all<HBK / 2>(s);
+  hopper::fence_all<TL::BK / 2>(s);
 }
 
 // Issue O += P V (not waited for).
@@ -91,14 +101,14 @@ __device__ __forceinline__ void issue_pv(float* o, uint32_t (*pa)[4],
                                          const __nv_bfloat16* sV) {
   using TL = HopperTile<D>;
   hopper::fence_all<D / 2>(o);
-  hopper::fence_frags<HBK / 16>(pa);
+  hopper::fence_frags<TL::BK / 16>(pa);
   hopper::wgmma_fence();
 #pragma unroll
-  for (int kc = 0; kc < HBK / 16; ++kc) {
+  for (int kc = 0; kc < TL::BK / 16; ++kc) {
     // keys 16 kc .. 16 kc + 15 are rows of every column block; the leading
     // byte offset steps from one block of COLS columns of V to the next
     const uint64_t dv = hopper::smem_desc(sV + kc * 16 * TL::COLS,
-                                          HBK * TL::ROW_BYTES, TL::SBO,
+                                          TL::BK * TL::ROW_BYTES, TL::SBO,
                                           TL::LAYOUT);
     hopper::wgmma_rs_tb<D>(o, pa[kc], dv);
   }
@@ -108,15 +118,16 @@ __device__ __forceinline__ void issue_pv(float* o, uint32_t (*pa)[4],
 
 // Tile kt's masks and online softmax on this thread's two rows of S (in
 // place: S becomes exp(S - m)), with the factor by which O must be scaled
-// to the new maximum.
+// to the new maximum.  BK: keys per tile.
+template <int BK>
 __device__ __forceinline__ void softmax_tile(float* s, float* m_i, float* l_i,
                                              float* scale, const Params& p,
                                              const Bounds& bd, int kt,
                                              const int* row_g, int t) {
-  const int c0 = kt * HBK;  // local col of the tile's first key
-  if (p.left >= 0 || p.right >= 0 || p.kv_off + c0 + HBK > bd.kv_hi) {
+  const int c0 = kt * BK;  // local col of the tile's first key
+  if (p.left >= 0 || p.right >= 0 || p.kv_off + c0 + BK > bd.kv_hi) {
 #pragma unroll
-    for (int j = 0; j < HBK / 8; ++j)
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col_g = p.kv_off + c0 + 8 * j + 2 * t + (e & 1);
@@ -125,7 +136,7 @@ __device__ __forceinline__ void softmax_tile(float* s, float* m_i, float* l_i,
   }
   float m_new[2] = {m_i[0], m_i[1]};
 #pragma unroll
-  for (int j = 0; j < HBK / 8; ++j)
+  for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       m_new[e >> 1] = fmaxf(m_new[e >> 1], s[4 * j + e]);
@@ -141,7 +152,7 @@ __device__ __forceinline__ void softmax_tile(float* s, float* m_i, float* l_i,
     m_scaled[r] = m_use * LOG2E;
   }
 #pragma unroll
-  for (int j = 0; j < HBK / 8; ++j)
+  for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float x = hopper::ex2(fmaf(s[4 * j + e], LOG2E, -m_scaled[e >> 1]));
@@ -216,7 +227,7 @@ __global__ void __launch_bounds__(HTHREADS, 1)
   if (wg == 0) {
     // ---- producer ----
     hopper::setmaxnreg_dec<PRODUCER_REGS>();
-    const Bounds bd = cta_bounds<HBQ, HBK>(p, b, q0);
+    const Bounds bd = cta_bounds<HBQ, TL::BK>(p, b, q0);
     const int n_tiles = max(bd.t_hi - bd.t_lo, 0);
     if (threadIdx.x == 0 && n_tiles > 0) {
       hopper::mbar_arrive_expect_tx(q_full, TL::Q_BYTES);
@@ -227,27 +238,27 @@ __global__ void __launch_bounds__(HTHREADS, 1)
       for (int n = 0; n < n_tiles; ++n) {
         const int s = n % HSTAGES;
         const uint32_t ph = (n / HSTAGES) & 1;
-        const int row = (bd.t_lo + n) * HBK;
+        const int row = (bd.t_lo + n) * TL::BK;
         __nv_bfloat16* dk = sK + s * TL::KV_ELEMS;
         __nv_bfloat16* dv = sV + s * TL::KV_ELEMS;
         hopper::mbar_wait(&empty_k[s], ph ^ 1);
         hopper::mbar_arrive_expect_tx(&full_k[s], TL::KV_BYTES);
 #pragma unroll
         for (int c = 0; c < TL::BLOCKS; ++c)
-          hopper::tma_load_4d(dk + c * HBK * TL::COLS, &tk, &full_k[s],
+          hopper::tma_load_4d(dk + c * TL::BK * TL::COLS, &tk, &full_k[s],
                               c * TL::COLS, h, row, b);
         hopper::mbar_wait(&empty_v[s], ph ^ 1);
         hopper::mbar_arrive_expect_tx(&full_v[s], TL::KV_BYTES);
 #pragma unroll
         for (int c = 0; c < TL::BLOCKS; ++c)
-          hopper::tma_load_4d(dv + c * HBK * TL::COLS, &tv, &full_v[s],
+          hopper::tma_load_4d(dv + c * TL::BK * TL::COLS, &tv, &full_v[s],
                               c * TL::COLS, h, row, b);
       }
     }
   } else {
     // ---- consumers ----
     hopper::setmaxnreg_inc<CONSUMER_REGS>();
-    const Bounds bd = cta_bounds<HBQ, HBK>(p, b, q0);
+    const Bounds bd = cta_bounds<HBQ, TL::BK>(p, b, q0);
     const int n_tiles = max(bd.t_hi - bd.t_lo, 0);
     const int cw = wg - 1;  // consumer 0 or 1
     const int tid = threadIdx.x % 128;
@@ -261,8 +272,8 @@ __global__ void __launch_bounds__(HTHREADS, 1)
     float o[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-    float s[HBK / 2];
-    uint32_t pa[HBK / 16][4];
+    float s[TL::BK / 2];
+    uint32_t pa[TL::BK / 16][4];
     float m_i[2] = {-INFINITY, -INFINITY};
     float l_i[2] = {0.f, 0.f};  // this thread's partial row sums
     float scale[2];
@@ -279,11 +290,11 @@ __global__ void __launch_bounds__(HTHREADS, 1)
           issue_scores<D>(s, sQw, sK + st * TL::KV_ELEMS);
           turn_end(cw, n == n_tiles - 1);
           hopper::wgmma_wait<0>();
-          hopper::fence_all<HBK / 2>(s);
+          hopper::fence_all<TL::BK / 2>(s);
           release(&empty_k[st], lane);
-          softmax_tile(s, m_i, l_i, scale, p, bd, bd.t_lo + n, row_g, t);
+          softmax_tile<TL::BK>(s, m_i, l_i, scale, p, bd, bd.t_lo + n, row_g, t);
           rescale_o<D>(o, scale);
-          hopper::pack_frags<HBK / 16>(pa, s);
+          hopper::pack_frags<TL::BK / 16>(pa, s);
           hopper::mbar_wait(&full_v[st], ph);
           issue_pv<D>(o, pa, sV + st * TL::KV_ELEMS);
           hopper::wgmma_wait<0>();
@@ -297,10 +308,10 @@ __global__ void __launch_bounds__(HTHREADS, 1)
         issue_scores<D>(s, sQw, sK);
         turn_end(cw, n_tiles == 1);
         hopper::wgmma_wait<0>();
-        hopper::fence_all<HBK / 2>(s);
+        hopper::fence_all<TL::BK / 2>(s);
         release(&empty_k[0], lane);
-        softmax_tile(s, m_i, l_i, scale, p, bd, bd.t_lo, row_g, t);
-        hopper::pack_frags<HBK / 16>(pa, s);
+        softmax_tile<TL::BK>(s, m_i, l_i, scale, p, bd, bd.t_lo, row_g, t);
+        hopper::pack_frags<TL::BK / 16>(pa, s);
         // tile n's scores in flight with tile n - 1's P V
         for (int n = 1; n < n_tiles; ++n) {
           const int st = n % HSTAGES, sp = (n - 1) % HSTAGES;
@@ -313,14 +324,14 @@ __global__ void __launch_bounds__(HTHREADS, 1)
           issue_pv<D>(o, pa, sV + sp * TL::KV_ELEMS);
           turn_end(cw, n == n_tiles - 1);
           hopper::wgmma_wait<1>();  // the scores have landed
-          hopper::fence_all<HBK / 2>(s);
+          hopper::fence_all<TL::BK / 2>(s);
           release(&empty_k[st], lane);
-          softmax_tile(s, m_i, l_i, scale, p, bd, bd.t_lo + n, row_g, t);
+          softmax_tile<TL::BK>(s, m_i, l_i, scale, p, bd, bd.t_lo + n, row_g, t);
           hopper::wgmma_wait<0>();  // P(n - 1) V(n - 1) has landed
           hopper::fence_all<D / 2>(o);
-          hopper::fence_all<HBK / 2>(s);  // P(n) is packed only now: pa is free
+          hopper::fence_all<TL::BK / 2>(s);  // P(n) is packed only now: pa is free
           release(&empty_v[sp], lane);
-          hopper::pack_frags<HBK / 16>(pa, s);
+          hopper::pack_frags<TL::BK / 16>(pa, s);
         }
         // the last tile's P V
         const int sl = (n_tiles - 1) % HSTAGES;
@@ -367,10 +378,10 @@ cudaError_t launch_hopper(const Params& p, cudaStream_t stream) {
                                      TL::TMA_SWIZZLE);
   if (err == cudaSuccess)
     err = hopper::bthd_map(&mk, p.k, p.B, p.Tk, p.H, D, p.k_sb, p.k_st, p.k_sh,
-                           HBK, TL::COLS, TL::TMA_SWIZZLE);
+                           TL::BK, TL::COLS, TL::TMA_SWIZZLE);
   if (err == cudaSuccess)
     err = hopper::bthd_map(&mv, p.v, p.B, p.Tk, p.H, D, p.v_sb, p.v_st, p.v_sh,
-                           HBK, TL::COLS, TL::TMA_SWIZZLE);
+                           TL::BK, TL::COLS, TL::TMA_SWIZZLE);
   if (err != cudaSuccess) return err;
   auto kernel = flash_fwd_hopper<D, OVERLAP>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -138,8 +138,8 @@ def test_chip_smoke_attention_cases_hold_the_backward_tile_edges():
     # a band edge inside a 64-row q tile, on both routes
     assert any(two_sided(c) and c[7][1] % 64 for c in bf16)
     assert any(c[7][0] < 0 <= c[7][1] and c[7][1] % 64 for c in bf16)
-    # every head dim the kernels take
-    assert {c[4] for c in bf16} == set(tfa.KERNEL_HEAD_DIMS)
+    # every head dim the backward kernels take
+    assert {c[4] for c in bf16} == set(tfa.BWD_KERNEL_HEAD_DIMS)
     # K4's tile edges (both routes take the unbanded ones)
     for T in K4_TILE_EDGES["T"]:
         assert any(c[2] == T for c in bf16), T

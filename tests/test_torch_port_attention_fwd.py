@@ -10,7 +10,8 @@ visited tile starts on an edge, a shard offset by one tile.  Some cases run
 under LCASR_ATTN_FWD_DB=1, where the JAX side takes its double-buffered
 kernel.  Both sides are fp32 with the same pre-scaled q: atol 1e-5.
 `chip_smoke.py` holds the kernels against the same plain version on the card
-at these cases (D = 128 there; D = 32 here keeps the interpreter fast).
+at these cases (D = 128 there; D = 32 here keeps the interpreter fast), and
+at D = 256 (`chip_smoke.d256_cases`; a few such cases here too).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -36,12 +37,12 @@ EDGE_CASES = {  # B = 2, H = 2, D = 32
 DB_CASES = ("T129", "T257", "left_window_on_tile_edge", "shard_offsets_128")
 
 
-def _run_case(kw, seed):
+def _run_case(kw, seed, D=32):
     from lcasr_tpu.ops.flash_attention import flash_attention_with_lse as pallas_fwd
     from lcasr_torch.ops.flash_attention import flash_attention_ref, flash_attention_with_lse
 
     rng = np.random.default_rng(seed)
-    B, T, H, D = 2, kw["T"], 2, 32
+    B, T, H = 2, kw["T"], 2
     q, k, v = (rng.normal(size=(B, T, H, D)).astype(np.float32) for _ in range(3))
     lengths = np.asarray(kw["lengths"], np.int32) if "lengths" in kw else None
     window = kw.get("window", (-1, -1))
@@ -73,6 +74,42 @@ def test_plain_forward_matches_pallas_at_tile_edges(case, monkeypatch):
 def test_plain_forward_matches_pallas_double_buffered_at_tile_edges(case, monkeypatch):
     monkeypatch.setenv("LCASR_ATTN_FWD_DB", "1")
     _run_case(EDGE_CASES[case], seed=22)
+
+
+# head_dim 256 (lcasr_6l_768d_3h): the bf16 kernels take 64-key tiles there;
+# the JAX `_fwd` shrinks its blocks (`_fit_blocks`).  Cases at the edges of
+# both: T one past a 64-key tile, a band, offsets.
+D256_CASES = {
+    "T65": dict(T=65, lengths=[65, 64]),
+    "T191_band": dict(T=191, lengths=[191, 129], window=(40, 24)),
+    "left_window_on_64_tile_edge": dict(T=193, lengths=[321, 200], window=(64, -1),
+                                        q_offset=128, kv_offset=64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(D256_CASES))
+def test_plain_forward_matches_pallas_at_head_dim_256(case, monkeypatch):
+    monkeypatch.delenv("LCASR_ATTN_FWD_DB", raising=False)
+    _run_case(D256_CASES[case], seed=23, D=256)
+
+
+def test_head_dim_256_is_a_forward_kernel_dim_and_the_backward_refuses_it():
+    """K1 and K2 take D = 256; K3-K5 do not, and their wrapper raises, naming
+    the missing port, before any check that needs the card (a meta tensor
+    stands in for a CUDA one: the CPU path runs the plain version by
+    contract)."""
+    from lcasr_torch.ops import flash_attention as tfa
+
+    assert 256 in tfa.KERNEL_HEAD_DIMS and 256 not in tfa.BWD_KERNEL_HEAD_DIMS
+    q = torch.empty((1, 64, 2, 256), dtype=torch.bfloat16, device="meta")
+    lse = torch.empty((1, 2, 64), dtype=torch.float32, device="meta")
+    with pytest.raises(NotImplementedError, match="K3-K5"):
+        tfa.flash_attention_bwd(q, q, q, q, lse, q)
+    # on the CPU both directions run their plain versions at D = 256
+    x = torch.randn((1, 20, 2, 256))
+    o, lse = tfa.flash_attention_with_lse(x, x, x)
+    dq, dk, dv = tfa.flash_attention_bwd(x, x, x, o, lse, torch.ones_like(o))
+    assert dq.shape == dk.shape == dv.shape == x.shape
 
 
 # ---------------------------------------------------------------------------

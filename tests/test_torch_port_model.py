@@ -227,16 +227,28 @@ def test_converter_raises_on_unknown_names(bad):
 # isolation
 # ---------------------------------------------------------------------------
 def test_port_imports_no_jax_and_no_lcasr_tpu():
+    # the third-party packages the JAX package's frontend and evaluation
+    # use are blocked outright: the port must import without them
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, importlib.abc, pkgutil, sys\n"
+        "BLOCKED = ('scipy', 'transformers', 'rapidfuzz', 'regex')\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError(f'{name} is blocked')\n"
+        "sys.meta_path.insert(0, Block())\n"
         "import lcasr_torch\n"
         "for m in pkgutil.walk_packages(lcasr_torch.__path__, 'lcasr_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'lcasr_tpu', 'yaml', 'triton'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'lcasr_tpu', 'yaml', 'triton') + BLOCKED)\n"
         "for name in ('lcasr_torch.ops.ssm', 'lcasr_torch.models.mamba',\n"
         "             'lcasr_torch.ops.subsampling', 'lcasr_torch.models.positional',\n"
-        "             'lcasr_torch.evaluation.streaming'):\n"
+        "             'lcasr_torch.evaluation.streaming', 'lcasr_torch.data.audio',\n"
+        "             'lcasr_torch.evaluation.run', 'lcasr_torch.evaluation.normalizer',\n"
+        "             'lcasr_torch.evaluation.wer', 'lcasr_torch.serving',\n"
+        "             'lcasr_torch.serving.server', 'lcasr_torch.serving.__main__',\n"
+        "             'lcasr_torch.evaluation.datasets.rev16'):\n"
         "    assert name in sys.modules, name\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('lcasr_torch')]))\n"
