@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # every phase, as a check of the port
     python3 chip_smoke.py --phases kernels # build + kernel checks only
     python3 chip_smoke.py --phases train   # build + the training path only
+    python3 chip_smoke.py --phases train_d256,utterances  # head_dim 256, utterances
     python3 chip_smoke.py --phases mamba_decode,mamba_train  # the Mamba family only
     python3 chip_smoke.py --phases decode_opt,train_opt  # the opt-in configuration only
     python3 chip_smoke.py --phases audio,serve   # WAV -> WER and the server only
@@ -29,10 +30,14 @@ Phases, in order; any failure raises and exits non-zero:
               and K5's those of K3; K6's y and states and K7's five gradients
               the same bits in two runs; K6's grids at the four main shapes
               logged, each launch a block for every SM; the build fails on
-              serialised wgmma or spills in the bf16 entries of K1-K5; K1
-              and K2 again at head_dim 256 (64-key tiles: bf16 and fp32,
-              ragged, banded, offset; timed at (16, 2048, 3, 256) beside the
-              bound and SDPA), and the backward's refusal of D = 256;
+              serialised wgmma or spills in the bf16 entries of K1-K5 (their
+              head_dim 256 instantiations among them); K1 and K2 again at
+              head_dim 256 (64-key tiles: bf16 and fp32, ragged, banded,
+              offset; timed at (16, 2048, 3, 256) beside the bound and
+              SDPA); K3 and K4 + K5 at head_dim 256 on their own cases
+              (bf16 and fp32, ragged, T off the tiles, bands with tile skip,
+              offsets; the same bits in two runs) and timed at
+              (4, 2048, 3, 256) beside the bound and cuDNN;
   3. model    the flagship SCConformerXL (9L-768D-6H, bf16, random weights
               from a numpy seed) on one (16, 80, 16384) window batch: finite,
               normalised log-probs, compared with the same model whose
@@ -47,21 +52,37 @@ Phases, in order; any failure raises and exits non-zero:
               8192 x 8 and stopped at 16384 x 4) on 16 synthetic podcasts,
               launch counts zeroed just before and read just after; save /
               resume; one 16384 x 4 step with the kernels against plain
-              attention (loss and whole gradient); a profile of that step;
-              a banded 2-layer step (K4 + K5); one 120,000 x 1 step;
-  6. mamba_decode  the full-width bidirectional Mamba (6 layers, d_model 768,
+              attention (loss and whole gradient); make_chunks with the
+              Python and the native BPE; the same step under remat_policy
+              "dots" (18 K1 and 9 K3 launches: K1 is recomputed; its peak
+              memory beside "nothing"'s, its gradient held to "nothing"'s); a
+              profile of that step; a banded 2-layer step (K4 + K5); epochs
+              at 16384 x 4 with the Python data path (no prefetch, Python
+              BPE, np.load) and the native one (prefetch thread, native BPE
+              and .npy reader), in turns, with the device's idle share; one
+              120,000 x 1 step;
+  6. train_d256  lcasr_6l_768d_3h (6 layers, 3 heads x 256) on the ladder
+              configuration: one 16384 x 4 micro step (12 K1, 6 K3 launches)
+              against plain fp32 attention, optimizer steps with a falling
+              loss, the steady step's wall and device busy time;
+  7. utterances  64 seeded utterances written by save_utterances, the
+              flagship trained on them by Trainer.train_utterances with
+              debug_hooks on (4 steps, finite losses and gradient norms);
+              wctc_loss on the card against the CPU in its three modes;
+  8. mamba_decode  the full-width bidirectional Mamba (6 layers, d_model 768,
               bf16, random weights from a seed): one window batch with the
               kernel against the plain scan, then the same 20-minute
               streaming decode as phase 4 (6 layers x 4 window batches = 24
               K6 launches), RTFx as the median of 3, K6's share of its profile;
-  7. mamba_train  the Trainer with model_class Mamba on the same ladder and
+  9. mamba_train  the Trainer with model_class Mamba on the same ladder and
               corpus as phase 5: launch counts (K6 twice per layer and micro
               step under full remat, K7 once), save / resume, one 16384 x 4
               step with the kernels against the plain scan (loss and whole
               gradient), a profile of that step (K6's and K7's device time
               and share), one 120,000 x 1 step under the profiler (K6's and
-              K7's device time);
-  8. decode_opt  the flagship's opt-in decode configuration
+              K7's device time); make_chunks both ways and the epochs on both
+              data paths, as in phase 5;
+ 10. decode_opt  the flagship's opt-in decode configuration
               (LCASR_ATTN_FWD_DB=1, LCASR_FUSED_SUB=1; both set and restored
               inside the phase): the 20-minute decode through K2 and K8 (36
               and 4 launches, K1 none), one window batch with the flags
@@ -69,21 +90,22 @@ Phases, in order; any failure raises and exits non-zero:
               decoder's options: int8 and int4 upload, pipeline_upload,
               cache_upload; then the Mamba's decode with LCASR_FUSED_SUB=1
               (24 K6 and 4 K8 launches);
-  9. train_opt  one 16384 x 4 flagship training step under both flags (K2,
+ 11. train_opt  one 16384 x 4 flagship training step under both flags (K2,
               K3 on K2's lse, K8 and its recomputing backward), and under
               each flag alone, against the same step without them (loss and
               whole gradient): K2 alone within a rerun's difference, the
               steps with K8 within that of two other computations of the
               conv chain.
- 10. audio    a seeded 20-minute stereo WAV at 44.1 kHz (`--seed`): the
-              port's reader on the host, its resampler and mel frontend on
+ 12. audio    a seeded 20-minute stereo WAV at 44.1 kHz (`--seed`): the
+              port's reader on the host (both channels, then the left one
+              alone, in turns; the same mel), its resampler and mel frontend on
               the card (timed; held against the plain float64 frontend on
               the CPU); `evaluate` from that file to a WER with the
               flagship (36 K1 launches), `evaluate` on `synthetic` at
               120,000 frames in its three modes (36, 531 and 9 K1
               launches), and the head_dim-256 model lcasr_6l_768d_3h from
               the file (24 K1 launches; 24 K2 under LCASR_ATTN_FWD_DB=1);
- 11. serve    the flagship behind a TranscriptionServer: 4 sessions fed 60 s
+ 13. serve    the flagship behind a TranscriptionServer: 4 sessions fed 60 s
               each in 0.5 s chunks, each session's ids equal to a
               single-stream OnlineTranscriber's, pump latency and RTFx;
               then `python -m lcasr_torch.serving` on a 30 s WAV file.
@@ -103,8 +125,8 @@ import subprocess
 import sys
 import time
 
-PHASES = ("kernels", "model", "decode", "train", "mamba_decode", "mamba_train",
-          "decode_opt", "train_opt", "audio", "serve")
+PHASES = ("kernels", "model", "decode", "train", "train_d256", "utterances", "mamba_decode",
+          "mamba_train", "decode_opt", "train_opt", "audio", "serve")
 
 # configs/ladder_9l_768d_6h.yaml, written out: the machine with the card is
 # not promised pyyaml (tests/test_torch_port_train.py holds the two equal)
@@ -341,10 +363,18 @@ def check_hopper_build(build_log: dict) -> dict:
             if e.get("spill_stores", 0) or e.get("spill_loads", 0):
                 raise AssertionError(f"{src}: {fn} spills: {e}")
         report[src] = entries
-    # the forward's head_dim 256 instantiations (64-key tiles) are among them
-    for src, flag in (("flash_attn_fwd.cu", "false"), ("flash_attn_fwd_db.cu", "true")):
-        if f"{HOPPER_FWD_SYMBOL}<256, {flag}>" not in template_entries(build_log[src]):
-            raise AssertionError(f"{src}: no {HOPPER_FWD_SYMBOL}<256, {flag}> in ptxas's report")
+    # the head_dim 256 instantiations (64-key tiles; K4 32-key tiles) are
+    # among them
+    for src, want in (("flash_attn_fwd.cu", (f"{HOPPER_FWD_SYMBOL}<256, false>",)),
+                      ("flash_attn_fwd_db.cu", (f"{HOPPER_FWD_SYMBOL}<256, true>",)),
+                      ("flash_attn_bwd.cu", (f"{HOPPER_BWD_SYMBOL}<256, true>",
+                                             f"{HOPPER_BWD_SYMBOL}<256, false>",
+                                             f"{HOPPER_DQ_SYMBOL}<256>"))):
+        entries = template_entries(build_log[src])
+        for name in want:
+            if name not in entries:
+                raise AssertionError(f"{src}: no {name} in ptxas's report")
+            log(f"  {src}: {name}: {entries[name]}")
     return report
 
 
@@ -713,32 +743,10 @@ def d256_cases(torch):
     ]
 
 
-def check_bwd_refuses_d256(torch):
-    """The backward kernels K3-K5 take D <= 128: at D = 256 the wrapper must
-    raise, naming the missing port, and launch nothing (no plain version)."""
-    from lcasr_torch import kernels
-    from lcasr_torch.ops.flash_attention import flash_attention_bwd, flash_attention_with_lse
-
-    q, k, v = make_qkv(torch, 2, 128, 2, 256, torch.bfloat16, False,
-                       torch.Generator(device="cuda").manual_seed(5))
-    o, lse = flash_attention_with_lse(q, k, v)
-    for fused in ("1", "0"):
-        kernels.reset_launch_counts()
-        try:
-            with env_flags(LCASR_FUSED_ATTN_BWD=fused):
-                flash_attention_bwd(q, k, v, o, lse, torch.ones_like(o))
-        except NotImplementedError as e:
-            if "K3-K5" not in str(e) or any(kernels.launch_counts.values()):
-                raise AssertionError(f"D = 256 backward: {e}; launched {kernels.launch_counts}")
-            log(f"  D = 256 backward refused (LCASR_FUSED_ATTN_BWD={fused}): {e}")
-            continue
-        raise AssertionError("the backward took D = 256 instead of refusing it")
-
-
 def phase_kernels_d256(torch, registers: dict):
     """K1 and K2 at D = 256 against `flash_attention_ref` on `d256_cases`
     (K2 on the cases not banded on both sides, bit-equal to K1 on the bf16
-    ones), the refused layout, the backward's refusal; then device time at
+    ones), the refused layout; then device time at
     (16, 2048, 3, 256) in turns (K1, K2, SDPA, K2, K1) beside the bound.
     `registers`: ptxas's entries of flash_attn_fwd{,_db}.cu's templates.
     Returns {kernel name: its D = 256 numbers}."""
@@ -766,7 +774,6 @@ def phase_kernels_d256(torch, registers: dict):
     check_layout_refused(torch, "flash_attention_fwd", D=256)
     with env_flags(LCASR_ATTN_FWD_DB="1"):
         check_layout_refused(torch, "flash_attention_fwd_db", D=256)
-    check_bwd_refuses_d256(torch)
 
     B, T, H, D = D256_SHAPE
     q, k, v = make_qkv(torch, B, T, H, D, bf, True, gen)
@@ -804,6 +811,36 @@ BWD_KERNELS = {  # launch-count name -> (kernel symbol, Pallas body it replaces)
     "flash_attention_bwd_dkv": ("flash_bwd_hopper<128, false>", 569, "_bwd_dkv_kernel"),
 }
 TRAIN_ATTN_SHAPE = (4, 2048, 6, 128)  # (B, T, H, D): a 16384-frame x 4 chunk
+# lcasr_6l_768d_3h's 16384 x 4 chunk: 3 heads x 256, the work of the shape above
+D256_TRAIN_ATTN_SHAPE = (4, 2048, 3, 256)
+
+
+def bwd_d256_cases(torch):
+    """Backward cases at D = 256 (`attention_cases`' tuple), at the edges of
+    its tiles (K3 / K5: 64 keys a CTA, 64-row q tiles; K4: 128 q rows a CTA,
+    32-key tiles): a training chunk with ragged lengths, a zero length, T off
+    the tile grid, two-sided bands whose tiles are skipped (K4 + K5 only), a
+    left-only band, q/kv offsets, fp32 (the SIMT bodies at eight threads a
+    row)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    B, T, H, D = D256_TRAIN_ATTN_SHAPE
+    return [
+        ("D256_train_ragged", B, T, H, D, bf, [2048, 1901, 1500, 777], (-1, -1), 0, 0, True),
+        ("D256_ragged_with_zero", 3, 200, 2, D, bf, [200, 131, 0], (-1, -1), 0, 0, False),
+        ("D256_T_not_multiple_of_64", 2, 333, 3, D, bf, [333, 100], (-1, -1), 0, 0, False),
+        ("D256_T63", 2, 63, 2, D, bf, [63, 40], (-1, -1), 0, 0, False),
+        ("D256_T65", 2, 65, 2, D, bf, [65, 64], (-1, -1), 0, 0, False),
+        ("D256_T191", 2, 191, 2, D, bf, [191, 129], (-1, -1), 0, 0, True),
+        ("D256_band_256_256", 2, 1000, 2, D, bf, [1000, 700], (256, 256), 0, 0, False),
+        ("D256_band_edge_in_tiles", 2, 400, 2, D, bf, [400, 333], (100, 72), 0, 0, False),
+        ("D256_band_left_only", 2, 300, 2, D, bf, [300, 211], (64, -1), 0, 0, False),
+        ("D256_q_kv_offsets", 2, 300, 2, D, bf, [320, 150], (-1, -1), 37, 20, False),
+        ("D256_offsets_band", 2, 300, 2, D, bf, [300, 250], (40, 30), 37, 20, False),
+        ("D256_shard_offsets_64", 2, 300, 2, D, bf, [364, 280], (-1, 40), 64, 64, True),
+        ("D256_fp32", 2, 333, 2, D, f32, [333, 120], (-1, -1), 0, 0, True),
+        ("D256_fp32_band", 2, 300, 2, D, f32, [300, 0], (32, 8), 5, 0, False),
+        ("D256_fp32_offsets", 2, 130, 2, D, f32, [150, 129], (-1, -1), 20, 10, False),
+    ]
 
 
 def run_bwd(torch, fused: bool, *args):
@@ -914,40 +951,23 @@ def sdpa_backward_ms(torch, q, k, v, do, n_prof: int = 10):
     return bwd
 
 
-def phase_kernels_bwd(torch, registers: dict):
-    """K3 and K4 + K5 on every attention case (the forward's, the backward's
-    tile edges), bit-equality of dk and dv across runs and between K5 and
-    K3; then their device time per launch at a 16384 x 4 micro step's shape
-    in turns with cuDNN's backward (through scaled_dot_product_attention),
-    each beside its bound.  `registers`: ptxas's registers of each kernel
-    symbol, for the record."""
+def bwd_timings(torch, shape, gen, band=None) -> dict:
+    """Device time per launch of K3, K4 and K5 at a training shape (full
+    lengths, qkv views as the model gives them) in turns with cuDNN's
+    backward (through scaled_dot_product_attention): K3, K4 + K5, the
+    library twice, K4 + K5, K3; the wrappers' times, the plain version's,
+    and each kernel's bound from the pairs it must cover.  `band`: K4 and K5
+    again under that two-sided band, against the bound of the pairs it
+    leaves.  Returns {kernel name: numbers}."""
     from lcasr_torch.ops.flash_attention import (
         flash_attention_bwd_ref, flash_attention_with_lse)
 
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    worst = {name: 0.0 for name in BWD_KERNELS}
-    n_equal = 0
-    for case in attention_cases(torch):
-        errs = bwd_case(torch, case, gen)
-        if case[5] == torch.bfloat16:
-            worst["flash_attention_bwd_fused"] = max(worst["flash_attention_bwd_fused"],
-                                                     *errs.get("K3", [0.0]))
-            worst["flash_attention_bwd_dq"] = max(worst["flash_attention_bwd_dq"], errs["K4+K5"][0])
-            worst["flash_attention_bwd_dkv"] = max(worst["flash_attention_bwd_dkv"],
-                                                   *errs["K4+K5"][1:])
-            n_equal += "K3" in errs
-    log(f"  dk, dv the same bits in two runs of each route on every case, K4's dq in two "
-        f"runs of the split route; K5's dk, dv bit-equal to K3's on the {n_equal} bf16 cases "
-        f"both take")
-
-    # device time per launch at a training shape, full lengths, qkv views as
-    # the model gives them, in turns: K3, K4 + K5, the library twice, K4 + K5, K3
-    B, T, H, D = TRAIN_ATTN_SHAPE
+    B, T, H, D = shape
     q, k, v = make_qkv(torch, B, T, H, D, torch.bfloat16, True, gen)
     o, lse = flash_attention_with_lse(q, k, v)
     do = torch.randn((B, T, H, D), generator=gen, device="cuda").to(torch.bfloat16)
     args = (q, k, v, o, lse, do, None, (-1, -1), None, 0, 0)
-    sym = {key: entry[0] for key, entry in BWD_KERNELS.items()}
+    sym = {key: entry[0].replace("<128", f"<{D}") for key, entry in BWD_KERNELS.items()}
     fused = lambda: run_bwd(torch, True, *args)
     split = lambda: run_bwd(torch, False, *args)
     split_syms = [sym["flash_attention_bwd_dq"], sym["flash_attention_bwd_dkv"]]
@@ -975,7 +995,7 @@ def phase_kernels_bwd(torch, registers: dict):
     time_library()
     time_split()
     time_fused()
-    log(f"  scaled_dot_product_attention backward at (4, 2048, 6, 128): "
+    log(f"  scaled_dot_product_attention backward at {shape}: "
         + " / ".join(f"{ms:.4f}" for ms in library) + f" ms of device time in "
         f"{len(lib_kernels)} kernels: " + ", ".join(
             f"{name[:60]} {ms:.4f}" for name, ms in sorted(lib_kernels.items(), key=lambda kv: -kv[1])))
@@ -991,20 +1011,16 @@ def phase_kernels_bwd(torch, registers: dict):
         "flash_attention_bwd_dkv": (4, 4 * 2 * elems + stats + 2 * 2 * elems),
     }
     library_ms = min(library)
-    # the split path under the band of the repo's hour-scale configuration
-    # (configs/cp_1hour_tiny.yaml, attention_window_size 256): K4 and K5 at
-    # the same shape with window (256, 256), each against the bound of the
-    # pairs that band leaves
-    band = (256, 256)
-    o_band, lse_band = flash_attention_with_lse(q, k, v, None, band)
-    band_args = (q, k, v, o_band, lse_band, do, None, band, None, 0, 0)
-    band_split = lambda: run_bwd(torch, False, *band_args)
     band_turns = {key: [] for key in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
-    for _ in range(2):
-        dev = kernel_device_ms(torch, band_split, split_syms)
-        for key in band_turns:
-            band_turns[key].append(dev[sym[key]])
-    band_pairs = valid_pairs(None, B, T, band, 0, 0)
+    if band is not None:
+        o_band, lse_band = flash_attention_with_lse(q, k, v, None, band)
+        band_args = (q, k, v, o_band, lse_band, do, None, band, None, 0, 0)
+        band_split = lambda: run_bwd(torch, False, *band_args)
+        for _ in range(2):
+            dev = kernel_device_ms(torch, band_split, split_syms)
+            for key in band_turns:
+                band_turns[key].append(dev[sym[key]])
+        band_pairs = valid_pairs(None, B, T, band, 0, 0)
 
     def bound_of(key, n_pairs):
         n_products, nbytes = work[key]
@@ -1014,36 +1030,75 @@ def phase_kernels_bwd(torch, registers: dict):
         return max(t_ops, t_bytes), flops, "operations" if t_ops >= t_bytes else "bytes"
 
     out = {}
-    for key, (symbol, line, body) in BWD_KERNELS.items():
+    for key in BWD_KERNELS:
         bound, flops, bound_by = bound_of(key, pairs)
         ms = min(turns[key])
-        log(f"  {key} at (4, 2048, 6, 128) bf16: device time per launch "
+        log(f"  {key} at {shape} bf16: device time per launch "
             + " / ".join(f"{x:.4f}" for x in turns[key]) + f" ms ({flops / ms / 1e9:.1f} TFLOP/s, "
             f"{100 * bound / ms:.1f}% of its {bound:.4f} ms bound; cuDNN's backward "
-            f"{library_ms:.4f} ms, {ms / library_ms:.2f}x); {registers.get(symbol, '?')} registers")
-        out[key] = {
-            "name": key, "route": "cuda",
-            "source": "lcasr_torch/csrc/flash_attn_bwd.cu",
-            "replaces": f"lcasr_tpu/ops/flash_attention.py:{line}",
-            "replaces_fn": f"lcasr_tpu/ops/flash_attention.py:{body}",
-            "launches": None, "max_abs_err": worst[key], "ms": ms, "ms_turns": turns[key],
-            "plain_ms": plain_ms, "library_ms": library_ms, "library_ms_turns": library,
-            "bound_ms": bound, "bound_by": bound_by,
-            "registers": registers.get(symbol),
-        }
-        if key in band_turns:
+            f"{library_ms:.4f} ms, {ms / library_ms:.2f}x)")
+        out[key] = {"ms": ms, "ms_turns": turns[key], "plain_ms": plain_ms,
+                    "library_ms": library_ms, "library_ms_turns": library,
+                    "bound_ms": bound, "bound_by": bound_by,
+                    "wrapper_ms": fused_ms if key.endswith("fused") else split_ms}
+        if band is not None and key in band_turns:
             b_bound, b_flops, b_by = bound_of(key, band_pairs)
             b_ms = min(band_turns[key])
-            log(f"  {key} at (4, 2048, 6, 128) bf16, window (256, 256), {band_pairs} valid pairs: "
+            log(f"  {key} at {shape} bf16, window {band}, {band_pairs} valid pairs: "
                 f"device time per launch " + " / ".join(f"{x:.4f}" for x in band_turns[key])
                 + f" ms ({b_flops / b_ms / 1e9:.1f} TFLOP/s, {100 * b_bound / b_ms:.1f}% of its "
                 f"{b_bound:.4f} ms bound by {b_by})")
             out[key].update(ms_band_256=b_ms, ms_band_256_turns=band_turns[key],
                             bound_ms_band_256=b_bound, bound_by_band_256=b_by)
-    log(f"  wrappers at (4, 2048, 6, 128): K3 path {fused_ms:.4f} ms, K4+K5 path "
+    log(f"  wrappers at {shape}: K3 path {fused_ms:.4f} ms, K4+K5 path "
         f"{split_ms:.4f} ms (delta, dq scale and casts included); plain {plain_ms:.4f} ms")
-    for key in out:
-        out[key]["wrapper_ms"] = fused_ms if key.endswith("fused") else split_ms
+    return out
+
+
+def phase_kernels_bwd(torch, registers: dict):
+    """K3 and K4 + K5 on every attention case (the forward's, the backward's
+    tile edges) and on the D = 256 cases, bit-equality of dk and dv across
+    runs and between K5 and K3; then their device time per launch at a
+    16384 x 4 micro step's shape, at D = 128 (the flagship) and D = 256
+    (lcasr_6l_768d_3h), each beside its bound and cuDNN's backward.
+    `registers`: ptxas's entries of each kernel template, for the record."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    worst = {name: 0.0 for name in BWD_KERNELS}
+    worst_d256 = {name: 0.0 for name in BWD_KERNELS}
+    n_equal = 0
+    for case in attention_cases(torch) + bwd_d256_cases(torch):
+        errs = bwd_case(torch, case, gen)
+        if case[5] == torch.bfloat16:
+            w = worst_d256 if case[4] == 256 else worst
+            w["flash_attention_bwd_fused"] = max(w["flash_attention_bwd_fused"],
+                                                 *errs.get("K3", [0.0]))
+            w["flash_attention_bwd_dq"] = max(w["flash_attention_bwd_dq"], errs["K4+K5"][0])
+            w["flash_attention_bwd_dkv"] = max(w["flash_attention_bwd_dkv"], *errs["K4+K5"][1:])
+            n_equal += "K3" in errs
+    log(f"  dk, dv the same bits in two runs of each route on every case, K4's dq in two "
+        f"runs of the split route; K5's dk, dv bit-equal to K3's on the {n_equal} bf16 cases "
+        f"both take")
+
+    # the split path under the band of the repo's hour-scale configuration
+    # (configs/cp_1hour_tiny.yaml, attention_window_size 256)
+    times = bwd_timings(torch, TRAIN_ATTN_SHAPE, gen, band=(256, 256))
+    times_d256 = bwd_timings(torch, D256_TRAIN_ATTN_SHAPE, gen)
+    out = {}
+    for key, (symbol, line, body) in BWD_KERNELS.items():
+        sym256 = symbol.replace("<128", "<256")
+        entry, entry256 = registers.get(symbol, {}), registers.get(sym256, {})
+        log(f"  {key}: ptxas {symbol} {entry}, {sym256} {entry256}")
+        out[key] = dict(times[key], **{
+            "name": key, "route": "cuda",
+            "source": "lcasr_torch/csrc/flash_attn_bwd.cu",
+            "replaces": f"lcasr_tpu/ops/flash_attention.py:{line}",
+            "replaces_fn": f"lcasr_tpu/ops/flash_attention.py:{body}",
+            "launches": None, "max_abs_err": worst[key],
+            "registers": entry.get("registers"),
+            "max_abs_err_d256": worst_d256[key], "registers_d256": entry256.get("registers"),
+            "spill_bytes_d256": entry256.get("spill_stores", 0) + entry256.get("spill_loads", 0),
+        })
+        out[key].update({f"{name}_d256": value for name, value in times_d256[key].items()})
     return out
 
 
@@ -2029,6 +2084,100 @@ class TrainRun:
             self.pairs, self.tok, batch_size=4, chunk_size=PODCAST_FRAMES, chunk_overlap=0)))
         return batch, make_chunks(*batch[:3], self.tok, PODCAST_FRAMES, 0, self.tok.pad_id())[0]
 
+    def make_chunks_both_ways(self, batch) -> dict:
+        """`make_chunks` of one 16384 x 4 batch with the Python BPE and with
+        the native BPE, in turns (Python, native, native, Python), each the
+        median of 3 calls; the two give the same chunks."""
+        import numpy as np
+
+        from lcasr_torch.data.tokenizer import load_tokenizer
+        from lcasr_torch.training.trainer import make_chunks
+
+        toks = {"python": load_tokenizer(use_native=False), "native": self.tok}
+        chunks = {kind: make_chunks(*batch[:3], tok, PODCAST_FRAMES, 0, tok.pad_id())
+                  for kind, tok in toks.items()}
+        if not (len(chunks["python"]) == len(chunks["native"]) and all(
+                np.array_equal(a[k], b[k]) for a, b in zip(chunks["python"], chunks["native"])
+                for k in a)):
+            raise AssertionError("make_chunks differs between the Python and the native BPE")
+        turns = {"python": [], "native": []}
+        for kind in ("python", "native", "native", "python"):
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                make_chunks(*batch[:3], toks[kind], PODCAST_FRAMES, 0, toks[kind].pad_id())
+                times.append((time.perf_counter() - t0) * 1e3)
+            turns[kind].append(float(np.median(times)))
+        n_words = sum(len(t) for t in batch[2])
+        log(f"  {self.what} make_chunks of one 16384x4 batch ({n_words} words), labels equal: "
+            f"Python BPE {turns['python']} ms, native BPE {turns['native']} ms (turns)")
+        return {"make_chunks_ms_python": turns["python"], "make_chunks_ms_native": turns["native"]}
+
+    def host_side_runs(self, model) -> dict:
+        """One epoch of the 16 podcasts at 16384 x 4 (4 optimizer steps, a
+        batch each) through `Trainer.train` with the Python data path (no
+        prefetch, the Python BPE and `np.load`) and with the native one
+        (the prefetch thread, the native BPE and the native reader), in
+        turns (python, native, native, python): the steady step is the
+        median gap between the optimizer steps' log rows, which spans
+        loading, make_chunks, the micro step and the optimizer step.  Then
+        one profiled epoch of each for the device's idle share.  No
+        checkpoint is written at the end of these epochs."""
+        import tempfile
+
+        import numpy as np
+
+        from lcasr_torch.config import Config
+        from lcasr_torch.data.dataloading import VariableBatchSimpleDataloader
+        from lcasr_torch.data.tokenizer import load_tokenizer
+        from lcasr_torch.training.trainer import Trainer
+
+        torch = self.torch
+        base = merged({k: v for k, v in self.cfg_d.items() if k != "sequence_scheduler"},
+                      {"audio_chunking": {"size": PODCAST_FRAMES}, "training": {"batch_size": 4}})
+        toks = {"python": load_tokenizer(use_native=False), "native": self.tok}
+
+        def epoch(kind, profile_file=None):
+            ckpt = tempfile.mkdtemp(dir=self.tmp)
+            tr = Trainer(Config(merged(base, {"checkpointing": {"dir": ckpt}})), model,
+                         toks[kind], device=DEVICE)
+            tr.init_state()
+            tr.save = lambda *a, **k: None
+            new = kind == "native"
+            loader = VariableBatchSimpleDataloader(
+                self.pairs, toks[kind], batch_size=4, chunk_size=PODCAST_FRAMES,
+                chunk_overlap=0, prefetch=new, native=new)
+            torch.cuda.synchronize()
+            if profile_file:
+                rows = profile_run(torch, lambda: tr.train(loader), profile_file,
+                                   f"one {self.what} epoch, {kind} data path")
+                wall = float(open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                               profile_file)).readline().split()[1])
+                return 1 - sum(r[0] for r in rows) / wall if rows else None
+            tr.train(loader)
+            torch.cuda.synchronize()
+            ts = [json.loads(line)["ts"] for line in open(os.path.join(ckpt, "metrics.jsonl"))
+                  if '"loss"' in line]
+            gaps = [(b - a) * 1e3 for a, b in zip(ts, ts[1:])]
+            if len(ts) != N_PODCASTS // 4:
+                raise AssertionError(f"{len(ts)} optimizer steps in an epoch of {N_PODCASTS} "
+                                     f"podcasts at batch 4")
+            return float(np.median(gaps)), gaps
+
+        steps = {"python": [], "native": []}
+        for kind in ("python", "native", "native", "python"):
+            med, gaps = epoch(kind)
+            steps[kind].append(med)
+            log(f"  {self.what} 16384x4 epoch, {kind} data path: step gaps "
+                f"{[round(g, 2) for g in gaps]} ms, steady {med:.2f} ms")
+        idle = {kind: epoch(kind, f"{self.what.lower()}_epoch_{kind}_profile.txt")
+                for kind in ("python", "native")}
+        log(f"  {self.what} steady 16384x4 step: Python data path {steps['python']} ms, "
+            f"native {steps['native']} ms (turns); device idle share over a profiled epoch: "
+            f"Python {idle['python']}, native {idle['native']}")
+        return {"step_ms_python": steps["python"], "step_ms_native": steps["native"],
+                "idle_share_python": idle["python"], "idle_share_native": idle["native"]}
+
     def timed_step(self, trainer, chunk, profile_file: str) -> list:
         """One 16384 x 4 training step (micro step + optimizer step) without
         data loading: synchronised wall times, then its profile (returned as
@@ -2208,7 +2357,7 @@ def phase_train(torch, workdir: str):
     from lcasr_torch.config import Config
     from lcasr_torch.models.registry import load_model
     from lcasr_torch.models.sconformer_xl import init_weights_
-    from lcasr_torch.training.trainer import Trainer, make_chunks
+    from lcasr_torch.training.trainer import Trainer
 
     def fresh_model(seed, config):
         return init_weights_(load_model(config, 4095, device=DEVICE), seed=seed)
@@ -2232,10 +2381,9 @@ def phase_train(torch, workdir: str):
     gradient_gate("flagship", "plain fp32 attention", one_step, plain_attention(),
                   {"plain bf16 attention": plain_attention(bf16=True)})
     trainer.zero_pending()  # kept, the gradients would count in the 120000-frame step's peak
-
-    t0 = time.perf_counter()
-    make_chunks(*batch[:3], run.tok, PODCAST_FRAMES, 0, run.tok.pad_id())
-    log(f"  make_chunks on the host (transcripts, BPE): {(time.perf_counter() - t0) * 1e3:.2f} ms")
+    host = run.make_chunks_both_ways(batch)
+    host["remat_dots"] = remat_dots_step(torch, model, one_step)
+    trainer.zero_pending()
     rows = run.timed_step(trainer, chunk, "train_profile.txt")
     k3_symbol = BWD_KERNELS["flash_attention_bwd_fused"][0].replace(" ", "")
     k3_rows = [r for r in rows if k3_symbol in r[2].replace(" ", "")]
@@ -2263,8 +2411,224 @@ def phase_train(torch, workdir: str):
         raise AssertionError("the banded step did not run K4 + K5 once per layer")
     del band
 
+    host.update(run.host_side_runs(model))
     run.long_step(model)
-    return launches, band_launches, k3_step
+    return launches, band_launches, k3_step, host
+
+
+@contextlib.contextmanager
+def remat_policy(model, policy: str):
+    """The model's checkpointed layers under another remat policy while
+    inside (the attribute `SCConformerXL.__init__` sets from it)."""
+    from lcasr_torch.models import sconformer_xl
+
+    old = model.remat_contexts
+    model.remat_contexts = {"nothing": sconformer_xl._remat_contexts,
+                            "dots": sconformer_xl._remat_contexts_dots}[policy]
+    try:
+        yield
+    finally:
+        model.remat_contexts = old
+
+
+# one 16384 x 4 flagship micro step under remat_policy "dots": the matrix
+# products' outputs are saved, and K1 (no aten op) is recomputed, as JAX's
+# dots_saveable recomputes its Pallas call: per layer K1 in the forward and
+# again in the recompute, K3 once
+DOTS_LAUNCHES = {"flash_attention_fwd": 18, "flash_attention_bwd_fused": 9}
+# "dots" computes what "nothing" computes, so the two steps differ only as
+# two runs of one step do (K3's dq atomics); these floors keep a rerun that
+# happens to repeat the bits from closing the gate at 0
+DOTS_FLOORS = (1e-4, 1e-6)
+
+
+def remat_dots_step(torch, model, one_step) -> dict:
+    """The flagship's 16384 x 4 micro step under remat_policy "dots": its
+    launch counts, its peak memory beside "nothing"'s, and its gradients
+    held to "nothing"'s by the gradient gate, whose yardstick is a rerun of
+    the "nothing" step (K3 adds dq by atomics, so two runs differ)."""
+    from lcasr_torch import kernels
+
+    peaks = {}
+    for policy in ("nothing", "dots"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        with remat_policy(model, policy):
+            one_step()
+        torch.cuda.synchronize()
+        peaks[policy] = torch.cuda.max_memory_allocated() / 1e9
+        launches = expect_launches(DOTS_LAUNCHES, f"one flagship micro step, remat {policy}")
+    log(f"  flagship 16384x4 micro step: launches under remat dots {launches}; peak memory "
+        f"{peaks['dots']:.2f} GB under dots, {peaks['nothing']:.2f} GB under nothing")
+    gate = gradient_gate("flagship under remat_policy dots", "remat_policy nothing", one_step,
+                         contextlib.nullcontext(), {"a rerun": contextlib.nullcontext()},
+                         floors=DOTS_FLOORS, kernel_ctx=remat_policy(model, "dots"),
+                         plain_contexts=False)
+    return {"launches": launches, "peak_gb_dots": peaks["dots"],
+            "peak_gb_nothing": peaks["nothing"], "gate": gate}
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: lcasr_6l_768d_3h (head_dim 256) trains on K1 and K3
+# ---------------------------------------------------------------------------
+# configs/model_zoo.yaml:63-68 on the ladder configuration: 3 heads x 256
+D256_TRAIN_CONFIG = merged(LADDER_CONFIG, {"model": {"n_layers": 6, "n_heads": 3,
+                                                     "head_dim": 256}})
+# per micro step: K1 in each layer's forward and recompute, K3 once a layer
+D256_TRAIN_LAUNCHES = {"flash_attention_fwd": 12, "flash_attention_bwd_fused": 6}
+D256_OPT_STEPS = 5
+
+
+def phase_train_d256(torch, workdir: str) -> dict:
+    """lcasr_6l_768d_3h at its full size: one 16384 x 4 micro step with its
+    launch counts, the gradient gate against plain fp32 attention (plain
+    bf16 attention the yardstick), D256_OPT_STEPS optimizer steps on the
+    same chunk with a finite, falling loss, and the steady step's wall and
+    device busy time."""
+    import numpy as np
+
+    from lcasr_torch import kernels
+    from lcasr_torch.models.registry import load_model
+    from lcasr_torch.models.sconformer_xl import init_weights_
+    from lcasr_torch.training.trainer import Trainer
+
+    def fresh_model(seed, config):
+        return init_weights_(load_model(config, 4095, device=DEVICE), seed=seed)
+
+    run = TrainRun(torch, workdir, D256_TRAIN_CONFIG, fresh_model, D256_TRAIN_LAUNCHES,
+                   "lcasr_6l_768d_3h")
+    model = fresh_model(0, run.cfg)
+    trainer = Trainer(run.cfg, model, run.tok, device=DEVICE)
+    trainer.init_state()
+    _, chunk = run.chunk_16384x4()
+    stats = [b.clone() for b in trainer._stat_buffers()]
+
+    def one_step():
+        trainer.zero_pending()
+        loss, _ = trainer.micro_step(chunk)
+        for b, old in zip(trainer._stat_buffers(), stats):
+            b.copy_(old)
+        return float(loss), flat_grads(model)
+
+    kernels.reset_launch_counts()
+    one_step()
+    launches = expect_launches(D256_TRAIN_LAUNCHES, "one lcasr_6l_768d_3h micro step")
+    gate = gradient_gate("lcasr_6l_768d_3h", "plain fp32 attention", one_step, plain_attention(),
+                         {"plain bf16 attention": plain_attention(bf16=True)})
+    losses = []
+    for _ in range(D256_OPT_STEPS):
+        trainer.zero_pending()
+        loss, _ = trainer.micro_step(chunk)
+        trainer.fold_group(100.0 / (PODCAST_FRAMES * 4))
+        trainer.optimizer_step(3e-4)
+        losses.append(float(loss))
+    log(f"  lcasr_6l_768d_3h: {D256_OPT_STEPS} optimizer steps on one 16384x4 chunk, "
+        f"loss {[round(x, 3) for x in losses]}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"lcasr_6l_768d_3h loss {losses} is not finite and falling")
+    rows = run.timed_step(trainer, chunk, "train_d256_profile.txt")
+    return {"launches": launches, "gate": gate, "losses": losses,
+            "device_busy_ms": sum(r[0] for r in rows) / 1e3}
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: presegmented utterances, debug hooks, wild-card CTC
+# ---------------------------------------------------------------------------
+N_UTTERANCES, UTTERANCE_FRAMES, UTTERANCE_BATCH = 64, 2048, 16
+WCTC_SHAPE = (4, 256, 4096, 40)  # (B, T, classes, labels): a 2048-frame batch's lattice
+WCTC_TOL = 1e-4  # of the CPU's largest |value| / |gradient|: fp32 sums in another order
+
+
+def phase_utterances(torch, workdir: str) -> dict:
+    """64 seeded 2048-frame utterances written by `save_utterances`, then
+    the flagship trained on them through `Trainer.train_utterances` (4
+    optimizer steps of 16) with `debug_hooks` on: every step's loss finite,
+    its gradient statistics logged with a finite global norm, and 18 K1 and
+    9 K3 launches a step.  Then `wctc_loss` on the card, its value and
+    gradient in each mode against the CPU's."""
+    import tempfile
+
+    import numpy as np
+
+    from lcasr_torch import kernels
+    from lcasr_torch.config import Config
+    from lcasr_torch.data.tokenizer import load_tokenizer
+    from lcasr_torch.data.utterances import UtteranceDataloader, save_utterances
+    from lcasr_torch.models.registry import load_model
+    from lcasr_torch.models.sconformer_xl import init_weights_
+    from lcasr_torch.ops.ctc import wctc_loss
+    from lcasr_torch.training.trainer import Trainer
+
+    tmp = tempfile.mkdtemp(dir=workdir)
+    per_rec = PODCAST_FRAMES // UTTERANCE_FRAMES
+    pairs = make_corpus(tmp, [PODCAST_FRAMES] * (N_UTTERANCES // per_rec), seed=4)
+    tok = load_tokenizer()
+    utt_dir = os.path.join(tmp, "utterances")
+    t0 = time.perf_counter()
+    saved = save_utterances(pairs, utt_dir, tok, chunk_size=UTTERANCE_FRAMES)
+    save_s = time.perf_counter() - t0
+    if len(saved) != N_UTTERANCES:
+        raise AssertionError(f"save_utterances wrote {len(saved)} files, not {N_UTTERANCES}")
+    cfg = Config(merged({k: v for k, v in LADDER_CONFIG.items() if k != "sequence_scheduler"},
+                        {"training": {"batch_size": UTTERANCE_BATCH},
+                         "data": {"utterances_dir": utt_dir},
+                         "checkpointing": {"dir": os.path.join(tmp, "ckpt")}}))
+    model = init_weights_(load_model(cfg, tok.vocab_size(), device=DEVICE), seed=0)
+    trainer = Trainer(cfg, model, tok, device=DEVICE)
+    trainer.debug_hooks = True
+    loader = UtteranceDataloader(utt_dir, batch_size=UTTERANCE_BATCH,
+                                 random_seed=cfg["training"]["random_seed"])
+    n_steps = N_UTTERANCES // UTTERANCE_BATCH
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    steps = trainer.train_utterances(loader)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = expect_launches({"flash_attention_fwd": 18 * n_steps,
+                                "flash_attention_bwd_fused": 9 * n_steps},
+                               f"{n_steps} utterance steps")
+    rows = [json.loads(line) for line in open(os.path.join(tmp, "ckpt", "metrics.jsonl"))]
+    losses = [r["loss"] for r in rows if "utterance_step" in r]
+    norms = [r["grad/global_norm"] for r in rows if "grad/global_norm" in r]
+    n_stats = max(len(r) for r in rows if "grad/global_norm" in r) if norms else 0
+    log(f"  {N_UTTERANCES} utterances saved in {save_s:.2f} s; train_utterances: {steps} steps "
+        f"in {train_s:.2f} s, loss {[round(x, 3) for x in losses]}, grad/global_norm "
+        f"{[round(x, 4) for x in norms]} ({n_stats} statistics a step), launches {launches}")
+    if not (steps == n_steps and len(losses) == n_steps and all(np.isfinite(losses))
+            and len(norms) == n_steps and all(np.isfinite(norms))):
+        raise AssertionError("utterance training: a step, a loss or a gradient norm is missing "
+                             "or not finite")
+    del trainer, model
+
+    # wild-card CTC on the card against the CPU, every mode, ragged lengths
+    B, T, C, U = WCTC_SHAPE
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(B, T, C)).astype(np.float32)).log_softmax(-1)
+    labels = torch.from_numpy(rng.integers(0, C - 1, (B, U)))
+    il = torch.tensor([T, T - 37, T // 2, T - 1])
+    ll = torch.tensor([U, U - 9, U // 2, 0])
+    wctc = {}
+    for mode in ("soft", "max_prob", "sum_prob"):
+        out = {}
+        for dev in ("cpu", DEVICE):
+            lp = x.to(dev).detach().requires_grad_()
+            t0 = time.perf_counter()
+            value = wctc_loss(lp, labels.to(dev), il.to(dev), ll.to(dev), mode=mode)
+            value.backward()
+            if dev != "cpu":
+                torch.cuda.synchronize()
+            out[dev] = (value.item(), lp.grad.cpu(), (time.perf_counter() - t0) * 1e3)
+        v_err = abs(out[DEVICE][0] - out["cpu"][0]) / abs(out["cpu"][0])
+        g_err = float((out[DEVICE][1] - out["cpu"][1]).abs().max() / out["cpu"][1].abs().max())
+        log(f"  wctc_loss {mode} at {WCTC_SHAPE}: value {out[DEVICE][0]:.4f} (rel {v_err:.2e} "
+            f"against the CPU), gradient {g_err:.2e} of the largest; card {out[DEVICE][2]:.1f} "
+            f"ms with the backward, CPU {out['cpu'][2]:.1f} ms (tolerance {WCTC_TOL:g})")
+        if not (v_err <= WCTC_TOL and g_err <= WCTC_TOL):
+            raise AssertionError(f"wctc_loss {mode} on the card disagrees with the CPU")
+        wctc[mode] = {"value_rel_err": v_err, "grad_err": g_err, "card_ms": out[DEVICE][2]}
+    return {"steps": steps, "losses": losses, "global_norms": norms, "launches": launches,
+            "wctc": wctc}
 
 
 # ---------------------------------------------------------------------------
@@ -2465,7 +2829,7 @@ def phase_mamba_train(torch, workdir: str):
                    {"selective_scan_fwd": n_layers * (2 if remat else 1),
                     "selective_scan_bwd": n_layers}, "Mamba")
     trainer, model, launches = run.ladder()
-    _, chunk = run.chunk_16384x4()
+    batch, chunk = run.chunk_16384x4()
 
     def one_step():
         trainer.zero_pending()
@@ -2481,9 +2845,11 @@ def phase_mamba_train(torch, workdir: str):
                                                            "selective_scan_bwd"))
     k6_step = profile_share(rows, fwd_prefix, "K6", "the 16384x4 Mamba step")
     k7_step = profile_share(rows, bwd_prefix, "K7 (5 kernels a call)", "the 16384x4 Mamba step")
+    host = run.make_chunks_both_ways(batch)
+    host.update(run.host_side_runs(model))
     long_ms = run.long_step(model, kernel_prefixes=(fwd_prefix, bwd_prefix))
     k6_step["long_step_ms"], k7_step["long_step_ms"] = long_ms[fwd_prefix], long_ms[bwd_prefix]
-    return launches, k6_step, k7_step
+    return launches, k6_step, k7_step, host
 
 
 # ---------------------------------------------------------------------------
@@ -2609,31 +2975,55 @@ def phase_audio(torch, workdir: str, seed: int) -> dict:
     import numpy as np
 
     from lcasr_torch.data import audio
-    from lcasr_torch.data.audio import SR, grab_left_channel, load_audio, mel_spectrogram, resample
+    from lcasr_torch.data.audio import (
+        SR, grab_left_channel, load_audio, load_left_channel, mel_spectrogram, resample)
     from lcasr_torch.models.sconformer_xl import FLAGSHIP
 
     wav = os.path.join(workdir, "smoke.wav")
     write_wav(wav, WAV_SECONDS, WAV_RATE, seed)
     out = {}
+    # the host parse of `load_audio` (both channels converted, the left one
+    # copied out) and of `load_left_channel` (the left channel, one copy),
+    # in turns
+    def both_channels():
+        wave, sr = load_audio(wav)
+        return np.ascontiguousarray(grab_left_channel(wave)), sr
+
+    parse = {"both": [], "left": []}
+    lefts = {}
+    for kind, fn in (("both", both_channels), ("left", lambda: load_left_channel(wav)),
+                     ("left", lambda: load_left_channel(wav)), ("both", both_channels)):
+        t0 = time.perf_counter()
+        lefts[kind] = fn()
+        parse[kind].append(1e3 * (time.perf_counter() - t0))
+    (left_np, sr), (left_both, _) = lefts["left"], lefts["both"]
+    if not np.array_equal(left_np, left_both):
+        raise AssertionError("the left channel differs between the two host parses")
+    load_s = min(parse["left"]) / 1e3
     # the frontend, stage by stage: host parse, then the card
-    t0 = time.perf_counter()
-    wave, sr = load_audio(wav)
-    load_s = time.perf_counter() - t0
-    left = torch.from_numpy(np.ascontiguousarray(grab_left_channel(wave))).to(DEVICE)
+    left = torch.from_numpy(left_np).to(DEVICE)
     wave16, resample_s = synced_s(torch, lambda: resample(left, sr, SR))
     mel, mel_s = synced_s(torch, lambda: mel_spectrogram(wave16))
+    mel_both = mel_spectrogram(resample(torch.from_numpy(left_both).to(DEVICE), sr, SR))
+    if not torch.equal(mel, mel_both):
+        raise AssertionError("the mel differs between the two host parses")
+    log(f"  host WAV parse of {WAV_SECONDS} s stereo int16 at {sr} Hz: load_audio (both "
+        f"channels) {[round(x, 1) for x in parse['both']]} ms, load_left_channel "
+        f"{[round(x, 1) for x in parse['left']]} ms (turns); the mel the same bits")
+    out.update(parse_ms_both_channels=parse["both"], parse_ms_left_channel=parse["left"])
+    wave = np.ascontiguousarray(left_np)
     if tuple(mel.shape) != (1, 80, WAV_SECONDS * 100 + 1) or not torch.isfinite(mel).all():
         raise AssertionError(f"mel {tuple(mel.shape)}, finite {bool(torch.isfinite(mel).all())}")
     # the plain float64 frontend on the CPU on the same samples: the
     # resampler on the first minute, the mel on the whole 16 kHz waveform
-    head = torch.from_numpy(grab_left_channel(wave)[:, : 60 * sr].astype(np.float64))
+    head = torch.from_numpy(wave[:, : 60 * sr].astype(np.float64))
     g = math.gcd(sr, SR)
     ref16 = audio._resample_poly(head, SR // g, sr // g)  # float64 on the CPU
     got16 = resample(head.to(DEVICE).float(), sr, SR).double().cpu()
     r_err = float((got16 - ref16).abs().max() / ref16.abs().max())
     ref_mel = mel_spectrogram(wave16.double().cpu())
     m_err = float((mel.double().cpu() - ref_mel).abs().max() / ref_mel.abs().max())
-    log(f"  frontend of {WAV_SECONDS} s at {sr} Hz stereo int16: load_audio {1e3 * load_s:.1f} ms "
+    log(f"  frontend of {WAV_SECONDS} s at {sr} Hz stereo int16: host parse {1e3 * load_s:.1f} ms "
         f"(host), resample on the card {1e3 * resample_s:.2f} ms, mel {1e3 * mel_s:.2f} ms; "
         f"card against float64 CPU: resample {r_err:.2e} (tol {RESAMPLE_TOL:g}), mel "
         f"{m_err:.2e} of the largest value (tol {MEL_TOL:g})")
@@ -2641,7 +3031,7 @@ def phase_audio(torch, workdir: str, seed: int) -> dict:
         raise AssertionError(f"the card's frontend disagrees: resample {r_err}, mel {m_err}")
     out.update(load_audio_ms=1e3 * load_s, resample_ms=1e3 * resample_s, mel_ms=1e3 * mel_s,
                resample_err=r_err, mel_err=m_err)
-    del left, wave16, mel, ref_mel, wave
+    del left, wave16, mel, mel_both, ref_mel, wave, lefts, left_np, left_both
 
     base = os.path.join(workdir, "rev16")
     rev16_layout(base, wav, "the podcast has these words about long context speech")
@@ -2821,7 +3211,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gpu = gpu_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
-    log("[1/11] build")
+    log("[1/13] build")
     build_s = kernels.build()
     log(f"  build {build_s:.2f} s into {kernels.BUILD_DIR}")
     for src, text in kernels.build_log.items():
@@ -2837,25 +3227,24 @@ def main() -> int:
     results = {}
     workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_train")
     if "kernels" in phases:
-        log("[2/11] kernels against their plain versions")
+        log("[2/13] kernels against their plain versions")
         results["flash_attention_fwd"] = phase_kernels(torch)
         results["flash_attention_fwd_db"] = phase_kernels_db(torch)
         fwd_registers = {**template_entries(kernels.build_log["flash_attn_fwd.cu"]),
                          **template_entries(kernels.build_log["flash_attn_fwd_db.cu"])}
         for name, numbers in phase_kernels_d256(torch, fwd_registers).items():
             results[name].update(numbers)
-        bwd_registers = {name: e.get("registers") for name, e in
-                         template_entries(kernels.build_log["flash_attn_bwd.cu"]).items()}
-        results.update(phase_kernels_bwd(torch, bwd_registers))
+        results.update(phase_kernels_bwd(
+            torch, template_entries(kernels.build_log["flash_attn_bwd.cu"])))
         results.update(phase_kernels_ssm(torch))
         results["subsampling_fused"] = phase_kernels_sub(torch)
     model = None
     if "model" in phases:
-        log("[3/11] flagship model, one window batch")
+        log("[3/13] flagship model, one window batch")
         model = flagship_model(torch)
         phase_model(torch, model, plain_attention(), "flagship")
     if "decode" in phases:
-        log("[4/11] 20-minute streaming greedy decode (the serving path)")
+        log("[4/13] 20-minute streaming greedy decode (the serving path)")
         model = model or flagship_model(torch)
         launches, _, rows = phase_decode(torch, model,
                                          {"flash_attention_fwd": EXPECTED_LAUNCHES},
@@ -2870,11 +3259,11 @@ def main() -> int:
             f"(kernel phase, launches back to back: {k1.get('ms')} ms)")
     del model
     if "train" in phases:
-        log("[5/11] training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1 "
+        log("[5/13] training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1 "
             "(the training path)")
         os.makedirs(workdir, exist_ok=True)
         try:
-            ladder, banded, k3_step = phase_train(torch, workdir)
+            ladder, banded, k3_step, host = phase_train(torch, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         # K3 runs on the flagship's (non-banded) path: its count is the
@@ -2887,8 +3276,32 @@ def main() -> int:
         results.setdefault("flash_attention_fwd", {"name": "flash_attention_fwd"})[
             "launches_ladder"] = ladder["flash_attention_fwd"]
         results["flash_attention_bwd_fused"]["train_step_profile"] = k3_step
+        results["flash_attention_fwd"]["train_host_side"] = host
+    if "train_d256" in phases:
+        log("[6/13] lcasr_6l_768d_3h (head_dim 256) trains: K1 and K3 at D = 256")
+        os.makedirs(workdir, exist_ok=True)
+        try:
+            d256 = phase_train_d256(torch, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        for key in ("flash_attention_fwd", "flash_attention_bwd_fused"):
+            entry = results.setdefault(key, {"name": key})
+            entry["launches_train_d256"] = d256["launches"][key]
+        results["flash_attention_bwd_fused"]["train_d256"] = {
+            k: v for k, v in d256.items() if k != "launches"}
+    if "utterances" in phases:
+        log("[7/13] utterance training with debug hooks, and wild-card CTC on the card")
+        os.makedirs(workdir, exist_ok=True)
+        try:
+            utt = phase_utterances(torch, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        for key in ("flash_attention_fwd", "flash_attention_bwd_fused"):
+            results.setdefault(key, {"name": key})["launches_utterances"] = utt["launches"][key]
+        results["flash_attention_fwd"]["utterances_phase"] = {
+            k: v for k, v in utt.items() if k != "launches"}
     if "mamba_decode" in phases:
-        log("[6/11] Mamba: one window batch, then the 20-minute streaming greedy decode")
+        log("[8/13] Mamba: one window batch, then the 20-minute streaming greedy decode")
         model = mamba_model(torch)
         phase_model(torch, model, plain_scan(torch.float32), "Mamba")
         launches, rtfx, rows = phase_decode(
@@ -2900,10 +3313,10 @@ def main() -> int:
         k6["decode_profile"] = dict(profile_share(rows, SSM_KERNELS["selective_scan_fwd"][0],
                                                   "K6", "the Mamba decode"), rtfx=rtfx)
     if "mamba_train" in phases:
-        log("[7/11] Mamba training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1")
+        log("[9/13] Mamba training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1")
         os.makedirs(workdir, exist_ok=True)
         try:
-            ladder, k6_step, k7_step = phase_mamba_train(torch, workdir)
+            ladder, k6_step, k7_step, host = phase_mamba_train(torch, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
         # K7 runs only in training: its count is the ladder run's
@@ -2913,15 +3326,16 @@ def main() -> int:
         k6 = results.setdefault("selective_scan_fwd", {"name": "selective_scan_fwd"})
         k6["launches_ladder"] = ladder["selective_scan_fwd"]
         k6["train_step_profile"] = k6_step
+        k6["train_host_side"] = host
     if "decode_opt" in phases:
-        log("[8/11] the opt-in decode configuration (K2, K8) and the decoder's options")
+        log("[10/13] the opt-in decode configuration (K2, K8) and the decoder's options")
         launches, mamba_launches, numbers = phase_decode_opt(torch)
         for key in ("flash_attention_fwd_db", "subsampling_fused"):
             results.setdefault(key, {"name": key})["launches"] = launches[key]
         results["subsampling_fused"]["launches_mamba_decode"] = mamba_launches["subsampling_fused"]
         results["subsampling_fused"].update(numbers)
     if "train_opt" in phases:
-        log("[9/11] one training step under both flags, and under each alone, against the "
+        log("[11/13] one training step under both flags, and under each alone, against the "
             "same step without")
         os.makedirs(workdir, exist_ok=True)
         try:
@@ -2939,7 +3353,7 @@ def main() -> int:
         try:
             k1 = results.setdefault("flash_attention_fwd", {"name": "flash_attention_fwd"})
             if "audio" in phases:
-                log("[10/11] from a WAV file to a transcript and a WER: the frontend on the "
+                log("[12/13] from a WAV file to a transcript and a WER: the frontend on the "
                     "card, evaluate in its three modes, the head_dim-256 model")
                 audio = phase_audio(torch, audio_dir, args.seed)
                 k1["audio_phase"] = audio
@@ -2947,7 +3361,7 @@ def main() -> int:
                 results.setdefault("flash_attention_fwd_db", {"name": "flash_attention_fwd_db"})[
                     "launches_d256_decode"] = audio["wav_d256_k2"]["launches"]
             if "serve" in phases:
-                log("[11/11] the streaming server: 4 sessions on the flagship, then the CLI")
+                log("[13/13] the streaming server: 4 sessions on the flagship, then the CLI")
                 k1["serve_phase"] = phase_serve(torch, audio_dir, args.seed)
         finally:
             shutil.rmtree(audio_dir, ignore_errors=True)

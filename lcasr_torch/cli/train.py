@@ -30,7 +30,7 @@ def main(args=None):
     parser.add_argument("-anomaly", "--anomaly", action="store_true",
                         help="enable torch.autograd anomaly detection")
     parser.add_argument("-debug_hooks", "--debug_hooks", action="store_true",
-                        help="per-parameter gradient statistics (not ported yet)")
+                        help="log per-parameter gradient statistics")
     parser.add_argument("-coordinator", "--coordinator_address", default=None)
     parser.add_argument("--num_processes", type=int, default=None)
     parser.add_argument("--process_id", type=int, default=None)
@@ -38,8 +38,6 @@ def main(args=None):
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda; 'cpu' runs the plain versions)")
     ns = parser.parse_args(args)
-    if ns.debug_hooks:
-        raise NotImplementedError("-debug_hooks is not ported yet")
     if ns.coordinator_address or (ns.num_processes or 1) > 1:
         raise NotImplementedError("multi-host training is not ported yet")
     if ns.anomaly:
@@ -51,6 +49,7 @@ def main(args=None):
     tokenizer = load_tokenizer()
     model = load_model(config, tokenizer.vocab_size(), device=ns.device)
     trainer = Trainer(config, model, tokenizer, device=ns.device)
+    trainer.debug_hooks = ns.debug_hooks
     trainer.init_state()
     print(f"model: {count_params(model) / 1e6:.2f}M parameters")
 
@@ -67,8 +66,16 @@ def main(args=None):
         random_seed = int(time.time()) % 10000
         print(f"random seed: {random_seed}")
     random.seed(random_seed)
-    if config.get("data", Config({})).get("utterances_dir", None):
-        raise NotImplementedError("utterance training (data.utterances_dir) is not ported yet")
+    # presegmented-utterance training: data.utterances_dir holds the output
+    # of data.utterances.save_utterances
+    utt_dir = config.get("data", Config({})).get("utterances_dir", None)
+    if utt_dir:
+        from lcasr_torch.data.utterances import UtteranceDataloader
+
+        dataloader = UtteranceDataloader(utt_dir, batch_size=trainer.batch_size,
+                                         random_seed=random_seed)
+        trainer.train_utterances(dataloader, epochs=trainer.max_epochs)
+        return
 
     dataloader = VariableBatchSimpleDataloader(
         pairs=load_json(config["data"]["path"]),

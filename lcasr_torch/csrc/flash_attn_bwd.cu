@@ -25,8 +25,9 @@
 // not the memory, bound it (K4: 3 products, K5: 4).
 //
 // Design of K3 and K5 in bf16 (one template, `flash_bwd_hopper<D, WITH_DQ>`,
-// for D 128, 64 and 32): what the design does about that bound is keep the
-// tensor cores fed from shared memory and never stop them for a load.
+// for D 128, 64 and 32; D 256 below): what the design does about that bound
+// is keep the tensor cores fed from shared memory and never stop them for a
+// load.
 //   * One CTA of three warpgroups per (128-key tile, head, batch): K and V
 //     arrive once by TMA (128-byte swizzle; 64-byte at D 32) and stay in
 //     shared memory; a producer warp streams 64-row q and do tiles, with
@@ -67,9 +68,14 @@
 // and dq take 32 + 32 + 64 fp32 registers a thread; 128-key tiles (64 + 64
 // + 64) fitted too, without spills, and measured 2-3% slower
 // (scripts/attention_bwd_experiments.py variants, PERF.md).
+// D 256 (lcasr_6l_768d_3h: 3 heads x 256), where the Pallas `_bwd_impl`
+// shrinks its blocks: K3 / K5 take 64-key CTAs whose two consumers split the
+// work by role (one keeps dv, the other dk: `bwd_consumer_wide`) and add dq
+// from registers by atomics; K4 walks 32-key tiles.  The bounds are those of
+// D 128 at the same B x H x D.
 // fp32 inputs take SIMT kernels of the K4 / K3 structure (32-row tiles, four
-// threads per row, fp32 FMA, no tensor cores).  They are slow, and are
-// there because the JAX kernels accept fp32.
+// threads per row, eight at D 256, fp32 FMA, no tensor cores).  They are
+// slow, and are there because the JAX kernels accept fp32.
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
@@ -185,19 +191,31 @@ struct BwdTile {
   static constexpr CUtensorMapSwizzle TMA_SWIZZLE =
       D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   static constexpr int SBO = 8 * ROW_BYTES;  // bytes between 8-row groups
-  static constexpr int KV_ELEMS = HBK * D;
+  // keys per CTA: 128 (HBK, 64 per consumer), or 64 at D = 256, where both
+  // consumers work on the same 64 keys (WIDE, below)
+  static constexpr int KEYS = hopper::keys_per_tile<D>();
+  static constexpr bool WIDE = KEYS < HBK;
+  static constexpr int KV_ELEMS = KEYS * D;
   static constexpr int QT_ELEMS = HBQ * D;
   static constexpr uint32_t KV_BYTES = KV_ELEMS * 2;
   static constexpr uint32_t QT_BYTES = QT_ELEMS * 2;
-  // dq = ds k: at D 128 each consumer takes one 64-column block of dq; at
-  // D 64 and 32 a block is the whole width (a wgmma cannot take half of a
-  // swizzle atom along N) and consumer 0 takes it alone
-  static constexpr bool DQ_SPLIT = D == 128;
-  static constexpr int DQ_N = DQ_SPLIT ? 64 : D;
+  // dq = ds k: at D 128 each consumer takes one 64-column block of dq, at
+  // D 256 two; at D 64 and 32 a block is the whole width (a wgmma cannot
+  // take half of a swizzle atom along N) and consumer 0 takes it alone
+  static constexpr bool DQ_SPLIT = D >= 128;
+  static constexpr int DQ_N = DQ_SPLIT ? D / 2 : D;
+  // ds^T of the CTA (K3): KEYS keys x 64 q rows, bf16, one 128-byte
+  // swizzled block; two buffers, one at D = 256 (its barriers order the
+  // reuse, and shared memory has no room for a second)
+  static constexpr int DS_ELEMS = KEYS * HBQ;
+  static constexpr int DS_BUFS = WIDE ? 1 : 2;
+  // D = 256 hands p^T (fp32, 64 x 64) from one consumer to the other
+  static constexpr int P_FLOATS = WIDE ? KEYS * HBQ : 0;
+  // the consumers' dq parts on their way to the TMA reduce-add (D <= 128;
+  // D = 256 adds dq from registers)
+  static constexpr int DQ_STAGE_FLOATS = WIDE ? 0 : 2 * HBQ * DQ_N;
 };
 
-// ds^T of the CTA: 128 keys x 64 q rows, bf16, one 128-byte swizzled block
-constexpr int DS_ELEMS = HBK * HBQ;
 // a consumer's dq part on its way to the TMA reduce-add: 64 q rows x DQ_N
 // fp32, as blocks of 32 columns (128-byte rows, swizzled)
 constexpr int DQ_BOX_COLS = 32;
@@ -206,8 +224,10 @@ template <int D, bool WITH_DQ>
 constexpr size_t bwd_smem() {
   using TL = BwdTile<D>;
   return 1024 + 2 * (size_t)TL::KV_BYTES + 2 * HSTAGES * (size_t)TL::QT_BYTES +
-         (WITH_DQ ? 2 * DS_ELEMS * 2 + 2 * HBQ * TL::DQ_N * sizeof(float) : 0) +
-         2 * HSTAGES * HBQ * sizeof(float) + 8 * (1 + 2 * HSTAGES);
+         (WITH_DQ ? TL::DS_BUFS * TL::DS_ELEMS * 2 + TL::DQ_STAGE_FLOATS * sizeof(float)
+                  : 0) +
+         TL::P_FLOATS * sizeof(float) + 2 * HSTAGES * HBQ * sizeof(float) +
+         8 * (1 + 2 * HSTAGES);
 }
 
 // Issue acc (64 keys x 64 q rows) = A B^T over D: s^T = k q^T or dp^T = v do^T,
@@ -223,7 +243,7 @@ __device__ __forceinline__ void issue_keys_by_rows(float* acc,
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int blk = kk * 16 / TL::COLS, col = kk * 16 % TL::COLS;
-    const uint64_t da = hopper::smem_desc(sA + blk * HBK * TL::COLS + col, 16,
+    const uint64_t da = hopper::smem_desc(sA + blk * TL::KEYS * TL::COLS + col, 16,
                                           TL::SBO, TL::LAYOUT);
     const uint64_t db = hopper::smem_desc(sB + blk * HBQ * TL::COLS + col, 16,
                                           TL::SBO, TL::LAYOUT);
@@ -251,7 +271,7 @@ __device__ __forceinline__ void issue_rows_times_tile(float* acc,
   }
 }
 
-// Issue dq (64 q rows x DQ_N) = ds k over the CTA's 128 keys: A is ds^T in
+// Issue dq (64 q rows x DQ_N) = ds k over the CTA's KEYS keys: A is ds^T in
 // shared memory read MN-major (q rows contiguous), B the columns of the key
 // tile from `sK` read MN-major (not waited for).
 template <int D>
@@ -261,21 +281,182 @@ __device__ __forceinline__ void issue_dq(float* acc, const __nv_bfloat16* sDS,
   hopper::fence_all<TL::DQ_N / 2>(acc);
   hopper::wgmma_fence();
 #pragma unroll
-  for (int ks = 0; ks < HBK / 16; ++ks) {
+  for (int ks = 0; ks < TL::KEYS / 16; ++ks) {
     // 16 keys = 16 rows of 128 bytes; A spans one swizzle atom along M, so
     // only the 8-row stride is read (both offsets are set to it)
     const uint64_t da = hopper::smem_desc(sDS + ks * 16 * HBQ, 1024, 1024,
                                           hopper::SWIZZLE_128B);
     const uint64_t db = hopper::smem_desc(sK + ks * 16 * TL::COLS,
-                                          HBK * TL::ROW_BYTES, TL::SBO,
+                                          TL::KEYS * TL::ROW_BYTES, TL::SBO,
                                           TL::LAYOUT);
-    if constexpr (TL::DQ_N == 64)
+    if constexpr (TL::DQ_N == 128)
+      hopper::wgmma_m64n128k16_ss<1, 1>(acc, da, db, ks > 0);
+    else if constexpr (TL::DQ_N == 64)
       hopper::wgmma_m64n64k16_ss<1, 1>(acc, da, db, ks > 0);
     else
       hopper::wgmma_m64n32k16_ss<1, 1>(acc, da, db, ks > 0);
   }
   hopper::wgmma_commit();
   hopper::fence_all<TL::DQ_N / 2>(acc);
+}
+
+// Named barriers of the D = 256 consumers (both warpgroups, 256 threads)
+constexpr int P_BAR = 1;   // p^T is in sP
+constexpr int DS_BAR_WIDE = 2;  // sP is read; ds^T is in sDS (K3)
+
+// K3 / K5 consumers at D = 256: a 64-key tile shared by both warpgroups,
+// split by role rather than by keys.  64 keys x 256 columns of dk and of dv
+// are 128 fp32 registers a thread each: one warpgroup cannot hold both
+// within setmaxnreg's 232, and a wgmma's M is 64, so the keys cannot be
+// split further.  So
+//   * consumer 0 computes s^T = k q^T (SS), p^T = 2^(s^T log2 e - lse log2 e)
+//     with the masks, hands p^T over in fp32 through shared memory, and
+//     keeps dv += p^T do (RS, m64n256k16);
+//   * consumer 1 computes dp^T = v do^T (SS), reads p^T, forms
+//     ds^T = p^T (dp^T - delta), and keeps dk += ds^T q (RS); in K3 it
+//     stages ds^T (bf16) in shared memory;
+//   * K3: each consumer then issues dq (64 q rows x 128 columns, its half)
+//     = ds k (SS, both operands MN-major) and adds it to the fp32 buffer
+//     from registers (float2 atomics: a staged 64 x 128 fp32 part would
+//     need 32 KB a consumer, which shared memory does not have here).
+// Registers a thread: dk or dv 128, s^T or dp^T 32 (dead once packed to 16
+// of A fragments), dq 64 after dv / dk's product has completed: at most
+// about 128 + 32 + 16 or 128 + 64, with indices, under the 232.
+// Shared memory: K, V 64 KB; q, do 2 stages x 64 KB; p^T 16 KB, ds^T 8 KB,
+// lse and delta 1 KB: 217 KB (K5 209 KB).  Two named barriers a q tile:
+// P_BAR (p^T written) and DS_BAR_WIDE (p^T read, ds^T written), which also
+// order the reuse of sP and of the single ds^T buffer.
+template <int D, bool WITH_DQ>
+__device__ __forceinline__ void bwd_consumer_wide(
+    const Params& p, const __nv_bfloat16* sK, const __nv_bfloat16* sV,
+    const __nv_bfloat16* sQ, const __nv_bfloat16* sO, __nv_bfloat16* sDS, float* sP,
+    const float* sL, const float* sDl, uint64_t* kv_full, uint64_t* full, uint64_t* empty,
+    int cw, int c0, int h, int b) {
+  using TL = BwdTile<D>;
+  using bf = __nv_bfloat16;
+  const Limits lim = limits(p, b);
+  int lo, hi;
+  q_tile_range(p, lim, c0, HBQ, TL::KEYS, lo, hi);
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int key_l[2] = {c0 + warp * 16 + g, c0 + warp * 16 + g + 8};
+  const int key_g[2] = {p.kv_off + key_l[0], p.kv_off + key_l[1]};
+  const bool key_edge = p.left >= 0 || p.right >= 0 || p.kv_off + c0 + TL::KEYS > lim.kv_hi;
+  const bf* sRows = cw == 0 ? sK : sV;  // s^T = k q^T, or dp^T = v do^T
+
+  float acc[D / 2];  // dv (consumer 0) or dk (consumer 1)
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  if (lo < hi) hopper::mbar_wait(kv_full, 0);
+  for (int n = 0; n < hi - lo; ++n) {
+    const int st = n % HSTAGES;
+    const uint32_t ph = (n / HSTAGES) & 1;
+    const int q0 = (lo + n) * HBQ;
+    const bf* tQ = sQ + st * TL::QT_ELEMS;
+    const bf* tO = sO + st * TL::QT_ELEMS;
+    hopper::mbar_wait(&full[st], ph);
+
+    float x[HBQ / 2];  // s^T, then p^T (consumer 0); dp^T, then ds^T (consumer 1)
+    issue_keys_by_rows<D>(x, sRows, cw == 0 ? tQ : tO);
+    hopper::wgmma_wait<0>();
+    hopper::fence_all<HBQ / 2>(x);
+    if (cw == 0) {
+      // p^T on the valid pairs; rows past the length carry lse = -1e30 and
+      // give inf here, which the select drops
+      const float* tL = sL + st * HBQ;
+      const bool edge = key_edge || p.q_off + q0 + HBQ > lim.q_hi;
+#pragma unroll
+      for (int j = 0; j < HBQ / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(tL + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float v = hopper::ex2(fmaf(x[4 * j + e], LOG2E, -((e & 1) ? l2.y : l2.x)));
+          if (edge) {
+            const int row_g = p.q_off + q0 + 8 * j + 2 * t + (e & 1);
+            if (!pair_valid(p, lim, row_g, key_g[e >> 1])) v = 0.f;
+          }
+          x[4 * j + e] = v;
+        }
+      }
+      // in the accumulator's order: the other warpgroup's thread tid holds
+      // the same (key, q row) pairs of dp^T
+#pragma unroll
+      for (int i = 0; i < HBQ / 2; ++i) sP[i * 128 + tid] = x[i];
+      hopper::named_sync(P_BAR, CONSUMER_THREADS);
+    } else {
+      hopper::named_sync(P_BAR, CONSUMER_THREADS);
+      const float* tD = sDl + st * HBQ;
+#pragma unroll
+      for (int j = 0; j < HBQ / 8; ++j) {
+        const float2 d2 = *reinterpret_cast<const float2*>(tD + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[4 * j + e] = sP[(4 * j + e) * 128 + tid] *
+                         (x[4 * j + e] - ((e & 1) ? d2.y : d2.x));
+      }
+    }
+    uint32_t fr[HBQ / 16][4];  // p^T or ds^T as bf16 A fragments
+    hopper::pack_frags<HBQ / 16>(fr, x);
+    if (WITH_DQ && cw == 1) {
+      // ds^T rows (keys) 16 warp + g (+ 8), columns (q rows) 16 kc + 2 t
+      // (+ 8): one 32-bit word each, at its 128-byte swizzled place
+      unsigned char* ds_bytes = reinterpret_cast<unsigned char*>(sDS);
+#pragma unroll
+      for (int kc = 0; kc < HBQ / 16; ++kc)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = warp * 16 + g + 8 * (i & 1);
+          const int chunk = 2 * kc + (i >> 1);
+          *reinterpret_cast<uint32_t*>(ds_bytes + r * 128 + ((chunk ^ (r & 7)) << 4) + 4 * t) =
+              fr[kc][i];
+        }
+      hopper::fence_proxy_async();
+    }
+
+    // dv += p^T do (consumer 0), dk += ds^T q (consumer 1)
+    hopper::fence_all<D / 2>(acc);
+    hopper::fence_frags<HBQ / 16>(fr);
+    hopper::wgmma_fence();
+    issue_rows_times_tile<D>(acc, fr, cw == 0 ? tO : tQ);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_all<D / 2>(acc);
+    hopper::fence_frags<HBQ / 16>(fr);
+    if (lane == 0) hopper::mbar_arrive(&empty[st]);  // q, do, lse, delta read
+    hopper::named_sync(DS_BAR_WIDE, CONSUMER_THREADS);  // sP read, ds^T staged
+
+    if (WITH_DQ) {
+      float dq[TL::DQ_N / 2];
+      issue_dq<D>(dq, sDS, sK + cw * (TL::BLOCKS / 2) * TL::KEYS * TL::COLS);
+      hopper::wgmma_wait<0>();
+      hopper::fence_all<TL::DQ_N / 2>(dq);
+      // rows past Tq are not there; rows past the length add zeros
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = q0 + warp * 16 + g + 8 * r;
+        if (row >= p.Tq) continue;
+        float* out = p.dq + (((long long)b * p.Tq + row) * p.H + h) * D + cw * TL::DQ_N + 2 * t;
+#pragma unroll
+        for (int j = 0; j < TL::DQ_N / 8; ++j)
+          atomicAdd(reinterpret_cast<float2*>(out + 8 * j),
+                    make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]));
+      }
+    }
+  }
+
+  // dv (consumer 0) or dk (consumer 1) rounded to bf16 and written once
+  bf* dst = static_cast<bf*>(cw == 0 ? p.dv : p.dk);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (key_l[r] >= p.Tk) continue;
+    const long long off = (((long long)b * p.Tk + key_l[r]) * p.H + h) * D + t * 2;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dst + off + 8 * j) =
+          pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
 }
 
 // K3 (WITH_DQ) and K5: dk, dv for one 128-key tile; K3 also adds dq.
@@ -298,7 +479,8 @@ __device__ __forceinline__ void issue_dq(float* acc, const __nv_bfloat16* sDS,
 //     reduce-add, once per q tile.
 // dk and dv have one writer and a fixed order of products: they are the
 // same bits from run to run, and K5's are K3's.  Only dq's order of
-// additions across CTAs varies.
+// additions across CTAs varies.  D = 256 (64-key tiles) runs the consumers
+// of `bwd_consumer_wide` under the same producer.
 template <int D, bool WITH_DQ>
 __global__ void __launch_bounds__(HTHREADS, 1)
     flash_bwd_hopper(const __grid_constant__ CUtensorMap tq,
@@ -315,10 +497,11 @@ __global__ void __launch_bounds__(HTHREADS, 1)
   bf* sV = sK + TL::KV_ELEMS;
   bf* sQ = sV + TL::KV_ELEMS;              // HSTAGES tiles
   bf* sO = sQ + HSTAGES * TL::QT_ELEMS;    // do, HSTAGES tiles
-  bf* sDS = sO + HSTAGES * TL::QT_ELEMS;   // ds^T, 2 buffers (K3 only)
-  // one dq part a consumer (K3 only)
-  float* sDQ = reinterpret_cast<float*>(sDS + (WITH_DQ ? 2 * DS_ELEMS : 0));
-  float* sL = sDQ + (WITH_DQ ? 2 * HBQ * TL::DQ_N : 0);  // lse rows, times log2 e
+  bf* sDS = sO + HSTAGES * TL::QT_ELEMS;   // ds^T, DS_BUFS buffers (K3 only)
+  // one dq part a consumer (K3 at D <= 128)
+  float* sDQ = reinterpret_cast<float*>(sDS + (WITH_DQ ? TL::DS_BUFS * TL::DS_ELEMS : 0));
+  float* sP = sDQ + (WITH_DQ ? TL::DQ_STAGE_FLOATS : 0);  // p^T handed over (D = 256)
+  float* sL = sP + TL::P_FLOATS;           // lse rows, times log2 e
   float* sDl = sL + HSTAGES * HBQ;         // delta rows
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(sDl + HSTAGES * HBQ);
   uint64_t* full = kv_full + 1;
@@ -339,22 +522,22 @@ __global__ void __launch_bounds__(HTHREADS, 1)
   // the same across the warp: each role is then a region of its own
   const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
   const int h = blockIdx.y, b = blockIdx.z;
-  const int c0 = blockIdx.x * HBK;  // the CTA's first local key
+  const int c0 = blockIdx.x * TL::KEYS;  // the CTA's first local key
   if (wg == 0) {
     // ---- producer ----
     hopper::setmaxnreg_dec<PRODUCER_REGS>();
     const Limits lim = limits(p, b);
     int lo, hi;
-    q_tile_range(p, lim, c0, HBQ, HBK, lo, hi);
+    q_tile_range(p, lim, c0, HBQ, TL::KEYS, lo, hi);
     const int lane = threadIdx.x % 32;
     if (threadIdx.x < 32 && lo < hi) {
       if (lane == 0) {
         hopper::mbar_arrive_expect_tx(kv_full, 2 * TL::KV_BYTES);
 #pragma unroll
         for (int c = 0; c < TL::BLOCKS; ++c) {
-          hopper::tma_load_4d(sK + c * HBK * TL::COLS, &tk, kv_full,
+          hopper::tma_load_4d(sK + c * TL::KEYS * TL::COLS, &tk, kv_full,
                               c * TL::COLS, h, c0, b);
-          hopper::tma_load_4d(sV + c * HBK * TL::COLS, &tv, kv_full,
+          hopper::tma_load_4d(sV + c * TL::KEYS * TL::COLS, &tv, kv_full,
                               c * TL::COLS, h, c0, b);
         }
       }
@@ -393,6 +576,10 @@ __global__ void __launch_bounds__(HTHREADS, 1)
         }
       }
     }
+  } else if constexpr (TL::WIDE) {
+    hopper::setmaxnreg_inc<CONSUMER_REGS>();
+    bwd_consumer_wide<D, WITH_DQ>(p, sK, sV, sQ, sO, sDS, sP, sL, sDl, kv_full, full,
+                                  empty, wg - 1, c0, h, b);
   } else {
     // ---- consumers ----
     hopper::setmaxnreg_inc<CONSUMER_REGS>();
@@ -465,7 +652,7 @@ __global__ void __launch_bounds__(HTHREADS, 1)
       hopper::pack_frags<HBQ / 16>(pa, s);
       hopper::pack_frags<HBQ / 16>(da, dp);
 
-      bf* tDS = sDS + (n & 1) * DS_ELEMS;
+      bf* tDS = sDS + (n & 1) * TL::DS_ELEMS;
       if (WITH_DQ) {
         // ds^T rows (keys) 64 cw + 16 warp + g (+ 8), columns (q rows)
         // 16 kc + 2 t (+ 8): one 32-bit word each, at its 128-byte swizzled
@@ -568,16 +755,17 @@ cudaError_t launch_hopper_bwd(const Params& p, cudaStream_t stream) {
                                      p.q_sh, HBQ, TL::COLS, TL::TMA_SWIZZLE);
   if (err == cudaSuccess)
     err = hopper::bthd_map(&mk, p.k, p.B, p.Tk, p.H, D, p.k_sb, p.k_st, p.k_sh,
-                           HBK, TL::COLS, TL::TMA_SWIZZLE);
+                           TL::KEYS, TL::COLS, TL::TMA_SWIZZLE);
   if (err == cudaSuccess)
     err = hopper::bthd_map(&mv, p.v, p.B, p.Tk, p.H, D, p.v_sb, p.v_st, p.v_sh,
-                           HBK, TL::COLS, TL::TMA_SWIZZLE);
+                           TL::KEYS, TL::COLS, TL::TMA_SWIZZLE);
   if (err == cudaSuccess)
     err = hopper::bthd_map(&mo, p.dout, p.B, p.Tq, p.H, D, p.o_sb, p.o_st,
                            p.o_sh, HBQ, TL::COLS, TL::TMA_SWIZZLE);
-  // dq: fp32 (B, Tq, H, D), contiguous; K5 has none and is given q's map
+  // dq: fp32 (B, Tq, H, D), contiguous; K5 and the D = 256 K3 (dq by
+  // atomics) are given q's map, which they do not use
   mdq = mq;
-  if (err == cudaSuccess && WITH_DQ)
+  if (err == cudaSuccess && WITH_DQ && !TL::WIDE)
     err = hopper::bthd_map(&mdq, p.dq, p.B, p.Tq, p.H, D, (long long)p.Tq * p.H * D,
                            (long long)p.H * D, D, HBQ, DQ_BOX_COLS,
                            CU_TENSOR_MAP_SWIZZLE_128B, true);
@@ -587,7 +775,7 @@ cudaError_t launch_hopper_bwd(const Params& p, cudaStream_t stream) {
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Tk + HBK - 1) / HBK, p.H, p.B);
+  const dim3 grid((p.Tk + TL::KEYS - 1) / TL::KEYS, p.H, p.B);
   kernel<<<grid, HTHREADS, smem, stream>>>(mq, mk, mv, mo, mdq, p);
   return cudaGetLastError();
 }
@@ -596,14 +784,20 @@ cudaError_t launch_hopper_bwd(const Params& p, cudaStream_t stream) {
 // bf16 K4 on Hopper: the forward's loop (q-stationary) with dq in registers
 // ---------------------------------------------------------------------------
 constexpr int DQ_Q = 128;      // q rows per CTA: 64 per consumer warpgroup
-constexpr int DQ_KEYS = 64;    // keys per k / v tile of the walk (128 measured 2-3% slower)
 constexpr int DQ_STAGES = 2;   // k / v tiles in flight
+// keys per k / v tile of the walk: half the forward's tile, 64 (128
+// measured 2-3% slower), or 32 at D = 256, where q and do take 128 KB and
+// two stages of 64-key k and v tiles would not fit beside them
+template <int D>
+__host__ __device__ constexpr int dq_keys() {
+  return hopper::keys_per_tile<D>() / 2;
+}
 
 template <int D>
 constexpr size_t dq_smem() {
   // 1024 bytes of slack to align the tiles to the swizzle atom; q and do
   // once, DQ_STAGES stages of k and v; the barriers
-  return 1024 + 2 * (size_t)DQ_Q * D * 2 + 2 * DQ_STAGES * (size_t)DQ_KEYS * D * 2 +
+  return 1024 + 2 * (size_t)DQ_Q * D * 2 + 2 * DQ_STAGES * (size_t)dq_keys<D>() * D * 2 +
          8 * (1 + 2 * DQ_STAGES);
 }
 
@@ -612,11 +806,13 @@ template <int N>
 __device__ __forceinline__ void wgmma_ss_k(float* d, uint64_t da, uint64_t db, int scale_d) {
   if constexpr (N == 128)
     hopper::wgmma_m64n128k16_ss(d, da, db, scale_d);
-  else
+  else if constexpr (N == 64)
     hopper::wgmma_m64n64k16_ss<0, 0>(d, da, db, scale_d);
+  else
+    hopper::wgmma_m64n32k16_ss<0, 0>(d, da, db, scale_d);
 }
 
-// Issue acc (64 q rows x DQ_KEYS) = A B^T over D: s = q k^T or dp = do v^T,
+// Issue acc (64 q rows x dq_keys) = A B^T over D: s = q k^T or dp = do v^T,
 // A this consumer's 64 rows of the q / do tile, B the k / v tile, both
 // K-major (committed, not waited for).
 template <int D>
@@ -624,6 +820,7 @@ __device__ __forceinline__ void issue_rows_by_keys(float* acc,
                                                    const __nv_bfloat16* sA,
                                                    const __nv_bfloat16* sB) {
   using TL = BwdTile<D>;
+  constexpr int DQ_KEYS = dq_keys<D>();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int blk = kk * 16 / TL::COLS, col = kk * 16 % TL::COLS;
@@ -650,6 +847,9 @@ __device__ __forceinline__ void issue_rows_by_keys(float* acc,
 //     to bf16 as the A operand, k read MN-major as the forward reads v);
 //   * dq leaves once, from registers.  One writer per element and a fixed
 //     order of products: the same bits from run to run.
+// At D = 256 the key tiles are 32 keys: q and do take 128 KB, two stages of
+// k and v 64 KB, 192 KB in all; dq is 128 registers a thread, s and dp 16
+// each and ds 8 as A fragments.
 template <int D>
 __global__ void __launch_bounds__(HTHREADS, 1)
     flash_bwd_dq_hopper(const __grid_constant__ CUtensorMap tq,
@@ -658,6 +858,7 @@ __global__ void __launch_bounds__(HTHREADS, 1)
                         const __grid_constant__ CUtensorMap tdo, const Params p) {
   using TL = BwdTile<D>;
   using bf = __nv_bfloat16;
+  constexpr int DQ_KEYS = dq_keys<D>();
   constexpr int Q_ELEMS = DQ_Q * D, KV_ELEMS = DQ_KEYS * D;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = hopper::smem_u32(smem_raw);
@@ -829,10 +1030,10 @@ cudaError_t launch_hopper_dq(const Params& p, cudaStream_t stream) {
                                      p.q_sh, DQ_Q, TL::COLS, TL::TMA_SWIZZLE);
   if (err == cudaSuccess)
     err = hopper::bthd_map(&mk, p.k, p.B, p.Tk, p.H, D, p.k_sb, p.k_st, p.k_sh,
-                           DQ_KEYS, TL::COLS, TL::TMA_SWIZZLE);
+                           dq_keys<D>(), TL::COLS, TL::TMA_SWIZZLE);
   if (err == cudaSuccess)
     err = hopper::bthd_map(&mv, p.v, p.B, p.Tk, p.H, D, p.v_sb, p.v_st, p.v_sh,
-                           DQ_KEYS, TL::COLS, TL::TMA_SWIZZLE);
+                           dq_keys<D>(), TL::COLS, TL::TMA_SWIZZLE);
   if (err == cudaSuccess)
     err = hopper::bthd_map(&mo, p.dout, p.B, p.Tq, p.H, D, p.o_sb, p.o_st,
                            p.o_sh, DQ_Q, TL::COLS, TL::TMA_SWIZZLE);
@@ -849,19 +1050,29 @@ cudaError_t launch_hopper_dq(const Params& p, cudaStream_t stream) {
 
 // ---------------------------------------------------------------------------
 // fp32: SIMT FMA (slow; kept for the fp32 inputs the JAX kernels accept).
-// Four threads share a row; thread `qq` of a row owns dims qq, qq+4, ...
+// TPR threads share a row; thread `qq` of a row owns dims qq, qq + TPR, ...
+// Four threads a row (128 a CTA), eight at D = 256, where four would hold
+// k, v, dk and dv in 4 x 64 registers a thread and spill.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
+template <int D>
+struct F32Tile {
+  static constexpr int TPR = D > 128 ? 8 : 4;
+  static constexpr int THREADS = BR * TPR;
+  static constexpr int PER = D / TPR;
+};
+
+template <int TPR>  // the sum over a row's TPR neighbouring lanes
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int m = 1; m < TPR; m *= 2) x += __shfl_xor_sync(0xffffffffu, x, m);
   return x;
 }
 
 // K3 (WITH_DQ) and K5 for fp32: 32 keys per CTA, 32-row q tiles.
 template <int D, bool WITH_DQ>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(F32Tile<D>::THREADS)
     flash_bwd_kv_f32(const Params p) {
-  constexpr int PER = D / 4;
+  constexpr int TPR = F32Tile<D>::TPR, PER = F32Tile<D>::PER, THREADS = F32Tile<D>::THREADS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sQ = reinterpret_cast<float*>(smem_raw);  // BR x D
   float* sO = sQ + BR * D;                         // BR x D
@@ -872,7 +1083,7 @@ __global__ void __launch_bounds__(NTHREADS)
 
   const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int c0 = kt * BR;
-  const int key = threadIdx.x / 4, qq = threadIdx.x % 4;
+  const int key = threadIdx.x / TPR, qq = threadIdx.x % TPR;
   const int key_l = c0 + key, key_g = p.kv_off + key_l;
   const Limits lim = limits(p, b);
   int lo, hi;
@@ -889,16 +1100,16 @@ __global__ void __launch_bounds__(NTHREADS)
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const bool ok = key_l < p.Tk;
-    kr[i] = ok ? kb[(long long)key_l * p.k_st + i * 4 + qq] : 0.f;
-    vr[i] = ok ? vb[(long long)key_l * p.v_st + i * 4 + qq] : 0.f;
-    if (WITH_DQ) sK[key * D + i * 4 + qq] = kr[i];
+    kr[i] = ok ? kb[(long long)key_l * p.k_st + i * TPR + qq] : 0.f;
+    vr[i] = ok ? vb[(long long)key_l * p.v_st + i * TPR + qq] : 0.f;
+    if (WITH_DQ) sK[key * D + i * TPR + qq] = kr[i];
     dk[i] = dv[i] = 0.f;
   }
 
   for (int it = lo; it < hi; ++it) {
     const int q0 = it * BR;
     __syncthreads();  // the previous tile is consumed (and sK written)
-    for (int i = threadIdx.x; i < BR * D; i += NTHREADS) {
+    for (int i = threadIdx.x; i < BR * D; i += THREADS) {
       const int r = i / D, d = i % D;
       const bool ok = q0 + r < p.Tq;
       sQ[i] = ok ? qb[(long long)(q0 + r) * p.q_st + d] : 0.f;
@@ -911,25 +1122,25 @@ __global__ void __launch_bounds__(NTHREADS)
       float sp = 0.f, dp = 0.f;
 #pragma unroll
       for (int i = 0; i < PER; ++i) {
-        sp = fmaf(sQ[r * D + i * 4 + qq], kr[i], sp);
-        dp = fmaf(sO[r * D + i * 4 + qq], vr[i], dp);
+        sp = fmaf(sQ[r * D + i * TPR + qq], kr[i], sp);
+        dp = fmaf(sO[r * D + i * TPR + qq], vr[i], dp);
       }
-      sp = quad_sum(sp);
-      dp = quad_sum(dp);
+      sp = row_sum<TPR>(sp);
+      dp = row_sum<TPR>(dp);
       const bool ok = pair_valid(p, lim, p.q_off + q0 + r, key_g);
       const float pr = ok ? expf(sp - sL[r]) : 0.f;
       const float ds = pr * (dp - sD[r]);
 #pragma unroll
       for (int i = 0; i < PER; ++i) {
-        dv[i] = fmaf(pr, sO[r * D + i * 4 + qq], dv[i]);
-        dk[i] = fmaf(ds, sQ[r * D + i * 4 + qq], dk[i]);
+        dv[i] = fmaf(pr, sO[r * D + i * TPR + qq], dv[i]);
+        dk[i] = fmaf(ds, sQ[r * D + i * TPR + qq], dk[i]);
       }
       if (WITH_DQ && qq == 0) sS[r * (BR + 1) + key] = ds;
     }
 
     if (WITH_DQ) {
       __syncthreads();
-      const int rr = threadIdx.x / 4, row_l = q0 + rr;
+      const int rr = threadIdx.x / TPR, row_l = q0 + rr;
       if (p.q_off + row_l < lim.q_hi) {
         float acc[PER];
 #pragma unroll
@@ -937,11 +1148,11 @@ __global__ void __launch_bounds__(NTHREADS)
         for (int c = 0; c < BR; ++c) {
           const float ds = sS[rr * (BR + 1) + c];
 #pragma unroll
-          for (int i = 0; i < PER; ++i) acc[i] = fmaf(ds, sK[c * D + i * 4 + qq], acc[i]);
+          for (int i = 0; i < PER; ++i) acc[i] = fmaf(ds, sK[c * D + i * TPR + qq], acc[i]);
         }
         float* row = p.dq + (((long long)b * p.Tq + row_l) * p.H + h) * D;
 #pragma unroll
-        for (int i = 0; i < PER; ++i) atomicAdd(row + i * 4 + qq, acc[i]);
+        for (int i = 0; i < PER; ++i) atomicAdd(row + i * TPR + qq, acc[i]);
       }
     }
   }
@@ -952,24 +1163,24 @@ __global__ void __launch_bounds__(NTHREADS)
     float* dvb = static_cast<float*>(p.dv) + off;
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
-      dkb[i * 4 + qq] = dk[i];
-      dvb[i * 4 + qq] = dv[i];
+      dkb[i * TPR + qq] = dk[i];
+      dvb[i * TPR + qq] = dv[i];
     }
   }
 }
 
 // K4 for fp32: 32 q rows per CTA, 32-key tiles.
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(F32Tile<D>::THREADS)
     flash_bwd_q_f32(const Params p) {
-  constexpr int PER = D / 4;
+  constexpr int TPR = F32Tile<D>::TPR, PER = F32Tile<D>::PER, THREADS = F32Tile<D>::THREADS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* sK = reinterpret_cast<float*>(smem_raw);  // BR x D
   float* sV = sK + BR * D;                         // BR x D
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int q0 = qt * BR;
-  const int row = threadIdx.x / 4, qq = threadIdx.x % 4;
+  const int row = threadIdx.x / TPR, qq = threadIdx.x % TPR;
   const int row_l = q0 + row, row_g = p.q_off + row_l;
   const Limits lim = limits(p, b);
   int lo, hi;
@@ -987,15 +1198,15 @@ __global__ void __launch_bounds__(NTHREADS)
   float qr[PER], orr[PER], acc[PER];
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
-    qr[i] = live ? qb[(long long)row_l * p.q_st + i * 4 + qq] : 0.f;
-    orr[i] = live ? ob[(long long)row_l * p.o_st + i * 4 + qq] : 0.f;
+    qr[i] = live ? qb[(long long)row_l * p.q_st + i * TPR + qq] : 0.f;
+    orr[i] = live ? ob[(long long)row_l * p.o_st + i * TPR + qq] : 0.f;
     acc[i] = 0.f;
   }
 
   for (int kt = lo; kt < hi; ++kt) {
     const int c0 = kt * BR;
     __syncthreads();
-    for (int i = threadIdx.x; i < BR * D; i += NTHREADS) {
+    for (int i = threadIdx.x; i < BR * D; i += THREADS) {
       const int r = i / D, d = i % D;
       const bool ok = c0 + r < p.Tk;
       sK[i] = ok ? kb[(long long)(c0 + r) * p.k_st + d] : 0.f;
@@ -1006,33 +1217,33 @@ __global__ void __launch_bounds__(NTHREADS)
       float sp = 0.f, dp = 0.f;
 #pragma unroll
       for (int i = 0; i < PER; ++i) {
-        sp = fmaf(qr[i], sK[c * D + i * 4 + qq], sp);
-        dp = fmaf(orr[i], sV[c * D + i * 4 + qq], dp);
+        sp = fmaf(qr[i], sK[c * D + i * TPR + qq], sp);
+        dp = fmaf(orr[i], sV[c * D + i * TPR + qq], dp);
       }
-      sp = quad_sum(sp);
-      dp = quad_sum(dp);
+      sp = row_sum<TPR>(sp);
+      dp = row_sum<TPR>(dp);
       const bool ok = pair_valid(p, lim, row_g, p.kv_off + c0 + c);
       const float pr = ok ? expf(sp - lse_r) : 0.f;
       const float ds = pr * (dp - del_r);
 #pragma unroll
-      for (int i = 0; i < PER; ++i) acc[i] = fmaf(ds, sK[c * D + i * 4 + qq], acc[i]);
+      for (int i = 0; i < PER; ++i) acc[i] = fmaf(ds, sK[c * D + i * TPR + qq], acc[i]);
     }
   }
 
   if (live) {
     float* out = p.dq + (((long long)b * p.Tq + row_l) * p.H + h) * D;
 #pragma unroll
-    for (int i = 0; i < PER; ++i) out[i * 4 + qq] = acc[i];
+    for (int i = 0; i < PER; ++i) out[i * TPR + qq] = acc[i];
   }
 }
 
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, const Params& p,
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem, const Params& p,
                    cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, NTHREADS, smem, stream>>>(p);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -1041,13 +1252,14 @@ int cdiv(int a, int b) { return (a + b - 1) / b; }
 template <int D>
 cudaError_t dispatch(const Params& p, int kind, int is_f32, cudaStream_t s) {
   if (is_f32) {
+    constexpr int threads = F32Tile<D>::THREADS;
     if (kind == DQ)
-      return launch(flash_bwd_q_f32<D>, dim3(cdiv(p.Tq, BR), p.H, p.B),
+      return launch(flash_bwd_q_f32<D>, dim3(cdiv(p.Tq, BR), p.H, p.B), threads,
                     sizeof(float) * 2 * BR * D, p, s);
     const size_t smem = sizeof(float) * (3 * BR * D + BR * (BR + 1) + 2 * BR);
     const dim3 grid(cdiv(p.Tk, BR), p.H, p.B);
-    return kind == FUSED ? launch(flash_bwd_kv_f32<D, true>, grid, smem, p, s)
-                         : launch(flash_bwd_kv_f32<D, false>, grid, smem, p, s);
+    return kind == FUSED ? launch(flash_bwd_kv_f32<D, true>, grid, threads, smem, p, s)
+                         : launch(flash_bwd_kv_f32<D, false>, grid, threads, smem, p, s);
   }
   if (kind == DQ) return launch_hopper_dq<D>(p, s);
   return kind == FUSED ? launch_hopper_bwd<D, true>(p, s)
@@ -1111,6 +1323,8 @@ int lcasr_flash_attn_bwd(int kind, const void* q, const void* k, const void* v,
       return dispatch<64>(p, kind, is_f32, s);
     case 128:
       return dispatch<128>(p, kind, is_f32, s);
+    case 256:
+      return dispatch<256>(p, kind, is_f32, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -61,7 +61,7 @@ struct HopperTile {
       D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   static constexpr int SBO = 8 * ROW_BYTES;  // bytes between 8-row groups
   // keys per k/v tile: 128, or 64 at D = 256 for shared memory
-  static constexpr int BK = D > 128 ? 64 : 128;
+  static constexpr int BK = hopper::keys_per_tile<D>();
   static constexpr int Q_ELEMS = HBQ * D;
   static constexpr int KV_ELEMS = BK * D;
   static constexpr uint32_t Q_BYTES = Q_ELEMS * 2;

@@ -134,6 +134,14 @@ __device__ __forceinline__ void bulk_wait() {
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
+// Keys of a k / v tile in the attention kernels: 128, or 64 at D = 256, where
+// 128 keys of K and V would not leave room in shared memory for the rest
+// (the forward's tile, and the backward's CTA; K4 walks half of it).
+template <int D>
+__host__ __device__ constexpr int keys_per_tile() {
+  return D > 128 ? 64 : 128;
+}
+
 // Layout types of a shared-memory matrix descriptor; they must match the
 // swizzle of the tensor map that filled the tile.
 constexpr uint64_t SWIZZLE_128B = 1;
@@ -210,7 +218,9 @@ __device__ __forceinline__ void pack_frags(uint32_t (*a)[4], const float* s) {
   }
 }
 
-// D (64 x 128, fp32) (+)= A (64 x 16, smem, K-major) * B (128 x 16, smem, K-major)
+// D (64 x 128, fp32) (+)= A (64 x 16, smem) * B (16 x 128, smem); TA / TB = 1
+// reads that operand MN-major (transposed), 0 (the default) K-major
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float* d, uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
@@ -221,7 +231,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float* d, uint64_t da, uint6
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -230,7 +240,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float* d, uint64_t da, uint6
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 // D (64 x 256, fp32) += A (64 x 16, registers) * B (16 x 256, smem, MN-major)

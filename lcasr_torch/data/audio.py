@@ -251,6 +251,14 @@ def read_wav(path: str) -> Tuple[int, np.ndarray]:
     WAVE_FORMAT_EXTENSIBLE takes the format of its sub-format GUID."""
     with open(path, "rb") as f:
         buf = f.read()
+    fmt, e, off, size = _wav_layout(buf, path)
+    return fmt[2], _decode_samples(memoryview(buf)[off : off + size], *fmt, e)
+
+
+def _wav_layout(buf: bytes, path: str):
+    """(format, byte order, offset and size of the data chunk's samples) of
+    a WAV file's bytes; the last data chunk counts, as it does for
+    `read_wav`."""
     if buf[:4] == b"RIFF":
         e = "<"
     elif buf[:4] == b"RIFX":
@@ -264,8 +272,8 @@ def read_wav(path: str) -> Tuple[int, np.ndarray]:
     while pos + 8 <= end:
         cid = buf[pos : pos + 4]
         size = struct.unpack(e + "I", buf[pos + 4 : pos + 8])[0]
-        body = buf[pos + 8 : pos + 8 + size]
         if cid == b"fmt ":
+            body = buf[pos + 8 : pos + 8 + size]
             if size < 16:
                 raise ValueError(f"{path}: fmt chunk of {size} bytes")
             tag, channels, rate, byte_rate, block_align, bits = struct.unpack(
@@ -285,14 +293,14 @@ def read_wav(path: str) -> Tuple[int, np.ndarray]:
         elif cid == b"data":
             if fmt is None:
                 raise ValueError(f"{path}: data chunk before fmt chunk")
-            data = _decode_samples(body, *fmt, e)
+            data = (pos + 8, min(size, len(buf) - pos - 8))
         pos += 8 + size + (size % 2)
     if fmt is None or data is None:
         raise ValueError(f"{path}: no {'fmt' if fmt is None else 'data'} chunk")
-    return fmt[2], data
+    return (fmt, e) + data
 
 
-def _decode_samples(body: bytes, tag: int, channels: int, rate: int, block_align: int,
+def _decode_samples(body, tag: int, channels: int, rate: int, block_align: int,
                     bits: int, e: str) -> np.ndarray:
     width = block_align // channels  # bytes a sample container
     n = len(body) // width
@@ -344,6 +352,39 @@ def load_audio(path: str) -> Tuple[np.ndarray, int]:
     )
 
 
+def load_left_channel(path: str) -> Tuple[np.ndarray, int]:
+    """(`grab_left_channel(load_audio(path)[0])`, sample rate), the same
+    values, with one copy for a WAV file: the left channel is read as a
+    strided view of the file's bytes and converted to float32 and scaled
+    once, where `load_audio` converts every channel (twice, with the
+    scale) and the left one is copied out after."""
+    if not path.lower().endswith(".wav"):
+        waveform, sr = load_audio(path)
+        return np.ascontiguousarray(grab_left_channel(waveform)), sr
+    with open(path, "rb") as f:
+        buf = f.read()
+    (tag, channels, sr, block_align, bits), e, off, size = _wav_layout(buf, path)
+    width = block_align // channels
+    if tag == _IEEE_FLOAT and bits in (32, 64):
+        dtype = f"{e}f{width}"
+    elif tag == _PCM and bits <= 8 and width == 1:
+        dtype = "u1"
+    elif tag == _PCM and bits > 8 and width in (2, 4, 8):
+        dtype = f"{e}i{width}"
+    else:  # 24-bit and other packed containers, and what read_wav refuses
+        waveform, sr = load_audio(path)
+        return np.ascontiguousarray(grab_left_channel(waveform)), sr
+    n = size // width
+    samples = np.frombuffer(buf, dtype=dtype, count=n, offset=off).reshape(-1, channels)
+    left = samples[:, 0].astype(np.float32)[None]  # the one copy
+    if dtype == "u1":
+        left -= np.float32(128.0)
+        left /= np.float32(128.0)
+    elif tag == _PCM:  # exact: a power of two, as load_audio's division
+        left *= np.float32(2.0 ** (1 - 8 * width))
+    return left, sr
+
+
 def grab_left_channel(waveform: Array) -> Array:
     """Reference `audio_tools.py:28-34` semantics."""
     if waveform.ndim == 2:
@@ -357,7 +398,6 @@ def processing_chain(path_in: str, normalise: bool = True, device=None) -> torch
     """File -> normalised mel spectrogram (1, 80, T) on `device` (None: the
     GPU).  Reference `audio_tools.py:67-72`: load -> left channel ->
     resample to 16 kHz -> mel spectrogram with global normalisation."""
-    waveform, sr = load_audio(path_in)
-    x = torch.from_numpy(np.ascontiguousarray(grab_left_channel(waveform))).to(
-        resolve_device(device))
+    left, sr = load_left_channel(path_in)
+    x = torch.from_numpy(left).to(resolve_device(device))
     return mel_spectrogram(resample(x, sr, SR), global_normalisation=normalise)

@@ -12,13 +12,18 @@ lcasr_tpu/data/dataloading.py that the Trainer uses):
   * `VariableBatchSimpleDataloader`, rebuilt at a new batch size when the
     sequence warmup fires.
 
-Spectrograms are `.npy` (or `.pt`, read with torch).  Batches load in the
-iterating thread; the JAX package's prefetch thread and native reader are
-not copied.
+Spectrograms are `.npy` (or `.pt`, read with torch).  A batch whose specs
+are all `.npy` is read by the port's native reader (`lcasr_torch/native`,
+a C++ thread pool, the GIL released); with `prefetch=True` (the default,
+as in the JAX package) a one-deep background thread loads the next batch
+while the caller trains on this one.  Neither changes a batch: the order,
+`seen_ids` and the rebuild at a new batch size are the same either way.
 """
 from __future__ import annotations
 
 import json
+import queue
+import threading
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -165,10 +170,55 @@ class SimpleDataset:
         return decode_item(audio, txt, row["id"])
 
 
+def prefetched(batches):
+    """The items of the iterable `batches`, produced by a background thread
+    one item ahead (lcasr_tpu/data/dataloading.py `SimpleDataloader.
+    __iter__`).  The worker's exception is raised in the consumer, where
+    its batch would have been.  Puts are bounded and watch a stop event, so
+    an iterator that is abandoned mid-epoch (the sequence warmup rebuilds
+    the loader) releases its worker."""
+    q: "queue.Queue" = queue.Queue(maxsize=1)
+    sentinel = object()
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in batches:
+                if not put(item):
+                    return
+            put(sentinel)
+        except BaseException as e:  # noqa: BLE001
+            put(e)
+
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+
+
 class VariableBatchSimpleDataloader:
     """Batches of `SimpleDataset`, rebuilt mid-epoch at a new batch size
     when the sequence warmup fires.  Yields (audio (B, 80, T), lengths,
-    transcripts, ids)."""
+    transcripts, ids).  `prefetch`: load the next batch in a background
+    thread; `native`: read all-`.npy` batches with the native reader (the
+    Python reader, `np.load`, is the plain version)."""
 
     def __init__(
         self,
@@ -180,11 +230,15 @@ class VariableBatchSimpleDataloader:
         random_seed: int = 1234,
         subgroup_shuffle_size: int = 2000,
         seen_ids: Optional[List[str]] = None,
+        prefetch: bool = True,
+        native: bool = True,
         **kwargs,
     ):
-        unknown = set(kwargs) - {"prefetch", "num_workers", "pin_memory"}
+        unknown = set(kwargs) - {"num_workers", "pin_memory"}
         if unknown:  # the others are the JAX loader's and change nothing here
             raise TypeError(f"unknown dataloader argument(s): {sorted(unknown)}")
+        self.prefetch = prefetch
+        self.native = native
         self.pairs = pairs
         self.tokenizer = tokenizer
         self.chunk_size = chunk_size
@@ -214,10 +268,28 @@ class VariableBatchSimpleDataloader:
     def total_recordings(self) -> int:
         return len(self.pairs)
 
+    def _load_items(self, dataset: SimpleDataset, lo: int, hi: int):
+        """Items [lo, hi) of `dataset`: through the native reader when every
+        spec is `.npy`, one thread a file (at most 8)."""
+        rows = dataset.rows[lo:hi]
+        if self.native and all(r["audio"].endswith(".npy") for r in rows):
+            from lcasr_torch.native import read_npy_batch
+
+            specs = read_npy_batch([r["audio"] for r in rows], threads=min(8, len(rows)))
+            return [decode_item(spec, load_json(r["txt"]), r["id"])
+                    for spec, r in zip(specs, rows)]
+        return [dataset[j] for j in range(lo, hi)]
+
+    def _batches(self):
+        # the dataset of this iteration: a rebuild (`update`) makes a new one
+        # for the next iterator and leaves this one as it was
+        dataset, bs = self.dataset, self.batch_size
+        n = len(dataset)
+        for i in range(0, n, bs):
+            yield collate(self._load_items(dataset, i, min(i + bs, n)))
+
     def __iter__(self):
-        n = len(self.dataset)
-        for i in range(0, n, self.batch_size):
-            yield collate([self.dataset[j] for j in range(i, min(i + self.batch_size, n))])
+        return prefetched(self._batches()) if self.prefetch else self._batches()
 
     def __len__(self) -> int:
         return -(-len(self.dataset) // self.batch_size)

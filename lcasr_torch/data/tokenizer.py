@@ -30,6 +30,8 @@ import struct
 import unicodedata
 from typing import Dict, List, Tuple
 
+import numpy as np
+
 _WS = "▁"  # sentencepiece meta symbol for space
 
 # SentencePiece piece types
@@ -200,9 +202,14 @@ def normalize_nmt_nfkc_cf(text: str) -> str:
 
 
 class SentencePieceBPE:
-    """Drop-in replacement for spm.SentencePieceProcessor on BPE models."""
+    """Drop-in replacement for spm.SentencePieceProcessor on BPE models.
 
-    def __init__(self, model_path: str = DEFAULT_TOKENIZER_PATH):
+    `use_native=True` runs the merge loop in the port's C++ library
+    (`lcasr_torch/native/bpe.cpp`, built and loaded at the first encode; a
+    failed build raises); `use_native=False` runs the plain Python loop.
+    Both give the same ids on every input."""
+
+    def __init__(self, model_path: str = DEFAULT_TOKENIZER_PATH, use_native: bool = True):
         self.pieces = parse_sentencepiece_model(model_path)
         # exact normalization when the model ships a precompiled charsmap
         self._charsmap = None
@@ -234,6 +241,32 @@ class SentencePieceBPE:
             (i for i, t in enumerate(self.types) if t == _UNKNOWN), 1
         )
         self._control = {i for i, t in enumerate(self.types) if t == _CONTROL}
+        self.use_native = use_native
+        self._native = None
+
+    def _native_init(self):
+        """The C++ tokenizer over these pieces: CONTROL / UNUSED pieces are
+        not matchable from text (`_match_to_id`); every piece serves the
+        per-character fallback (`piece_to_id`)."""
+        import ctypes
+
+        from lcasr_torch import native
+
+        lib = native.library("bpe")
+        surfaces = [p.encode("utf-8") for p, _, _ in self.pieces]
+        offsets = np.zeros(len(surfaces) + 1, np.int64)
+        offsets[1:] = np.cumsum([len(b) for b in surfaces])
+        scores = np.asarray(self.scores, np.float64)
+        matchable = np.asarray([t not in (_CONTROL, _UNUSED) for t in self.types], np.uint8)
+        handle = lib.bpe_init(b"".join(surfaces), offsets.ctypes.data, len(surfaces),
+                              scores.ctypes.data, matchable.ctypes.data, self._unk_id)
+        self._native_free = (lib.bpe_free, handle)
+        return lib, ctypes.c_void_p(handle)
+
+    def __del__(self):
+        free = getattr(self, "_native_free", None)
+        if free is not None:
+            free[0](free[1])
 
     # -- spm API surface -----------------------------------------------------
     def vocab_size(self) -> int:
@@ -317,19 +350,42 @@ class SentencePieceBPE:
             return self._charsmap.normalize(text)
         return normalize_nmt_nfkc_cf(text)
 
-    def encode(self, text: str, out_type: type = int) -> List:
+    def _prepared(self, text: str) -> str:
+        """Normalised text with sentencepiece's dummy prefix and escaped
+        whitespace ("" for a text that normalises to nothing)."""
         text = self.normalize(text)
-        if not text:
-            return []
-        # add_dummy_prefix + escape whitespace (sentencepiece defaults)
-        text = _WS + text.replace(" ", _WS)
-        ids = self._encode_word_or_text(list(text))
+        return _WS + text.replace(" ", _WS) if text else ""
+
+    def encode(self, text: str, out_type: type = int) -> List:
+        ids = self.encode_batch([text])[0]
         if out_type is str:
             return [self.pieces[i][0] for i in ids]
         return ids
 
     def encode_as_ids(self, text: str) -> List[int]:
         return self.encode(text)
+
+    def encode_batch(self, texts: List[str]) -> List[List[int]]:
+        """The ids of each text; through the native loop, one call for the
+        whole batch."""
+        prepared = [self._prepared(t) for t in texts]
+        if not self.use_native:
+            return [self._encode_word_or_text(list(t)) for t in prepared]
+        if self._native is None:
+            self._native = self._native_init()
+        lib, handle = self._native
+        data = [t.encode("utf-8") for t in prepared]
+        offsets = np.zeros(len(data) + 1, np.int64)
+        offsets[1:] = np.cumsum([len(b) for b in data])
+        out = np.empty(max(1, int(offsets[-1])), np.int32)  # ids <= code points <= bytes
+        counts = np.empty(len(data), np.int64)
+        total = lib.bpe_encode_batch(handle, b"".join(data), offsets.ctypes.data, len(data),
+                                     out.ctypes.data, out.size, counts.ctypes.data)
+        if total > out.size:
+            raise RuntimeError(f"bpe_encode_batch needs {total} ids, more than {out.size}")
+        bounds = np.concatenate([[0], np.cumsum(counts)])
+        ids = out.tolist()
+        return [ids[bounds[i]:bounds[i + 1]] for i in range(len(data))]
 
     # -- decode ---------------------------------------------------------------
     def decode(self, ids) -> str:
@@ -347,6 +403,7 @@ class SentencePieceBPE:
         return "".join(parts).replace(_WS, " ").strip()
 
 
-def load_tokenizer(tokenizer_path: str = DEFAULT_TOKENIZER_PATH) -> SentencePieceBPE:
+def load_tokenizer(tokenizer_path: str = DEFAULT_TOKENIZER_PATH,
+                   use_native: bool = True) -> SentencePieceBPE:
     """Mirror of reference `lcasr/utils/audio_tools.py:191-194`."""
-    return SentencePieceBPE(tokenizer_path)
+    return SentencePieceBPE(tokenizer_path, use_native=use_native)

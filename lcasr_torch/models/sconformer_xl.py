@@ -64,7 +64,6 @@ FLAGSHIP = dict(
 # default, which is accepted, and what the option belongs to)
 _NOT_PORTED = {
     "use_pallas": (True, "a TPU switch; the port always runs its own kernel"),
-    "remat_policy": ("nothing", "remat_policy 'dots' (GEMM outputs saved)"),
     "conv_type": ("standard", "longconv"),
     "longconv_weight_init": ("random", "longconv"),
     "longconv_position_kernel": (True, "longconv"),
@@ -102,6 +101,39 @@ def _remat_contexts():
     """checkpoint's (forward, recompute) contexts: BatchRenorm must know it
     is being recomputed (ops/conv.py)."""
     return contextlib.nullcontext(), recomputing()
+
+
+# remat_policy "dots" (the JAX model's jax.checkpoint_policies.dots_saveable):
+# the outputs of matrix products are saved, everything else is recomputed.
+# A kernel launched through ctypes is no aten op, so the attention (K1) is
+# recomputed, as JAX recomputes its Pallas call, which is no dot_general.
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default,
+            torch.ops.aten.linear.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+@contextlib.contextmanager
+def _together(*contexts):
+    with contextlib.ExitStack() as stack:
+        for c in contexts:
+            stack.enter_context(c)
+        yield
+
+
+def _remat_contexts_dots():
+    """`_remat_contexts` under the selective-checkpoint policy that saves
+    the matrix products' outputs."""
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    forward, recompute = create_selective_checkpoint_contexts(_save_dots)
+    return forward, _together(recompute, recomputing())
 
 
 class Attention(nn.Module):
@@ -224,6 +256,7 @@ class SCConformerXL(nn.Module):
         dropout_conv: float = 0.0,
         dropout_attn: float = 0.0,
         checkpoint_every_n_layers: int = 0,
+        remat_policy: str = "nothing",
         remat_subsampling: bool = False,
         conv_kernel_size: int = 9,
         conv_expansion_factor: float = 1.0,
@@ -249,8 +282,8 @@ class SCConformerXL(nn.Module):
         **not_ported,
     ):
         super().__init__()
-        if not_ported.get("remat_policy", "nothing") not in ("nothing", "dots"):
-            raise ValueError(f"remat_policy must be nothing|dots, got {not_ported['remat_policy']}")
+        if remat_policy not in ("nothing", "dots"):
+            raise ValueError(f"remat_policy must be nothing|dots, got {remat_policy}")
         for name, value in not_ported.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"SCConformerXL got an unexpected argument {name!r}")
@@ -267,6 +300,7 @@ class SCConformerXL(nn.Module):
         self.use_rotary = use_rotary
         self.use_fourier = fourier_pos_enc
         self.checkpoint_every_n_layers = checkpoint_every_n_layers
+        self.remat_contexts = _remat_contexts_dots if remat_policy == "dots" else _remat_contexts
         self.remat_subsampling = remat_subsampling
         self.dropout_rates = (dropout_ff, dropout_conv, dropout_attn)
         self.dropout_generator = torch.Generator().manual_seed(dropout_seed)
@@ -339,7 +373,7 @@ class SCConformerXL(nn.Module):
             n = self.checkpoint_every_n_layers
             if train and n > 0 and i % n == 0:
                 x = checkpoint(layer, x, lengths_arg, pad_mask, rotary, train, seed,
-                               use_reentrant=False, context_fn=_remat_contexts)
+                               use_reentrant=False, context_fn=self.remat_contexts)
             else:
                 x = layer(x, lengths_arg, pad_mask, rotary, train, seed)
             if i != self.n_layers - 1 and self.self_conditioning:

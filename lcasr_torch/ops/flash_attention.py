@@ -20,10 +20,10 @@ plain version of both.  The backward launches the kernels in
 `csrc/flash_attn_bwd.cu`: the one-pass K3 when the attention is not banded
 on both sides, else K4 (dq) and K5 (dk, dv), as `_bwd_impl` chooses; with
 `LCASR_FUSED_ATTN_BWD=0` the split pair runs always.  In bf16, K1-K5 read
-their inputs by TMA (and K3 adds dq into its fp32 buffer by TMA reduce-add),
+their inputs by TMA (and K3 adds dq into its fp32 buffer by TMA reduce-add,
+by atomics at D = 256),
 so those tensors must meet `_tma_layout_ok`.  All take bf16 or
-fp32; the forward takes D in 32, 64, 128, 256, the backward D in 32, 64,
-128 (D = 256 in K3-K5 is not ported yet), and they raise on anything else.  On a CPU tensor
+fp32 and D in 32, 64, 128, 256, and they raise on anything else.  On a CPU tensor
 they run `flash_attention_ref` / `flash_attention_bwd_ref`, the plain fp32
 versions.  There is no fallback from one to the other.
 """
@@ -38,7 +38,7 @@ from lcasr_torch import kernels
 from lcasr_torch.ops.attention import NEG_INF, length_mask, window_mask
 
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)  # the forward K1, K2
-BWD_KERNEL_HEAD_DIMS = (32, 64, 128)  # the backward K3-K5
+BWD_KERNEL_HEAD_DIMS = (32, 64, 128, 256)  # the backward K3-K5
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _SRC = "flash_attn_fwd.cu"
 _DB_SRC = "flash_attn_fwd_db.cu"
@@ -113,12 +113,6 @@ def _tma_layout_ok(shape, strides, dtype, data_ptr: int) -> bool:
 
 
 def _check_kernel_inputs(q, k, v, do=None):
-    if do is not None and q.shape[-1] not in BWD_KERNEL_HEAD_DIMS:
-        # before any other check: no layout or device makes this D launchable
-        raise NotImplementedError(
-            f"flash_attention_bwd: head_dim {q.shape[-1]} is not ported to the "
-            f"backward kernels K3-K5 (csrc/flash_attn_bwd.cu takes "
-            f"{BWD_KERNEL_HEAD_DIMS}; ROADMAP queue C1)")
     named = (("q", q), ("k", k), ("v", v)) + ((("do", do),) if do is not None else ())
     for name, t in named:
         if t.device.type != "cuda":
@@ -143,8 +137,9 @@ def _check_kernel_inputs(q, k, v, do=None):
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"flash_attention kernel takes bf16 or fp32, not {q.dtype}")
     D = q.shape[-1]
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel supports head_dim {KERNEL_HEAD_DIMS}, got {D}")
+    dims = KERNEL_HEAD_DIMS if do is None else BWD_KERNEL_HEAD_DIMS
+    if D not in dims:
+        raise ValueError(f"flash_attention kernel supports head_dim {dims}, got {D}")
     B, _, H, _ = q.shape
     if k.shape[0] != B or k.shape[2:] != q.shape[2:] or v.shape != k.shape:
         raise ValueError(f"flash_attention: shapes q {q.shape}, k {k.shape}, v {v.shape}")

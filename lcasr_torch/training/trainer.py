@@ -16,12 +16,15 @@ lcasr_tpu/training/trainer.py `make_chunks` and `Trainer.train`).
     cosine over recordings; the SequenceWarmupManager doubles the chunk
     and halves the batch, rebuilding the dataloader (and bumping the
     rotary interpolation factor when asked);
-  * save / resume with the JAX package's `meta.json` contract.
+  * save / resume with the JAX package's `meta.json` contract;
+  * `train_utterances`: presegmented utterance batches
+    (`data/utterances.py`), one optimizer step a batch;
+  * `debug_hooks = True` logs the accumulated gradient's per-parameter
+    statistics before each optimizer step (`training/debug_hooks.py`).
 
-Not ported yet: meshes (data, tensor and context parallelism), ZeRO,
-`loss_mode: enc_dec`, `train_utterances` and `debug_hooks`.  A
-`parallel.mesh` that asks for more devices than there are runs on one
-device, as the JAX trainer does.
+Not ported yet: meshes (data, tensor and context parallelism), ZeRO and
+`loss_mode: enc_dec`.  A `parallel.mesh` that asks for more devices than
+there are runs on one device, as the JAX trainer does.
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ from lcasr_torch.ops.ctc import ctc_loss
 from lcasr_torch.optim.factory import build_optimizer, set_learning_rate
 from lcasr_torch.optim.scheduling import CosineLRScheduler, SequenceWarmupManager
 from lcasr_torch.training import checkpointing
+from lcasr_torch.training.debug_hooks import grad_statistics
 from lcasr_torch.training.metrics import MetricsLogger
 
 LABEL_BUCKET = 64
@@ -58,7 +62,9 @@ def make_chunks(audio: np.ndarray, audio_lengths: np.ndarray, txt: List[list], t
                 chunk_size: int, chunk_overlap: int, pad_id: int) -> List[Dict[str, np.ndarray]]:
     """Chunk a batch of podcasts into fixed-shape training chunks (the JAX
     package's function: static batch, finished samples at weight 0, label
-    widths bucketed to multiples of 64, textless chunks skipped)."""
+    widths bucketed to multiples of 64, textless chunks skipped).  Each
+    chunk's transcripts go through `tokenizer.encode_batch` at once (one
+    crossing into the native BPE a chunk)."""
     B = audio.shape[0]
     audio_chunks = chunk_spectogram(audio, chunk_size, chunk_overlap)
     txt_chunks = [chunk_text_json(t, chunk_size, chunk_overlap, audio.shape[-1]) for t in txt]
@@ -69,7 +75,10 @@ def make_chunks(audio: np.ndarray, audio_lengths: np.ndarray, txt: List[list], t
         u_len = chunk.shape[-1]
         cur_lengths = u_len - np.clip(culm + u_len - audio_lengths - chunk_overlap, 0, None)
         cur_lengths = np.clip(cur_lengths, 0, u_len) * active
-        enc = [tokenizer.encode(txt_chunks[b][ix]) if active[b] else [] for b in range(B)]
+        live = [b for b in range(B) if active[b]]
+        enc = [[] for _ in range(B)]
+        for b, ids in zip(live, tokenizer.encode_batch([txt_chunks[b][ix] for b in live])):
+            enc[b] = ids
         t_lens = np.array([len(e) for e in enc], np.int64)
         if t_lens.max(initial=0) == 0:
             culm += u_len - (chunk_overlap if ix != 0 else 0)
@@ -123,7 +132,7 @@ class Trainer:
 
         tr = config.get("training", Config({}))
         if tr.get("loss_mode", "ctc") != "ctc":
-            raise NotImplementedError("loss_mode enc_dec is not ported yet")
+            raise NotImplementedError("loss_mode enc_dec is not ported yet (ROADMAP queue A3)")
         self.backprop_every = tr.get("backprop_every", 1)
         self.backwards_every = tr.get("backwards_every", 1)
         assert self.backprop_every >= self.backwards_every
@@ -188,6 +197,7 @@ class Trainer:
             wandb_config=config.get("wandb", Config({})).to_dict() if "wandb" in config else None,
         )
         self._acc: Dict[torch.nn.Parameter, torch.Tensor] = {}
+        self.debug_hooks = False  # per-parameter gradient statistics (-debug_hooks)
 
     # -- state ----------------------------------------------------------------
     def init_state(self) -> None:
@@ -211,21 +221,28 @@ class Trainer:
                 for b in (m.running_mean, m.running_std, m.num_batches_tracked)]
 
     # -- steps ----------------------------------------------------------------
+    def _upload(self, x: np.ndarray) -> torch.Tensor:
+        """A host array on the trainer's device.  To the GPU through pinned
+        memory (PyTorch's caching host allocator) and without blocking the
+        host, so the copy runs while the host goes on."""
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def micro_step(self, chunk: Dict[str, np.ndarray], augment: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Forward and backward of one chunk; the raw gradient of its
         weighted CTC sum adds into `p.grad`.  Returns (loss, blank_p), both
         still on the device."""
         dev = self.device
-        audio = torch.from_numpy(chunk["audio"]).to(dev)
-        lengths = torch.from_numpy(chunk["audio_lengths"]).to(dev)
-        weight = torch.from_numpy(chunk["weight"]).to(dev)
+        audio, lengths, weight, labels, label_lengths = (self._upload(chunk[k]) for k in (
+            "audio", "audio_lengths", "weight", "labels", "label_lengths"))
         if augment and self.augmentation is not None:
             audio = self.augmentation(self.augment_generator, audio, lengths)
         out = self.model(audio, length=lengths, train=True)
         log_probs = out["final_posteriors"].float()
-        nll = ctc_loss(log_probs, torch.from_numpy(chunk["labels"]).to(dev), out["length"],
-                       torch.from_numpy(chunk["label_lengths"]).to(dev),
+        nll = ctc_loss(log_probs, labels, out["length"], label_lengths,
                        blank_id=self.blank_id, reduction="none",
                        segment_size=self.ctc_segment_size)
         # impossible alignments carry the 1e30 sentinel (zero gradient);
@@ -262,8 +279,17 @@ class Trainer:
         for p in self._params():
             p.grad = None
 
+    def grad_statistics(self) -> Dict[str, float]:
+        """`debug_hooks.grad_statistics` of the accumulated gradient (zeros
+        for a parameter that has none, as in the JAX package's tree)."""
+        return grad_statistics({
+            name: self._acc[p] if p in self._acc else torch.zeros_like(p)
+            for name, p in self.model.named_parameters() if p.requires_grad})
+
     def optimizer_step(self, lr: float) -> None:
         """Clip and apply the accumulated gradient at learning rate lr."""
+        if self.debug_hooks:
+            self.metrics.log(self.grad_statistics())
         for p in self._params():
             p.grad = self._acc.get(p)
         set_learning_rate(self.optimizer, lr)
@@ -387,6 +413,58 @@ class Trainer:
                             self.rotary_interpolation_factor)
 
         self.save(cur_podcast, epoch, seen_ids)
+
+    def train_utterances(self, dataloader, epochs: int = 1) -> int:
+        """Utterance-level training (lcasr_tpu `Trainer.train_utterances`,
+        after the reference's train_sa.py): one optimizer step a batch of
+        presegmented utterances, the gradient weighted by 100 / the batch's
+        frames; audio padded to a multiple of 256 frames and labels to a
+        multiple of 64; the warmup hands over to the cosine, which then
+        runs over the utterances seen.  A non-finite loss skips the batch
+        and keeps the running statistics of before it.  Logs `loss`,
+        `blank_p`, `learning_rate`, `epoch` and `utterance_step`; returns
+        the number of optimizer steps."""
+        if self.optimizer is None:
+            self.init_state()
+        if hasattr(dataloader, "total_recordings"):
+            total = dataloader.total_recordings() * epochs
+        else:  # a plain list of batches
+            total = max(1, len(dataloader)) * epochs
+        step = seen = 0
+        self.zero_pending()
+        for epoch in range(epochs):
+            for batch in dataloader:
+                if self.scheduler.is_warmup and not self.scheduler.is_warming_up():
+                    self.scheduler.set_cosine_schedule(total_recordings=total, cur_podcast=seen)
+                n, _, width = batch["audio"].shape
+                audio = np.zeros((n, 80, _bucket(width, 256)), np.float32)
+                audio[:, :, :width] = batch["audio"]
+                text = batch["text"]
+                labels = np.zeros((n, _bucket(text.shape[-1])), np.int64)
+                labels[:, : text.shape[-1]] = text
+                chunk = {"audio": audio,
+                         "audio_lengths": np.asarray(batch["audio_lengths"], np.int32),
+                         "labels": labels,
+                         "label_lengths": np.asarray(batch["text_lengths"], np.int32),
+                         "weight": np.ones((n,), np.float32)}
+                stats = [b.clone() for b in self._stat_buffers()]
+                loss, blank_p = self.micro_step(chunk)
+                seen += n
+                if not np.isfinite(float(loss)):
+                    with torch.no_grad():
+                        for b, old in zip(self._stat_buffers(), stats):
+                            b.copy_(old)
+                    self.zero_pending()
+                    continue
+                lr = self.scheduler.step() if self.scheduler.is_warmup else self.scheduler.step(
+                    epoch=seen)
+                frames = max(int(batch["audio_lengths"].sum()), 1)
+                self.fold_group(100.0 / frames)
+                self.optimizer_step(lr)
+                step += 1
+                self.metrics.log({"loss": float(loss) / frames * 100, "blank_p": float(blank_p),
+                                  "learning_rate": lr, "epoch": epoch, "utterance_step": step})
+        return step
 
     # -- checkpoints ------------------------------------------------------------
     def save(self, step: int, epoch: int, seen_ids: List[str]) -> str:

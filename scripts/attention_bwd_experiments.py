@@ -36,8 +36,10 @@ CONTROLS = {
     "no_delta": [("(dp[4 * j + e] - ((e & 1) ? d2.y : d2.x))", "(dp[4 * j + e])")],
     # a band no longer makes every tile an edge tile: tiles inside the
     # length go unmasked under a band
-    "band_tiles_unmasked": [("const bool key_edge = p.left >= 0 || p.right >= 0 ||",
-                             "const bool key_edge =")],
+    "band_tiles_unmasked": [("const bool key_edge = p.left >= 0 || p.right >= 0 ||\n"
+                             "                          p.kv_off + c0 + HBK",
+                             "const bool key_edge =\n"
+                             "                          p.kv_off + c0 + HBK")],
     # at D 128 the second consumer adds its dq columns onto the first's
     "dq_columns": [("(TL::DQ_SPLIT ? cw * 64 : 0) + blk * DQ_BOX_COLS", "blk * DQ_BOX_COLS")],
     # K4: ds = p dp, without the row's delta
@@ -109,7 +111,8 @@ _ISSUE_BOTH = """      hopper::fence_all<D / 2>(dv);
 # design alternatives: name -> [(text in the source, its replacement)]
 VARIANTS = {
     # K4 with 128-key tiles: s and dp take 64 registers each instead of 32
-    "k4_keys_128": [("constexpr int DQ_KEYS = 64;", "constexpr int DQ_KEYS = 128;")],
+    "k4_keys_128": [("  return hopper::keys_per_tile<D>() / 2;",
+                     "  return D > 128 ? hopper::keys_per_tile<D>() / 2 : 128;")],
     # dq added from registers by four-float red.global.add (thread pairs
     # trade halves of their rows) instead of staged and TMA reduce-added
     "red_v4": [(_STAGED_DQ, _RED_V4)],

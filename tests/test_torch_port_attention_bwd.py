@@ -51,6 +51,11 @@ CASES = [
     ("T383", 1, 383, 1, 32, [383], (-1, -1), 0, 0),
     ("band_edge_in_128_q_tile", 1, 300, 1, 32, [290], (100, 72), 0, 0),
     ("offsets_128_band_across_tiles", 1, 260, 1, 32, [420], (96, 40), 128, 128),
+    # head_dim 256 (lcasr_6l_768d_3h): on the card K3 / K5 take 64-key CTAs
+    # and K4 32-key tiles there; the JAX `_bwd_impl` shrinks its blocks
+    ("D256_ragged_T_off_tiles", 2, 100, 1, 256, [100, 37], (-1, -1), 0, 0),
+    ("D256_band", 1, 130, 1, 256, [130], (20, 12), 0, 0),
+    ("D256_offsets", 2, 97, 1, 256, [120, 70], (-1, -1), 33, 20),
 ]
 
 
@@ -118,7 +123,8 @@ def test_kernel_choice_follows_the_jax_gate(monkeypatch, window, env, fused):
 
 
 # the same edges, on the card: chip_smoke.py holds K3 and K4 + K5 against
-# flash_attention_bwd_ref on every case of `attention_cases`
+# flash_attention_bwd_ref on every case of `attention_cases` and
+# `bwd_d256_cases`
 BWD_TILE_EDGES = {"T": (63, 65, 191, 257), "offsets": (64, 128)}
 # and those of K4's: 128 q rows per CTA, 64-key tiles
 K4_TILE_EDGES = {"T": (127, 129, 255, 383), "banded_D": (128, 64, 32)}
@@ -127,7 +133,8 @@ K4_TILE_EDGES = {"T": (127, 129, 255, 383), "banded_D": (128, 64, 32)}
 def test_chip_smoke_attention_cases_hold_the_backward_tile_edges():
     import chip_smoke
 
-    bf16 = [c for c in chip_smoke.attention_cases(torch) if c[5] == torch.bfloat16]
+    bf16 = [c for c in chip_smoke.attention_cases(torch) + chip_smoke.bwd_d256_cases(torch)
+            if c[5] == torch.bfloat16]
     two_sided = lambda c: c[7][0] >= 0 and c[7][1] >= 0  # noqa: E731  (K4 + K5 only)
     for T in BWD_TILE_EDGES["T"]:
         assert any(c[2] == T and not two_sided(c) for c in bf16), T  # K3 and K4 + K5

@@ -93,23 +93,27 @@ def test_plain_forward_matches_pallas_at_head_dim_256(case, monkeypatch):
     _run_case(D256_CASES[case], seed=23, D=256)
 
 
-def test_head_dim_256_is_a_forward_kernel_dim_and_the_backward_refuses_it():
-    """K1 and K2 take D = 256; K3-K5 do not, and their wrapper raises, naming
-    the missing port, before any check that needs the card (a meta tensor
-    stands in for a CUDA one: the CPU path runs the plain version by
-    contract)."""
+def test_head_dim_256_is_a_kernel_dim_both_ways_and_its_gradients_match_jax():
+    """K1, K2 and the backward K3-K5 all take D = 256; on the CPU both
+    directions run their plain versions there, and the gradients equal the
+    JAX `flash_attention_bwd` (Pallas in interpret mode) within ATOL: both
+    sides fp32 from the same pre-scaled q."""
+    from lcasr_tpu.ops import flash_attention as jfa
     from lcasr_torch.ops import flash_attention as tfa
 
-    assert 256 in tfa.KERNEL_HEAD_DIMS and 256 not in tfa.BWD_KERNEL_HEAD_DIMS
-    q = torch.empty((1, 64, 2, 256), dtype=torch.bfloat16, device="meta")
-    lse = torch.empty((1, 2, 64), dtype=torch.float32, device="meta")
-    with pytest.raises(NotImplementedError, match="K3-K5"):
-        tfa.flash_attention_bwd(q, q, q, q, lse, q)
-    # on the CPU both directions run their plain versions at D = 256
-    x = torch.randn((1, 20, 2, 256))
-    o, lse = tfa.flash_attention_with_lse(x, x, x)
-    dq, dk, dv = tfa.flash_attention_bwd(x, x, x, o, lse, torch.ones_like(o))
-    assert dq.shape == dk.shape == dv.shape == x.shape
+    assert 256 in tfa.KERNEL_HEAD_DIMS and 256 in tfa.BWD_KERNEL_HEAD_DIMS
+    rng = np.random.default_rng(24)
+    q, k, v, do = (rng.normal(size=(2, 20, 2, 256)).astype(np.float32) for _ in range(4))
+    lens = np.asarray([20, 13], np.int32)
+    o, lse = jfa.flash_attention_with_lse(q, k, v, lengths=jnp.asarray(lens))
+    want = jfa.flash_attention_bwd(q, k, v, o, lse, do, lengths=jnp.asarray(lens))
+    t = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
+    o_t, lse_t = tfa.flash_attention_with_lse(t(q), t(k), t(v), t(lens))
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o), atol=ATOL, rtol=0)
+    got = tfa.flash_attention_bwd(t(q), t(k), t(v), o_t, lse_t, t(do), t(lens))
+    for g, w in zip(got, want):
+        assert g.shape == (2, 20, 2, 256)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL, rtol=0)
 
 
 # ---------------------------------------------------------------------------

@@ -162,7 +162,7 @@ def test_unported_options_raise():
     small = dict(vocab_size=8, d_model=32, n_layers=1, n_heads=1, head_dim=32,
                  subsampling_conv_channels=8, device="cpu")
     for kw in (dict(seq_axis_name="seq"), dict(quant_w8a8=True), dict(conv_type="longconv"),
-               dict(capture_qkv=True), dict(remat_policy="dots")):
+               dict(capture_qkv=True)):
         with pytest.raises(NotImplementedError):
             SCConformerXL(**small, **kw)
     with pytest.raises(TypeError):
@@ -248,7 +248,9 @@ def test_port_imports_no_jax_and_no_lcasr_tpu():
         "             'lcasr_torch.evaluation.run', 'lcasr_torch.evaluation.normalizer',\n"
         "             'lcasr_torch.evaluation.wer', 'lcasr_torch.serving',\n"
         "             'lcasr_torch.serving.server', 'lcasr_torch.serving.__main__',\n"
-        "             'lcasr_torch.evaluation.datasets.rev16'):\n"
+        "             'lcasr_torch.evaluation.datasets.rev16', 'lcasr_torch.native',\n"
+        "             'lcasr_torch.data.utterances', 'lcasr_torch.training.debug_hooks',\n"
+        "             'lcasr_torch.ops.ctc'):\n"
         "    assert name in sys.modules, name\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('lcasr_torch')]))\n"
@@ -256,4 +258,4 @@ def test_port_imports_no_jax_and_no_lcasr_tpu():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=str(__import__("pathlib").Path(__file__).parents[1]))
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 41  # every module was imported (models.positional too)
+    assert int(out.stdout.strip()) >= 44  # every module was imported (models.positional too)

@@ -116,13 +116,15 @@ def _port_loss(model, audio, lens, labels, label_lens, weight):
     return (nll * torch.from_numpy(weight)).sum()
 
 
-@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+@pytest.mark.parametrize("remat", [False, True, "dots"], ids=["plain", "remat", "remat_dots"])
 def test_model_train_loss_and_grads_match_jax(remat):
     from lcasr_tpu.models.sconformer_xl import SCConformerXL as JModel
     from lcasr_tpu.ops.ctc import ctc_loss as jax_ctc
     from lcasr_torch.models.sconformer_xl import SCConformerXL
 
-    cfg = dict(TINY, checkpoint_every_n_layers=int(remat), remat_subsampling=remat)
+    cfg = dict(TINY, checkpoint_every_n_layers=int(bool(remat)), remat_subsampling=bool(remat))
+    if remat == "dots":  # jax.checkpoint_policies.dots_saveable on the JAX side
+        cfg["remat_policy"] = "dots"
     audio, lens, labels, label_lens, weight = _batch()
     jm = JModel(**cfg)
     v = randomize(jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 80, 320))), seed=6)
@@ -193,11 +195,28 @@ def test_dropout_masks_repeat_under_remat():
         torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
 
 
-def test_remat_policy_dots_is_not_ported():
-    from lcasr_torch.models.sconformer_xl import SCConformerXL
+def test_remat_policy_dots_gives_the_gradients_of_nothing():
+    """remat_policy "dots" saves the matrix products' outputs and recomputes
+    the rest: the loss, the gradients and the one update of the running
+    statistics are those of "nothing" (the same fp32 ops on the CPU, so
+    within 1e-6); an unknown policy raises as in the JAX model."""
+    from lcasr_torch.models.sconformer_xl import SCConformerXL, init_weights_
 
-    with pytest.raises(NotImplementedError, match="dots"):
-        SCConformerXL(**TINY, remat_policy="dots", device="cpu")
+    batch = _batch(seed=11)
+    runs = []
+    for policy in ("nothing", "dots"):
+        m = init_weights_(SCConformerXL(**TINY, checkpoint_every_n_layers=1,
+                                        remat_policy=policy, device="cpu"), seed=12)
+        loss = _port_loss(m, *batch)
+        loss.backward()
+        assert int(m.layers[1].conv.norm.num_batches_tracked) == 1
+        runs.append((loss.item(), {n: p.grad.clone() for n, p in m.named_parameters()},
+                     {n: b.clone() for n, b in m.named_buffers() if "running" in n}))
+    assert runs[0][0] == pytest.approx(runs[1][0], rel=1e-6)
+    for n in runs[0][1]:
+        torch.testing.assert_close(runs[1][1][n], runs[0][1][n], rtol=0, atol=1e-6)
+    for n in runs[0][2]:
+        torch.testing.assert_close(runs[1][2][n], runs[0][2][n], rtol=0, atol=1e-7)
     with pytest.raises(ValueError):
         SCConformerXL(**TINY, remat_policy="everything", device="cpu")
 
