@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases mamba_decode,mamba_train  # the Mamba family only
     python3 chip_smoke.py --phases decode_opt,train_opt  # the opt-in configuration only
     python3 chip_smoke.py --phases audio,serve   # WAV -> WER and the server only
+    python3 chip_smoke.py --phases enc_dec       # the encoder-decoder family only
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -109,6 +110,21 @@ Phases, in order; any failure raises and exits non-zero:
               each in 0.5 s chunks, each session's ids equal to a
               single-stream OnlineTranscriber's, pump latency and RTFx;
               then `python -m lcasr_torch.serving` on a 30 s WAV file.
+ 14. enc_dec  the encoder-decoder family at its class defaults (6 + 6
+              layers, d_model 768, 6 heads x 128, random weights from a
+              seed): EncDecSconformer and V2 forwards on a (4, 80, 16384)
+              batch with 384 ids (6 K1 launches each, CTC and decoder
+              log-probs against plain attention); greedy decoding of a
+              16384-frame recording, max 256 tokens: in fp32 the cached and
+              full-prefix ids equal and every cached step's logits the full
+              pass's, in bf16 timed (encoder ms, ms a token both ways, host
+              synchronisations, idle share); the Trainer with loss_mode
+              enc_dec on the ladder (6 K1 + 6 K3 a micro step, gradient gate
+              against plain attention, save / resume, peak memory, step wall
+              and device busy time; a fresh model's loss falling over 5
+              steps on one chunk); the V2
+              internal-LM ctc_beam_search in fp32 (text equal to plain
+              attention's).
 
 The line before the last two is one JSON object with each kernel's numbers;
 the last line is the device record.  Without a GPU, or without the repo
@@ -126,7 +142,7 @@ import sys
 import time
 
 PHASES = ("kernels", "model", "decode", "train", "train_d256", "utterances", "mamba_decode",
-          "mamba_train", "decode_opt", "train_opt", "audio", "serve")
+          "mamba_train", "decode_opt", "train_opt", "audio", "serve", "enc_dec")
 
 # configs/ladder_9l_768d_6h.yaml, written out: the machine with the card is
 # not promised pyyaml (tests/test_torch_port_train.py holds the two equal)
@@ -2149,11 +2165,9 @@ class TrainRun:
                 chunk_overlap=0, prefetch=new, native=new)
             torch.cuda.synchronize()
             if profile_file:
-                rows = profile_run(torch, lambda: tr.train(loader), profile_file,
-                                   f"one {self.what} epoch, {kind} data path")
-                wall = float(open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                                               profile_file)).readline().split()[1])
-                return 1 - sum(r[0] for r in rows) / wall if rows else None
+                return profile_idle_share(profile_run(
+                    torch, lambda: tr.train(loader), profile_file,
+                    f"one {self.what} epoch, {kind} data path"), profile_file)
             tr.train(loader)
             torch.cuda.synchronize()
             ts = [json.loads(line)["ts"] for line in open(os.path.join(ckpt, "metrics.jsonl"))
@@ -3185,6 +3199,403 @@ def phase_serve(torch, workdir: str, seed: int) -> dict:
             "launches": launches["flash_attention_fwd"], "rtfx": rtfx}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the encoder-decoder family (EncDecSconformer, V2)
+# ---------------------------------------------------------------------------
+# lcasr_tpu/models/enc_dec_sconformer.py:364-388, the class defaults, written
+# out: 6 encoder layers, d_model 768, 6 heads x 128, the decoder as deep as
+# the encoder, 256 conv channels, silu, rotary base 10000, CTC weight 0.5,
+# self-conditioning; on the ladder configuration with loss_mode enc_dec
+# (bf16 compute over fp32 parameters).  The family has no remat option.
+ENC_DEC_CONFIG = merged(dict(LADDER_CONFIG, model_class="EncDecSconformer", model={
+    "n_layers": 6, "d_model": 768, "n_heads": 6, "head_dim": 128,
+    "subsampling_factor": 8, "subsampling_conv_channels": 256, "subsampling_act": "silu",
+    "ctc_loss_weight": 0.5, "self_conditioning": True, "default_norm": "layer_norm",
+    "conv_kernel_size": 9, "use_rotary": True, "rotary_base_freq": 10000.0,
+}), {"training": {"loss_mode": "enc_dec"}})
+# K1 in each encoder layer's forward, K3 in its backward: nothing is
+# recomputed (the JAX class has no remat either); the decoder's attention is
+# plain torch, as in the JAX package
+ENC_DEC_TRAIN_LAUNCHES = {"flash_attention_fwd": 6, "flash_attention_bwd_fused": 6}
+ENC_DEC_FWD_LAUNCHES = {"flash_attention_fwd": 6}  # one encoder forward of one window
+ENC_DEC_BATCH, ENC_DEC_FRAMES, ENC_DEC_TEXT = 4, 16_384, 384  # the forward's batch
+ENC_DEC_LENGTHS = (16_384, 12_000, 8_192, 4_096)
+GREEDY_FRAMES, MAX_GENERATE, BEAM_FRAMES, BEAM_WIDTH = 16_384, 256, 4_096, 4
+ENC_DEC_OPT_STEPS = 5
+# random weights give near-uniform CTC posteriors over 4096 classes, where
+# nearly every class clears the beam search's -6 threshold (some 16,000
+# candidate beams a frame); the decoding models' CTC head weights are scaled
+# by this so that their posteriors are peaked as a trained head's are
+# (about 2% of the classes within 6 of the top, by the draw's Gaussian
+# tail).  The training models keep the draw as it is, as the other training
+# phases' models do
+CTC_HEAD_GAIN = 4.0
+# the cached step's fp32 logits against the full pass's, at every position:
+# fp32 sums in another order through 6 decoder layers at width 768 (the CPU
+# parity test holds 2e-4 at width 64); a wrong cache slot, mask or position
+# moves logits by O(1)
+STEP_TOL = 1e-3  # of max(1, the largest |logit|)
+
+
+def enc_dec_model(torch, v2: bool, dtype, seed: int = 0, weights=None,
+                  ctc_gain: float = CTC_HEAD_GAIN):
+    """The full-width EncDecSconformer (v2: V2) of ENC_DEC_CONFIG computing in
+    `dtype`, its weights those of the model `weights` or drawn by
+    `init_weights_(seed)` with the CTC head scaled by `ctc_gain`."""
+    from lcasr_torch.config import Config
+    from lcasr_torch.models.registry import load_model
+    from lcasr_torch.models.sconformer_xl import init_weights_
+
+    cfg = merged(ENC_DEC_CONFIG, {"training": {"dtype": {torch.bfloat16: "bfloat16",
+                                                          torch.float32: "float32"}[dtype]}})
+    if v2:
+        cfg["model_class"] = "EncDecSconformerV2"
+    model = load_model(Config(cfg), 4095, device=DEVICE)
+    if weights is not None:
+        model.load_state_dict(weights.state_dict(), strict=True)
+        return model
+    init_weights_(model, seed=seed)
+    with torch.no_grad():
+        model.decoder.ff.weight.mul_(ctc_gain)
+    return model
+
+
+def enc_dec_forward(torch, model, what: str) -> dict:
+    """One (4, 80, 16384) batch with ragged lengths and 4 seeded sequences
+    of 384 ids: finite CTC log-probs and decoder logits of the right shapes,
+    ENC_DEC_FWD_LAUNCHES K1 launches and 0 of every other kernel, both
+    outputs close to the same model's with plain attention in its encoder
+    (`logprob_agreement`, phase `model`'s gate; the decoder's logits through
+    a log-softmax)."""
+    import numpy as np
+
+    from lcasr_torch import kernels
+
+    rng = np.random.default_rng(21)
+    audio = torch.from_numpy(rng.normal(size=(ENC_DEC_BATCH, 80, ENC_DEC_FRAMES))
+                             .astype(np.float32)).to(DEVICE)
+    lengths = torch.tensor(ENC_DEC_LENGTHS, dtype=torch.int32, device=DEVICE)
+    text = torch.from_numpy(rng.integers(1, 4095, size=(ENC_DEC_BATCH, ENC_DEC_TEXT))).to(DEVICE)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        out = model(audio, text, length=lengths)
+        torch.cuda.synchronize()
+        launches = expect_launches(ENC_DEC_FWD_LAUNCHES, f"one {what} forward")
+        ctc, lm = out["final_posteriors_ctc"], out["final_posteriors_lm"]
+        T = ENC_DEC_FRAMES // 8
+        if (tuple(ctc.shape) != (ENC_DEC_BATCH, T, 4096) or ctc.dtype != torch.float32
+                or tuple(lm.shape) != (ENC_DEC_BATCH, ENC_DEC_TEXT, 4095)):
+            raise AssertionError(f"{what}: CTC {tuple(ctc.shape)} {ctc.dtype}, "
+                                 f"decoder {tuple(lm.shape)}")
+        if not (torch.isfinite(ctc).all() and torch.isfinite(lm).all()):
+            raise AssertionError(f"{what}: non-finite outputs")
+        with plain_attention():
+            kernels.reset_launch_counts()
+            plain = model(audio, text, length=lengths)
+            require_launches(False, f"{what} forward with plain attention")
+        fwd_ms = time_ms(torch, lambda: model(audio, text, length=lengths), n=3, warmup=1)
+    agree = logprob_agreement(torch, ctc, plain["final_posteriors_ctc"], out["length"],
+                              f"{what} CTC log-probs with K1 against plain attention")
+    full = torch.full((ENC_DEC_BATCH,), ENC_DEC_TEXT, device=DEVICE)
+    agree_lm = logprob_agreement(
+        torch, torch.log_softmax(lm.float(), -1),
+        torch.log_softmax(plain["final_posteriors_lm"].float(), -1), full,
+        f"{what} decoder log-probs with K1 against plain attention")
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {what} ({n_params / 1e6:.1f}M parameters) forward ({ENC_DEC_BATCH}, 80, "
+        f"{ENC_DEC_FRAMES}) + {ENC_DEC_TEXT} ids bf16: {fwd_ms:.2f} ms, launches {launches}; "
+        f"vs plain attention: CTC argmax agreement {agree[0]:.5f}, max|dlogp| {agree[1]:.4f}, "
+        f"mean {agree[2]:.2e}; decoder {agree_lm[0]:.5f}, {agree_lm[1]:.4f}, {agree_lm[2]:.2e}")
+    return {"forward_ms": fwd_ms, "launches": launches["flash_attention_fwd"],
+            "ctc_agreement": agree, "decoder_agreement": agree_lm}
+
+
+@contextlib.contextmanager
+def counted(obj, name: str, counter: dict):
+    """Count the calls of obj.name inside (this script only)."""
+    from unittest import mock
+
+    real = getattr(obj, name)
+
+    def wrapper(*args, **kwargs):
+        counter[name] = counter.get(name, 0) + 1
+        return real(*args, **kwargs)
+
+    with mock.patch.object(obj, name, wrapper):
+        yield
+
+
+def host_syncs(torch, fn) -> int:
+    """The synchronising CUDA calls fn makes, by PyTorch's sync debug mode."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def enc_dec_greedy_fp32(torch, model, audio, what: str) -> dict:
+    """fp32: the cached and the full-prefix greedy decodes give the same ids,
+    and at every position of the cached decode its step's logits are those
+    of one full pass over its final token buffer, within STEP_TOL."""
+    from unittest import mock
+
+    from lcasr_torch.models.enc_dec_sconformer import generate_greedy, generate_greedy_cached
+
+    steps, real = [], model.decoder_step
+
+    def recorded(*args, **kwargs):
+        logits, caches = real(*args, **kwargs)
+        steps.append(logits[0])
+        return logits, caches
+
+    with mock.patch.object(model, "decoder_step", recorded):
+        ids_cached = generate_greedy_cached(model, audio, max_generate=MAX_GENERATE)
+    ids_full = generate_greedy(model, audio, max_generate=MAX_GENERATE)
+    with torch.no_grad():
+        a_hidden, _, length = model.encode(audio)
+        tokens = torch.zeros((1, MAX_GENERATE), dtype=torch.int64, device=DEVICE)
+        tokens[0, 1:1 + len(ids_cached)] = torch.tensor(ids_cached, device=DEVICE)
+        full = model.generate_step(tokens, a_hidden, length)[0, :len(steps)]
+        step_err = (torch.stack(steps) - full).abs().max().item()
+    scale = max(1.0, full.abs().max().item())
+    log(f"  {what} fp32 greedy: {len(ids_cached)} ids cached, {len(ids_full)} full-prefix, "
+        f"equal {ids_cached == ids_full}; the cached steps against one full pass over "
+        f"{len(steps)} positions: max|dlogit| {step_err:.3e} (gate {STEP_TOL * scale:.3e})")
+    if ids_cached != ids_full or step_err > STEP_TOL * scale:
+        raise AssertionError(f"{what} fp32: cached greedy ids {ids_cached[:20]}... against "
+                             f"full-prefix {ids_full[:20]}..., step error {step_err}")
+    return {"ids": len(ids_cached), "step_max_abs_err": step_err}
+
+
+def enc_dec_greedy_bf16(torch, model, audio, what: str, idle_share: bool) -> dict:
+    """bf16: the encoder's ms, each decode's ms per emitted token (its wall
+    less the encoder's, over its decoder calls; the mean of 2 after a warm
+    one, which counts the decoder calls and the host synchronisations),
+    tokens per second, with `idle_share` the device's idle share over one
+    cached decode, and the first position where the two decodes' ids differ
+    (reported, not gated: near-ties of a bf16 argmax)."""
+    import numpy as np
+
+    from lcasr_torch import kernels
+    from lcasr_torch.models.enc_dec_sconformer import generate_greedy, generate_greedy_cached
+
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        model.encode(audio)
+        torch.cuda.synchronize()
+        expect_launches(ENC_DEC_FWD_LAUNCHES, f"{what} encoder")
+        encoder_ms = time_ms(torch, lambda: model.encode(audio), n=5)
+    out = {"encoder_ms": encoder_ms}
+    ids = {}
+    for name, fn in (("cached", generate_greedy_cached), ("full_prefix", generate_greedy)):
+        calls = {}
+        method = "decoder_step" if name == "cached" else "generate_step"
+        with counted(model, method, calls):
+            syncs = host_syncs(torch, lambda: ids.__setitem__(
+                name, fn(model, audio, max_generate=MAX_GENERATE)))
+        steps = calls[method]
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(model, audio, max_generate=MAX_GENERATE)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = float(np.mean(walls))
+        if syncs < steps:  # each decoder call ends in one eos check
+            log(f"  sync debug mode recorded {syncs} synchronisations for {steps} eos checks: "
+                f"host synchronisations not measured")
+            syncs = None
+        per_token = (wall - encoder_ms) / steps
+        out[name] = {"decode_ms": walls, "steps": steps, "ms_per_token": per_token,
+                     "tokens_per_s": 1e3 / per_token, "host_syncs": syncs,
+                     "host_syncs_per_token": syncs / steps if syncs is not None else None}
+        log(f"  {what} bf16 {name} greedy: {len(ids[name])} ids in {steps} decoder calls, "
+            f"decode {[round(w, 2) for w in walls]} ms, encoder {encoder_ms:.2f} ms, "
+            f"{per_token:.3f} ms per token ({1e3 / per_token:.1f} tokens/s), {syncs} host "
+            f"synchronisations in the decode")
+    if idle_share:
+        out["cached"]["idle_share"] = device_idle_share(
+            torch, lambda: generate_greedy_cached(model, audio, max_generate=MAX_GENERATE),
+            f"one bf16 cached {what} greedy decode")
+    a, b = ids["cached"], ids["full_prefix"]
+    first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 None if len(a) == len(b) else min(len(a), len(b)))
+    out["first_difference"] = first
+    log(f"  {what} bf16: cached and full-prefix ids "
+        + ("equal" if first is None else f"first differ at position {first}"))
+    return out
+
+
+def device_idle_share(torch, run, what: str):
+    """1 - the device's busy time over the wall time of one run, by
+    torch.profiler with device activity only (a decode's hundred thousand
+    host-side ops would take the profiler minutes to tabulate), or None
+    where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    share = 1 - busy_us / wall_us if busy_us else None
+    log(f"  profile of {what} (device activity): wall {wall_us / 1e3:.2f} ms, device busy "
+        f"{busy_us / 1e3:.2f} ms, idle share {share}")
+    return share
+
+
+def profile_idle_share(rows, filename: str):
+    """The idle share of the wall time `profile_run` wrote to build/<filename>."""
+    if not rows:
+        return None
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", filename)
+    wall = float(open(path).readline().split()[1])
+    return 1 - sum(r[0] for r in rows) / wall
+
+
+def enc_dec_train(torch, workdir: str) -> dict:
+    """The Trainer with loss_mode enc_dec on ENC_DEC_CONFIG: the ladder run
+    (8192 x 8 -> 16384 x 4 on 16 podcasts) with its launch counts and save /
+    resume; one 16384 x 4 micro step's launches and peak memory; the
+    gradient gate against plain fp32 attention (plain bf16 attention the
+    yardstick); ENC_DEC_OPT_STEPS optimizer steps of a fresh model on one
+    chunk with a finite, falling loss; the steady step's wall, device busy
+    time and idle share."""
+    import numpy as np
+
+    from lcasr_torch import kernels
+    from lcasr_torch.training.trainer import Trainer
+
+    run = TrainRun(torch, workdir, ENC_DEC_CONFIG,
+                   lambda seed, config: enc_dec_model(torch, False, torch.bfloat16, seed,
+                                                      ctc_gain=1.0),
+                   ENC_DEC_TRAIN_LAUNCHES, "EncDecSconformer")
+    trainer, model, ladder = run.ladder()
+    _, chunk = run.chunk_16384x4()
+    stats = [b.clone() for b in trainer._stat_buffers()]
+
+    def one_step():
+        trainer.zero_pending()
+        loss, _ = trainer.micro_step(chunk)
+        for b, old in zip(trainer._stat_buffers(), stats):
+            b.copy_(old)
+        return float(loss), flat_grads(model)
+
+    trainer.zero_pending()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    one_step()
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = expect_launches(ENC_DEC_TRAIN_LAUNCHES, "one EncDecSconformer micro step")
+    log(f"  EncDecSconformer 16384x4 micro step ({int(chunk['label_lengths'].max())} labels at "
+        f"most, padded to {chunk['labels'].shape[1]}): launches {launches}, peak memory "
+        f"{peak_gb:.2f} GB")
+    gate = gradient_gate("EncDecSconformer", "plain fp32 attention", one_step,
+                         plain_attention(), {"plain bf16 attention": plain_attention(bf16=True)})
+    # a fresh model and optimizer, as in phase train_d256: MADGRAD's dual
+    # averaging carries the ladder run's sums, and from them the loss on one
+    # chunk swung up and down (H100 runs)
+    fresh = Trainer(run.cfg, enc_dec_model(torch, False, torch.bfloat16, 2, ctc_gain=1.0),
+                    run.tok, device=DEVICE, checkpoint_dir=os.path.join(run.tmp, "ckpt_fresh"))
+    fresh.init_state()
+    losses = []
+    for _ in range(ENC_DEC_OPT_STEPS):
+        fresh.zero_pending()
+        loss, _ = fresh.micro_step(chunk)
+        fresh.fold_group(100.0 / (PODCAST_FRAMES * 4))
+        fresh.optimizer_step(3e-4)
+        losses.append(float(loss))
+    log(f"  EncDecSconformer, a fresh model: {ENC_DEC_OPT_STEPS} optimizer steps on one 16384x4 "
+        f"chunk, loss {[round(x, 4) for x in losses]}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"EncDecSconformer loss {losses} is not finite and falling")
+    del fresh
+    trainer.zero_pending()
+    rows = run.timed_step(trainer, chunk, "enc_dec_train_profile.txt")
+    return {"launches_ladder": ladder, "launches": launches, "peak_gb_micro_step": peak_gb,
+            "gate": gate, "losses": losses, "device_busy_ms": sum(r[0] for r in rows) / 1e3,
+            "idle_share": profile_idle_share(rows, "enc_dec_train_profile.txt")}
+
+
+def enc_dec_beam(torch, model) -> dict:
+    """`ctc_beam_search` on the fp32 V2 with the port's tokenizer: a
+    BEAM_FRAMES recording, BEAM_WIDTH beams; the text equals the text of the
+    same model with plain attention in its encoder.  Wall seconds and
+    decoder calls."""
+    import numpy as np
+
+    from lcasr_torch import kernels
+    from lcasr_torch.data.tokenizer import load_tokenizer
+    from lcasr_torch.models.enc_dec_sconformer import ctc_beam_search
+
+    tok = load_tokenizer()
+    audio = torch.from_numpy(np.random.default_rng(23).normal(size=(1, 80, BEAM_FRAMES))
+                             .astype(np.float32)).to(DEVICE)
+    calls = {}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with counted(model, "generate_step", calls):
+        text = ctc_beam_search(model, audio, tok, beam_width=BEAM_WIDTH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = expect_launches(ENC_DEC_FWD_LAUNCHES, "the V2 beam search")
+    with plain_attention():
+        kernels.reset_launch_counts()
+        plain = ctc_beam_search(model, audio, tok, beam_width=BEAM_WIDTH)
+        require_launches(False, "the V2 beam search with plain attention")
+    log(f"  V2 ctc_beam_search, fp32, {BEAM_FRAMES} frames, width {BEAM_WIDTH}: {wall:.2f} s, "
+        f"{calls['generate_step']} decoder calls, {len(text.split())} words, launches "
+        f"{launches}; equal to plain attention's text: {text == plain}")
+    if text != plain or not text:
+        raise AssertionError(f"V2 beam text {text[:200]!r} against plain attention's "
+                             f"{plain[:200]!r}")
+    return {"wall_s": wall, "decoder_calls": calls["generate_step"],
+            "words": len(text.split())}
+
+
+def phase_enc_dec(torch, workdir: str) -> dict:
+    import numpy as np
+
+    out, seconds = {}, {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return result
+
+    audio = torch.from_numpy(np.random.default_rng(22).normal(size=(1, 80, GREEDY_FRAMES))
+                             .astype(np.float32)).to(DEVICE)
+    for v2, what in ((False, "EncDecSconformer"), (True, "EncDecSconformerV2")):
+        model = part(f"build_{what}", enc_dec_model, torch, v2, torch.bfloat16)
+        out[f"forward_{what}"] = part(f"forward_{what}", enc_dec_forward, torch, model, what)
+        out[f"greedy_bf16_{what}"] = part(f"greedy_bf16_{what}", enc_dec_greedy_bf16, torch,
+                                          model, audio, what, not v2)
+        fp32 = part(f"build_fp32_{what}", enc_dec_model, torch, v2, torch.float32, 0, model)
+        del model
+        out[f"greedy_fp32_{what}"] = part(f"greedy_fp32_{what}", enc_dec_greedy_fp32, torch,
+                                          fp32, audio, what)
+        if v2:
+            out["beam"] = part("beam", enc_dec_beam, torch, fp32)
+        del fp32
+    out["train"] = part("train", enc_dec_train, torch, workdir)
+    log(f"  phase enc_dec seconds: {seconds}")
+    out["seconds"] = seconds
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -3211,7 +3622,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gpu = gpu_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
-    log("[1/13] build")
+    log("[1/14] build")
     build_s = kernels.build()
     log(f"  build {build_s:.2f} s into {kernels.BUILD_DIR}")
     for src, text in kernels.build_log.items():
@@ -3227,7 +3638,7 @@ def main() -> int:
     results = {}
     workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_train")
     if "kernels" in phases:
-        log("[2/13] kernels against their plain versions")
+        log("[2/14] kernels against their plain versions")
         results["flash_attention_fwd"] = phase_kernels(torch)
         results["flash_attention_fwd_db"] = phase_kernels_db(torch)
         fwd_registers = {**template_entries(kernels.build_log["flash_attn_fwd.cu"]),
@@ -3240,11 +3651,11 @@ def main() -> int:
         results["subsampling_fused"] = phase_kernels_sub(torch)
     model = None
     if "model" in phases:
-        log("[3/13] flagship model, one window batch")
+        log("[3/14] flagship model, one window batch")
         model = flagship_model(torch)
         phase_model(torch, model, plain_attention(), "flagship")
     if "decode" in phases:
-        log("[4/13] 20-minute streaming greedy decode (the serving path)")
+        log("[4/14] 20-minute streaming greedy decode (the serving path)")
         model = model or flagship_model(torch)
         launches, _, rows = phase_decode(torch, model,
                                          {"flash_attention_fwd": EXPECTED_LAUNCHES},
@@ -3259,7 +3670,7 @@ def main() -> int:
             f"(kernel phase, launches back to back: {k1.get('ms')} ms)")
     del model
     if "train" in phases:
-        log("[5/13] training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1 "
+        log("[5/14] training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1 "
             "(the training path)")
         os.makedirs(workdir, exist_ok=True)
         try:
@@ -3278,7 +3689,7 @@ def main() -> int:
         results["flash_attention_bwd_fused"]["train_step_profile"] = k3_step
         results["flash_attention_fwd"]["train_host_side"] = host
     if "train_d256" in phases:
-        log("[6/13] lcasr_6l_768d_3h (head_dim 256) trains: K1 and K3 at D = 256")
+        log("[6/14] lcasr_6l_768d_3h (head_dim 256) trains: K1 and K3 at D = 256")
         os.makedirs(workdir, exist_ok=True)
         try:
             d256 = phase_train_d256(torch, workdir)
@@ -3290,7 +3701,7 @@ def main() -> int:
         results["flash_attention_bwd_fused"]["train_d256"] = {
             k: v for k, v in d256.items() if k != "launches"}
     if "utterances" in phases:
-        log("[7/13] utterance training with debug hooks, and wild-card CTC on the card")
+        log("[7/14] utterance training with debug hooks, and wild-card CTC on the card")
         os.makedirs(workdir, exist_ok=True)
         try:
             utt = phase_utterances(torch, workdir)
@@ -3301,7 +3712,7 @@ def main() -> int:
         results["flash_attention_fwd"]["utterances_phase"] = {
             k: v for k, v in utt.items() if k != "launches"}
     if "mamba_decode" in phases:
-        log("[8/13] Mamba: one window batch, then the 20-minute streaming greedy decode")
+        log("[8/14] Mamba: one window batch, then the 20-minute streaming greedy decode")
         model = mamba_model(torch)
         phase_model(torch, model, plain_scan(torch.float32), "Mamba")
         launches, rtfx, rows = phase_decode(
@@ -3313,7 +3724,7 @@ def main() -> int:
         k6["decode_profile"] = dict(profile_share(rows, SSM_KERNELS["selective_scan_fwd"][0],
                                                   "K6", "the Mamba decode"), rtfx=rtfx)
     if "mamba_train" in phases:
-        log("[9/13] Mamba training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1")
+        log("[9/14] Mamba training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1")
         os.makedirs(workdir, exist_ok=True)
         try:
             ladder, k6_step, k7_step, host = phase_mamba_train(torch, workdir)
@@ -3328,14 +3739,14 @@ def main() -> int:
         k6["train_step_profile"] = k6_step
         k6["train_host_side"] = host
     if "decode_opt" in phases:
-        log("[10/13] the opt-in decode configuration (K2, K8) and the decoder's options")
+        log("[10/14] the opt-in decode configuration (K2, K8) and the decoder's options")
         launches, mamba_launches, numbers = phase_decode_opt(torch)
         for key in ("flash_attention_fwd_db", "subsampling_fused"):
             results.setdefault(key, {"name": key})["launches"] = launches[key]
         results["subsampling_fused"]["launches_mamba_decode"] = mamba_launches["subsampling_fused"]
         results["subsampling_fused"].update(numbers)
     if "train_opt" in phases:
-        log("[11/13] one training step under both flags, and under each alone, against the "
+        log("[11/14] one training step under both flags, and under each alone, against the "
             "same step without")
         os.makedirs(workdir, exist_ok=True)
         try:
@@ -3353,7 +3764,7 @@ def main() -> int:
         try:
             k1 = results.setdefault("flash_attention_fwd", {"name": "flash_attention_fwd"})
             if "audio" in phases:
-                log("[12/13] from a WAV file to a transcript and a WER: the frontend on the "
+                log("[12/14] from a WAV file to a transcript and a WER: the frontend on the "
                     "card, evaluate in its three modes, the head_dim-256 model")
                 audio = phase_audio(torch, audio_dir, args.seed)
                 k1["audio_phase"] = audio
@@ -3361,10 +3772,26 @@ def main() -> int:
                 results.setdefault("flash_attention_fwd_db", {"name": "flash_attention_fwd_db"})[
                     "launches_d256_decode"] = audio["wav_d256_k2"]["launches"]
             if "serve" in phases:
-                log("[13/13] the streaming server: 4 sessions on the flagship, then the CLI")
+                log("[13/14] the streaming server: 4 sessions on the flagship, then the CLI")
                 k1["serve_phase"] = phase_serve(torch, audio_dir, args.seed)
         finally:
             shutil.rmtree(audio_dir, ignore_errors=True)
+    if "enc_dec" in phases:
+        log("[14/14] the encoder-decoder family: forwards, greedy decoding both ways, "
+            "enc_dec training, the internal-LM beam search")
+        os.makedirs(workdir, exist_ok=True)
+        try:
+            enc_dec = phase_enc_dec(torch, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        k1 = results.setdefault("flash_attention_fwd", {"name": "flash_attention_fwd"})
+        k3 = results.setdefault("flash_attention_bwd_fused", {"name": "flash_attention_bwd_fused"})
+        k1["launches_enc_dec_forward"] = enc_dec["forward_EncDecSconformer"]["launches"]
+        k1["launches_enc_dec_forward_v2"] = enc_dec["forward_EncDecSconformerV2"]["launches"]
+        for key, entry in (("flash_attention_fwd", k1), ("flash_attention_bwd_fused", k3)):
+            entry["launches_enc_dec_micro_step"] = enc_dec["train"]["launches"][key]
+            entry["launches_enc_dec_ladder"] = enc_dec["train"]["launches_ladder"][key]
+        k1["enc_dec_phase"] = enc_dec
     name, power = [s.strip() for s in gpu.split(",", 1)]
     for entry in results.values():
         entry.update(gpu=name, power_limit=power)

@@ -1,5 +1,5 @@
-"""Flax variables of lcasr_tpu's SCConformerXL and Mamba <-> the port's
-state_dict.
+"""Flax variables of lcasr_tpu's SCConformerXL, Mamba and encoder-decoder
+models <-> the port's state_dict.
 
 The inverse direction of lcasr_tpu/models/import_torch.py, for the port's
 own module tree (whose names follow the flax tree one to one):
@@ -10,7 +10,8 @@ own module tree (whose names follow the flax tree one to one):
   * depthwise conv kernel (K, C) -> (C, 1, K);
   * norm `scale` / `bias`, BatchRenorm and BatchNorm `weight` / `bias` and
     their `batch_stats` (`running_mean`, `running_std` or `running_var`,
-    `num_batches_tracked`), the Fourier positions' `w_r`,
+    `num_batches_tracked`), the Fourier positions' `w_r`, the token table
+    `embedding` (vocab, d_model), the cosine attention's scalar `temperature`,
     and the Mamba mixer's raw parameters (`conv1d_fwd_kernel` (K, C),
     `dt_proj_kernel` (dt_rank, C), `A_log`, `D`, ...) are carried over as
     they are.
@@ -37,12 +38,16 @@ _MODULE = re.compile(
     r"layers_\d+|fourier_pos_enc|mlp_[01]|"
     r"(ff1|ff2|attn|conv)_norm(_out)?|ff1|ff2|fc1|fc2|attend|qkv_proj|out_proj|"
     r"conv|pointwise_conv[12]|norm|decoder|ff|reprojection|rotary_pos_emb|"
-    r"pre_norm|proj_out|mixer|in_proj|x_proj|y_out)$"
+    r"pre_norm|proj_out|mixer|in_proj|x_proj|y_out|"
+    r"language_model_decoder|(self|cross)_attn_\d+|(self|cross|ff)_norm_\d+|ff_\d+|"
+    r"q_proj|kv_proj|embed|pos_enc|encoder_pos_enc|dynamic_pos_bias|proj|out_norm|"
+    r"acoustic_norm)$"
 )
 _PARAM_LEAVES = {"kernel", "bias", "scale", "weight", "depthwise_kernel",
                  "depthwise_bias", "inv_freq", "w_r",
                  "conv1d_fwd_kernel", "conv1d_fwd_bias", "conv1d_rvse_kernel",
-                 "conv1d_rvse_bias", "dt_proj_kernel", "dt_proj_bias", "A_log", "D"}
+                 "conv1d_rvse_bias", "dt_proj_kernel", "dt_proj_bias", "A_log", "D",
+                 "embedding", "temperature"}
 _STAT_LEAVES = {"running_mean", "running_std", "running_var", "num_batches_tracked"}
 
 
@@ -126,5 +131,6 @@ def flax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         node = out.setdefault(collection, {})
         for m in path[:-1]:
             node = node.setdefault(m, {})
-        node[path[-1]] = np.ascontiguousarray(arr)
+        # (np.ascontiguousarray would make the scalar temperature 1-D)
+        node[path[-1]] = np.ascontiguousarray(arr) if arr.ndim else arr.copy()
     return out

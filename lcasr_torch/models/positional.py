@@ -1,6 +1,7 @@
-"""Learnable Fourier positional encoding (counterpart of
-lcasr_tpu/models/positional.py `LearnableFourierPosEnc`), the `fourier`
-arm of the paper's positional-encoding ablations.
+"""Learnable Fourier positional encoding and the dynamic position bias
+(counterparts of lcasr_tpu/models/positional.py `LearnableFourierPosEnc`,
+the `fourier` arm of the paper's positional-encoding ablations, and
+`DynamicPositionBias`, the V2 encoder-decoder's attention bias).
 """
 from __future__ import annotations
 
@@ -42,3 +43,30 @@ class LearnableFourierPosEnc(nn.Module):
         if self.hidden_dim is not None:
             pe = self.mlp_1(F.gelu(self.mlp_0(pe.to(self.dtype)), approximate="none"))
         return x + pe.to(x.dtype)
+
+
+class DynamicPositionBias(nn.Module):
+    """An fp32 MLP over the relative distances -(Tk-1) .. Tq-1 (`depth`
+    silu Dense layers of width `dim`, then `proj` to one bias per head),
+    read out as bias[i - j + Tk - 1] for query i and key j: (H, Tq, Tk)
+    fp32.  `log_distance` feeds sign(r) log(1 + |r|) instead of r."""
+
+    def __init__(self, dim: int, heads: int, depth: int = 2, log_distance: bool = False):
+        super().__init__()
+        self.depth, self.log_distance = depth, log_distance
+        for i in range(depth):
+            self.add_module(f"mlp_{i}", Dense(1 if i == 0 else dim, dim, dtype=torch.float32))
+        self.proj = Dense(dim, heads, dtype=torch.float32)
+
+    def forward(self, seqlen_q: int, seqlen_k: int) -> torch.Tensor:
+        device = self.proj.weight.device
+        rel = torch.arange(-(seqlen_k - 1), seqlen_q, dtype=torch.float32, device=device)[:, None]
+        if self.log_distance:
+            rel = torch.sign(rel) * torch.log1p(rel.abs())
+        h = rel
+        for i in range(self.depth):
+            h = F.silu(getattr(self, f"mlp_{i}")(h))
+        bias = self.proj(h)  # (Tq + Tk - 1, H)
+        idx = (torch.arange(seqlen_q, device=device)[:, None]
+               - torch.arange(seqlen_k, device=device)[None, :] + seqlen_k - 1)
+        return bias[idx].permute(2, 0, 1)

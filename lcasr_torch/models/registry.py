@@ -8,10 +8,12 @@ from typing import Any, Dict, Union
 import torch
 
 from lcasr_torch.config import Config
+from lcasr_torch.models.enc_dec_sconformer import EncDecSconformer, EncDecSconformerV2
 from lcasr_torch.models.mamba import Mamba
 from lcasr_torch.models.sconformer_xl import SCConformerXL
 
-_REGISTRY = {"SCConformerXL": SCConformerXL, "Mamba": Mamba}
+_REGISTRY = {"SCConformerXL": SCConformerXL, "Mamba": Mamba,
+             "EncDecSconformer": EncDecSconformer, "EncDecSconformerV2": EncDecSconformerV2}
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
 
@@ -23,9 +25,11 @@ def get_model_class(config: Config | Dict[str, Any] | None = None):
     return _REGISTRY[name]
 
 
-def load_model(config: Config, vocab_size: int, device=None) -> Union[SCConformerXL, Mamba]:
+def load_model(config: Config, vocab_size: int, device=None
+               ) -> Union[SCConformerXL, Mamba, EncDecSconformer]:
     """Build the model `config.model_class` names (SCConformerXL by default,
-    or Mamba) from config.model plus the tokenizer's vocab size.
+    Mamba, EncDecSconformer or EncDecSconformerV2) from config.model plus
+    the tokenizer's vocab size.
     `training.dtype` sets the compute dtype when `model.dtype` does not;
     parameters stay fp32 (an fp32 master with bf16 compute).  Keys the JAX
     model does not know are ignored, as the JAX registry ignores them.

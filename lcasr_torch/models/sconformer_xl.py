@@ -388,7 +388,8 @@ class SCConformerXL(nn.Module):
 def init_weights_(model: nn.Module, seed: int = 0) -> nn.Module:
     """Fill every parameter and float buffer from a numpy seed: weights
     N(0, 1/fan_in), biases N(0, 0.02^2), norm scales 1 + N(0, 0.1^2),
-    BatchRenorm running means N(0, 0.1^2) and running stds U(0.5, 1.5).
+    BatchRenorm running means N(0, 0.1^2) and running stds U(0.5, 1.5);
+    rotary frequencies and cosine-attention temperatures keep their values.
     For runs with random weights that are the same across frameworks."""
     rng = np.random.default_rng(seed)
     tensors = list(model.named_parameters()) + [
@@ -405,8 +406,8 @@ def init_weights_(model: nn.Module, seed: int = 0) -> nn.Module:
             arr = 1.0 + rng.normal(0.0, 0.1, shape)
         elif leaf in ("bias", "depthwise_bias"):
             arr = rng.normal(0.0, 0.02, shape)
-        elif leaf == "inv_freq":
-            continue  # rotary frequencies keep their closed form
+        elif leaf in ("inv_freq", "temperature"):
+            continue
         else:
             fan_in = int(np.prod(shape[1:])) if len(shape) > 1 else shape[0]
             arr = rng.normal(0.0, fan_in ** -0.5, shape)

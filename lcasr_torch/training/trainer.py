@@ -20,11 +20,13 @@ lcasr_tpu/training/trainer.py `make_chunks` and `Trainer.train`).
   * `train_utterances`: presegmented utterance batches
     (`data/utterances.py`), one optimizer step a batch;
   * `debug_hooks = True` logs the accumulated gradient's per-parameter
-    statistics before each optimizer step (`training/debug_hooks.py`).
+    statistics before each optimizer step (`training/debug_hooks.py`);
+  * `training.loss_mode: enc_dec` trains the encoder-decoder family on the
+    joint CTC + CE loss (`micro_step`).
 
-Not ported yet: meshes (data, tensor and context parallelism), ZeRO and
-`loss_mode: enc_dec`.  A `parallel.mesh` that asks for more devices than
-there are runs on one device, as the JAX trainer does.
+Not ported yet: meshes (data, tensor and context parallelism) and ZeRO.
+A `parallel.mesh` that asks for more devices than there are runs on one
+device, as the JAX trainer does.
 """
 from __future__ import annotations
 
@@ -131,8 +133,10 @@ class Trainer:
                                           "parallelism) is not ported yet")
 
         tr = config.get("training", Config({}))
-        if tr.get("loss_mode", "ctc") != "ctc":
-            raise NotImplementedError("loss_mode enc_dec is not ported yet (ROADMAP queue A3)")
+        # 'ctc' (SCConformerXL, Mamba) or 'enc_dec' (the joint loss of the
+        # encoder-decoder family)
+        self.loss_mode = tr.get("loss_mode", "ctc")
+        self.ctc_loss_weight = config.get("model", Config({})).get("ctc_loss_weight", 0.5)
         self.backprop_every = tr.get("backprop_every", 1)
         self.backwards_every = tr.get("backwards_every", 1)
         assert self.backprop_every >= self.backwards_every
@@ -233,13 +237,17 @@ class Trainer:
     def micro_step(self, chunk: Dict[str, np.ndarray], augment: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Forward and backward of one chunk; the raw gradient of its
-        weighted CTC sum adds into `p.grad`.  Returns (loss, blank_p), both
-        still on the device."""
+        weighted CTC sum (under `enc_dec`: of its joint loss) adds into
+        `p.grad`.  Returns (loss, blank_p), both still on the device."""
         dev = self.device
         audio, lengths, weight, labels, label_lengths = (self._upload(chunk[k]) for k in (
             "audio", "audio_lengths", "weight", "labels", "label_lengths"))
         if augment and self.augmentation is not None:
             audio = self.augmentation(self.augment_generator, audio, lengths)
+        if self.loss_mode == "enc_dec":
+            loss = self._enc_dec_loss(audio, lengths, weight, labels, label_lengths)
+            loss.backward()
+            return loss.detach(), torch.zeros((), device=dev)
         out = self.model(audio, length=lengths, train=True)
         log_probs = out["final_posteriors"].float()
         nll = ctc_loss(log_probs, labels, out["length"], label_lengths,
@@ -256,6 +264,39 @@ class Trainer:
                     & (weight > 0)[:, None])
             blank_p = (live & (am == self.blank_id)).sum() / live.sum().clamp_min(1)
         return loss.detach(), blank_p
+
+    def _enc_dec_loss(self, audio, lengths, weight, labels, label_lengths) -> torch.Tensor:
+        """The joint loss of the JAX trainer's `enc_dec` mode, normalised per
+        chunk as the reference's compacted batch is: the CTC sum over
+        (live rows x the longest subsampled length) x 100, and the CE of the
+        shifted targets (eos 0 at `label_lengths`) over (live rows x the
+        longest live label + 1), weighted by ctc_loss_weight and 1 - it.
+        Dead rows (weight 0) and the label padding count in neither."""
+        ctc_w = self.ctc_loss_weight
+        text_bos = torch.nn.functional.pad(labels, (1, 0), value=0)  # bos 0
+        out = self.model(audio, text_sequence=text_bos, length=lengths, train=True)
+        live = weight > 0
+        n_live = live.sum().float().clamp_min(1.0)
+        n_sub = out["length"].max().float().clamp_min(1.0)
+        loss = torch.zeros((), device=audio.device)
+        ctc_out = out["final_posteriors_ctc"]
+        if ctc_out is not None and ctc_w > 0:
+            nll = ctc_loss(ctc_out.float(), labels, out["length"], label_lengths,
+                           blank_id=self.blank_id, reduction="none",
+                           segment_size=self.ctc_segment_size)
+            nll = torch.where(nll < 1e29, nll, torch.zeros_like(nll))
+            loss = loss + ctc_w * (nll * weight).sum() / (n_live * n_sub) * 100.0
+        B, U1 = text_bos.shape
+        targets = torch.cat([text_bos[:, 1:], torch.zeros_like(text_bos[:, :1])], dim=1)
+        pos = torch.arange(U1, device=audio.device)[None, :]
+        t_len_bos = label_lengths.long() + 1
+        targets = torch.where(pos == (t_len_bos - 1)[:, None], 0, targets)
+        valid = (pos < t_len_bos[:, None]) & live[:, None]
+        logp = torch.log_softmax(out["final_posteriors_lm"].float(), dim=-1)
+        ce = -logp.gather(-1, targets[..., None].long())[..., 0]
+        ce_sum = torch.where(valid, ce, torch.zeros_like(ce)).sum()
+        u1_ref = (torch.where(live, label_lengths, 0).max().float() + 1.0).clamp_min(1.0)
+        return loss + (1 - ctc_w) * ce_sum / (n_live * u1_ref)
 
     @torch.no_grad()
     def fold_group(self, weight: float) -> None:

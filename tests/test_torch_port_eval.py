@@ -332,8 +332,102 @@ def test_import_torch_matches_jax(reference_checkpoint):
     extra = dict(sd, mystery=np.zeros(3, np.float32))
     with pytest.raises(ValueError, match="unmapped"):
         timp.state_dict_from_torch(extra, cfg["model"])
-    with pytest.raises(NotImplementedError, match="A3"):
-        timp.variables_from_torch_enc_dec(sd, cfg["model"])
+
+
+ENC_DEC_CFG = dict(d_model=64, n_layers=2, n_heads=2, head_dim=32,
+                   subsampling_conv_channels=32, vocab_size=48)
+
+
+def reference_enc_dec_state_dict(variables, cfg):
+    """The reference (`lcasr`) torch layout of a flax EncDecSconformerV2
+    tree: the inverse of `lcasr_tpu.models.import_torch.
+    convert_enc_dec_v2_state_dict` (qkv packed (h, d, qkv), the cross kv
+    (h, d, kv), the CTC head `ctc_decoder`, the decoder in PreNorm blocks)."""
+    p = variables["params"]
+    H, D = cfg["n_heads"], cfg["head_dim"]
+    sd = {}
+    for k, v in reference_state_dict(variables, cfg).items():  # the encoder
+        sd["ctc_" + k if k.startswith("decoder.") else k] = v.numpy()
+    norm = p["decoder"]["norm"]
+    sd["ctc_decoder.norm.weight"], sd["ctc_decoder.norm.bias"] = norm["scale"], norm["bias"]
+
+    def fourier(prefix, f):
+        sd[f"{prefix}.w_r"] = f["w_r"]
+        for i, j in ((0, 0), (1, 2)):
+            sd[f"{prefix}.mlp.{j}.weight"] = f[f"mlp_{i}"]["kernel"].T
+            sd[f"{prefix}.mlp.{j}.bias"] = f[f"mlp_{i}"]["bias"]
+
+    def packed(kernel, n):  # ours (n, H, D) outermost -> the reference's (H, D, n)
+        w = kernel.T
+        return w.reshape(n, H, D, -1).transpose(1, 2, 0, 3).reshape(n * H * D, -1)
+
+    fourier("pos_enc", p["encoder_pos_enc"])
+    lm, dec = "language_model_decoder", p["language_model_decoder"]
+    sd[f"{lm}.embed.weight"] = dec["embed"]["embedding"]
+    fourier(f"{lm}.pos_enc", dec["pos_enc"])
+    sd[f"{lm}.out_proj.0.scale"] = dec["out_norm"]["scale"]
+    sd[f"{lm}.out_proj.1.weight"] = dec["out_proj"]["kernel"].T
+    sd[f"{lm}.out_proj.1.bias"] = dec["out_proj"]["bias"]
+    for j, name in enumerate(("mlp_0", "mlp_1", "proj")):
+        leaf = dec["dynamic_pos_bias"][name]
+        key = f"{lm}.positional_bias.mlp.{j}" + (".0" if j < 2 else "")
+        sd[f"{key}.weight"], sd[f"{key}.bias"] = leaf["kernel"].T, leaf["bias"]
+    for i in range(cfg["n_layers"]):
+        pre, sa, ca = f"{lm}.layers.{i}", dec[f"self_attn_{i}"], dec[f"cross_attn_{i}"]
+        sd[f"{pre}.0.norm.scale"] = dec[f"self_norm_{i}"]["scale"]
+        sd[f"{pre}.0.fn.qkv_proj.weight"] = packed(sa["qkv_proj"]["kernel"], 3)
+        sd[f"{pre}.0.fn.out_proj.weight"] = sa["out_proj"]["kernel"].T
+        sd[f"{pre}.0.fn.temperature"] = sa["temperature"]
+        sd[f"{pre}.1.norm.scale"] = dec[f"cross_norm_{i}"]["scale"]
+        sd[f"{pre}.1.fn.q_proj.weight"] = ca["q_proj"]["kernel"].T
+        sd[f"{pre}.1.fn.kv_proj.weight"] = packed(ca["kv_proj"]["kernel"], 2)
+        sd[f"{pre}.1.fn.out_proj.weight"] = ca["out_proj"]["kernel"].T
+        sd[f"{pre}.1.fn.qkv_proj.weight"] = np.zeros((3 * H * D, cfg["d_model"]), np.float32)
+        sd[f"{pre}.2.norm.scale"] = dec[f"ff_norm_{i}"]["scale"]
+        sd[f"{pre}.2.fn.fc1.weight"] = dec[f"ff_{i}"]["fc1"]["kernel"].T
+        sd[f"{pre}.2.fn.fc2.weight"] = dec[f"ff_{i}"]["fc2"]["kernel"].T
+    # np.array copies contiguously and keeps the scalar temperatures 0-d
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def test_import_torch_enc_dec_matches_jax(tmp_path):
+    """Both packages import the same reference-layout EncDecSconformerV2
+    `.pt`: the same flax tree (the one it was written from), and the port's
+    model built from it gives the JAX model's CTC log-probs and decoder
+    logits within 1e-4 (fp32).  A tensor neither maps raises."""
+    from lcasr_tpu.models import import_torch as jimp
+    from lcasr_tpu.models.enc_dec_sconformer import EncDecSconformerV2 as JModel
+    from lcasr_torch.models import import_torch as timp
+    from lcasr_torch.models.enc_dec_sconformer import EncDecSconformerV2
+    from lcasr_torch.models.import_jax import state_dict_from_flax
+
+    jm = JModel(**ENC_DEC_CFG, use_pallas=False)
+    variables = randomize(jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 80, 256)),
+                                  text_sequence=jnp.zeros((1, 4), jnp.int32)), seed=21)
+    path = str(tmp_path / "enc_dec.pt")
+    torch.save({"config": {"model": ENC_DEC_CFG},
+                "model": reference_enc_dec_state_dict(variables, ENC_DEC_CFG)}, path)
+    cfg, sd = timp.load_torch_checkpoint(path)
+    jv = jimp.variables_from_torch_enc_dec(jimp.load_torch_checkpoint(path)[1], ENC_DEC_CFG)
+    tv = timp.variables_from_torch_enc_dec(sd, cfg["model"])
+    jax.tree.map(np.testing.assert_array_equal, jax.tree.map(np.asarray, jv), tv)
+    jax.tree.map(np.testing.assert_array_equal, jax.tree.map(np.asarray, variables), tv)
+    port = EncDecSconformerV2(**ENC_DEC_CFG, device="cpu")
+    port.load_state_dict(state_dict_from_flax(tv), strict=True)
+    rng = np.random.default_rng(22)
+    x = rng.normal(size=(2, 80, 300)).astype(np.float32)
+    lens = np.array([300, 211], np.int32)
+    text = rng.integers(1, ENC_DEC_CFG["vocab_size"], size=(2, 9)).astype(np.int32)
+    want = jm.apply(jv, jnp.asarray(x), text_sequence=jnp.asarray(text),
+                    length=jnp.asarray(lens))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x), torch.from_numpy(text), length=torch.from_numpy(lens))
+    for key in ("final_posteriors_ctc", "final_posteriors_lm"):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]), atol=1e-4, rtol=0,
+                                   err_msg=key)
+    extra = dict(sd, **{"language_model_decoder.mystery": np.zeros(3, np.float32)})
+    with pytest.raises(ValueError, match="unmapped"):
+        timp.variables_from_torch_enc_dec(extra, cfg["model"])
 
 
 def _rows(summary):

@@ -181,7 +181,7 @@ def test_registry_builds_mamba_and_keeps_each_class_its_own_options():
     assert get_model_class({"model_class": "Mamba"}) is Mamba
     assert get_model_class({}) is SCConformerXL
     with pytest.raises(NotImplementedError, match="Mamba.*SCConformerXL"):
-        get_model_class({"model_class": "EncDecSconformer"})
+        get_model_class({"model_class": "SCConformerMeta"})
     cfg = {"model_class": "Mamba", "training": {"dtype": "bfloat16"},
            # keys of another class are ignored, as the JAX registry ignores them
            "model": dict(TINY, checkpoint_every_n_layers=1, conv_type="longconv", n_heads=2)}
