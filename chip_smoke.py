@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases decode_opt,train_opt  # the opt-in configuration only
     python3 chip_smoke.py --phases audio,serve   # WAV -> WER and the server only
     python3 chip_smoke.py --phases enc_dec       # the encoder-decoder family only
+    python3 chip_smoke.py --phases lm            # decoding with a language model only
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -125,6 +126,22 @@ Phases, in order; any failure raises and exits non-zero:
               steps on one chunk); the V2
               internal-LM ctc_beam_search in fp32 (text equal to plain
               attention's).
+ 15. lm       decoding with a language model: train_lm at the TransformerLM
+              defaults (6 layers, width 512, 8 heads x 64, fp32; batch 32 of
+              <= 257 tokens) for 50 steps on a seeded corpus, loss falling,
+              the checkpoint reloaded with equal logits; 25 rows x 256 cached
+              steps against one full pass, and forked prefixes through
+              pos_row / write_rows; create_logits with the flagship (CTC head
+              gain LM_CTC_HEAD_GAIN) on two synthetic 120,000-frame
+              recordings (36 K1 launches each, no plain attention), the
+              candidates a frame; beam_stage at width 25, alpha 0.45, beta
+              1.53 on cuts of the dumped frames: host frame-sync and the
+              device search (ids equal), rescore_many with 1 slot and with 4
+              (ids equal), the prefix search with the LM scorer, the native
+              no-LM prefix beam against its Python path; then the flagship
+              behind a TranscriptionServer with decoder="beam" (4 sessions
+              x 60 s, width 25, top-K 32), each session's text equal to an
+              offline BeamSearch over its single-stream log-probs.
 
 The line before the last two is one JSON object with each kernel's numbers;
 the last line is the device record.  Without a GPU, or without the repo
@@ -142,7 +159,7 @@ import sys
 import time
 
 PHASES = ("kernels", "model", "decode", "train", "train_d256", "utterances", "mamba_decode",
-          "mamba_train", "decode_opt", "train_opt", "audio", "serve", "enc_dec")
+          "mamba_train", "decode_opt", "train_opt", "audio", "serve", "enc_dec", "lm")
 
 # configs/ladder_9l_768d_6h.yaml, written out: the machine with the card is
 # not promised pyyaml (tests/test_torch_port_train.py holds the two equal)
@@ -3596,6 +3613,465 @@ def phase_enc_dec(torch, workdir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: decoding with a language model (TransformerLM, the beam searches)
+# ---------------------------------------------------------------------------
+# lcasr_tpu/models/lm.py:26-41 and lcasr_tpu/cli/train_lm.py:67-80, the class
+# and CLI defaults: vocabulary 4095, width 512, 6 layers, 8 heads x 64, fp32;
+# batch 32 of at most 256 tokens, AdamW 3e-4 after a global-norm clip of 1
+LM_MODEL = dict(d_model=512, n_layers=6, n_heads=8, head_dim=64)
+LM_TRAIN = dict(batch_size=32, seq_len=256, lr=3e-4, steps=50)
+# lcasr_tpu/cli/lm_rescore.py:77-90 (width 25, alpha 0.45, beta 1.53, bos 2)
+# and serving/__main__.py:39-41 (width 25, top-K 32)
+LM_SEARCH = dict(beam_width=25, alpha=0.45, beta=1.53)
+LM_SERVE_TOPK = 32
+# the flagship's CTC head for decoding is scaled by this gain: random weights
+# otherwise give near-uniform posteriors with thousands of candidates a
+# frame, where a trained model gives 1-5 (CTC_HEAD_GAIN's 4 still leaves
+# some 2% of the 4096 classes within 6 of the top; 32 leaves 3-4 a frame,
+# at most 7, on an NVIDIA H100 80GB HBM3)
+LM_CTC_HEAD_GAIN = 32.0
+LM_RECORDINGS = 1  # synthetic recordings of LONG_FRAMES mel frames each
+# the searches' cuts: CTC frames of the recording (the widths are not cut);
+# random weights make nearly every frame an LM step, 10-16 ms a frame on
+# an NVIDIA H100 80GB HBM3, and the script keeps near half its time limit
+LM_FS_FRAMES = 1_024  # host frame-sync and the device search
+LM_MANY_SLICES, LM_MANY_FRAMES = 4, 512  # rescore_many with 1 slot and with 4
+LM_PREFIX_FRAMES = 512  # the prefix search with the LM scorer
+LM_NATIVE_FRAMES = 1_024  # the no-LM prefix search, native against Python
+LM_MAX_CANDIDATES = 8  # the device search's default max_candidates
+# a cached step's fp32 log-probs against one full causal pass: fp32 sums in
+# another order through 6 layers of width 512 (the CPU parity test holds 1e-5
+# at width 64); a wrong cache cell, mask or position moves them by O(1)
+LM_STEP_TOL = 1e-3
+LM_STEP_ROWS, LM_STEP_TOKENS, LM_FORK_AT = 25, 256, 128
+
+
+def lm_corpus(path: str, seed: int, n_lines: int = 1_500) -> None:
+    """Seeded text over WORDS, 5-300 words a line: short and long lines, so
+    that batches fill every width bucket up to the 256-token cut."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as fh:
+        for _ in range(n_lines):
+            n = int(rng.integers(5, 300))
+            fh.write(" ".join(WORDS[i] for i in rng.integers(0, len(WORDS), n)) + "\n")
+
+
+def lm_train(torch, workdir: str) -> dict:
+    """train_lm at the defaults for LM_TRAIN["steps"] steps: falling loss,
+    the steady step's ms (steps 11 on, each ending in the loss's read-back),
+    peak memory; the checkpoint reloaded by load_lm_checkpoint gives the
+    trained weights' logits, bit for bit."""
+    import json as json_
+    from unittest import mock
+
+    import numpy as np
+
+    from lcasr_torch.cli.lm_rescore import load_lm_checkpoint
+    from lcasr_torch.cli.train_lm import train_lm
+    from lcasr_torch.models.lm import TransformerLM
+    from lcasr_torch.training import checkpointing
+
+    text = os.path.join(workdir, "lm_corpus.txt")
+    lm_corpus(text, seed=31)
+    saved, real_save = {}, checkpointing.save_checkpoint
+
+    def save(directory, step, model_state, **kw):
+        saved.update(model_state)  # the live parameters at the last step
+        return real_save(directory, step, model_state, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(checkpointing, "save_checkpoint", save):
+        path = train_lm(text, os.path.join(workdir, "lm"), **LM_MODEL, **LM_TRAIN,
+                        save_every=LM_TRAIN["steps"], log_every=1, seed=7, device=DEVICE)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rows = [json_.loads(line) for line in open(os.path.join(workdir, "lm", "metrics.jsonl"))]
+    losses = [r["loss"] for r in rows]
+    step_ms = 1e3 * (rows[-1]["wall_s"] - rows[10]["wall_s"]) / (len(rows) - 11)
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"the LM's loss did not fall: {losses}")
+    lm = load_lm_checkpoint(path, device=DEVICE)
+    ref = TransformerLM(vocab_size=lm.vocab_size, **LM_MODEL, device=DEVICE)
+    ref.load_state_dict(saved)
+    tok = torch.from_numpy(np.random.default_rng(3).integers(0, lm.vocab_size, (4, 200))).to(
+        DEVICE)
+    with torch.no_grad():
+        if not torch.equal(lm(tok), ref.eval()(tok)):
+            raise AssertionError("the reloaded LM's logits differ from the trained weights'")
+    n_params = sum(p.numel() for p in lm.parameters())
+    log(f"  train_lm ({n_params / 1e6:.1f}M parameters, batch {LM_TRAIN['batch_size']} x "
+        f"<= {LM_TRAIN['seq_len'] + 1} tokens, fp32): loss {losses[0]:.3f} -> {losses[-1]:.3f} "
+        f"over {len(losses)} steps (mean of the first 5 {first:.3f}, of the last 5 {last:.3f}); "
+        f"step {step_ms:.2f} ms; peak memory {peak:.2f} GiB; reloaded: equal logits")
+    return {"lm": lm, "path": path, "step_ms": step_ms, "peak_gib": peak,
+            "loss_first": losses[0], "loss_last": losses[-1], "params": n_params}
+
+
+def lm_cached_against_full(torch, lm) -> dict:
+    """fp32, LM_STEP_ROWS rows x LM_STEP_TOKENS tokens: every cached step's
+    log-probs within LM_STEP_TOL of one full causal pass; then a fork: 5
+    parents' prefixes of LM_FORK_AT tokens, 25 children reading them through
+    pos_row and writing their own cells (write_rows), each child's log-probs
+    those of the full pass over its parent's prefix and its own tokens."""
+    import numpy as np
+
+    B, U, P = LM_STEP_ROWS, LM_STEP_TOKENS, LM_FORK_AT
+    rng = np.random.default_rng(5)
+    tok = torch.from_numpy(rng.integers(0, lm.vocab_size, (B, U))).to(DEVICE)
+    shape = (lm.n_layers, 2, B, lm.n_heads, U + 1, lm.head_dim)
+    worst = 0.0
+    with torch.no_grad():
+        full = torch.log_softmax(lm(tok).float(), -1)
+        cache = torch.zeros(shape, device=DEVICE)
+        lengths = torch.zeros((B,), dtype=torch.int32, device=DEVICE)
+        t0 = time.perf_counter()
+        for t in range(U):
+            logits, cache, lengths = lm(tok[:, t : t + 1], cache=cache, cache_lengths=lengths)
+            worst = max(worst, float((torch.log_softmax(logits[:, 0].float(), -1)
+                                      - full[:, t]).abs().max()))
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / U
+        # the fork: children j read parent j % 5's first P cells
+        parents = torch.arange(B, device=DEVICE) % 5
+        pos_row = parents[:, None].repeat(1, U + 1)
+        child = torch.cat([tok[parents, :P], tok[:, P:]], 1)
+        ref = torch.log_softmax(lm(child).float(), -1)
+        cache = torch.zeros(shape, device=DEVICE)
+        lengths = torch.zeros((B,), dtype=torch.int32, device=DEVICE)
+        for t in range(P):  # only rows 0-4 (the parents) write their prefix
+            _, cache, lengths = lm(tok[:, t : t + 1], cache=cache, cache_lengths=lengths,
+                                   write_mask=torch.arange(B, device=DEVICE) < 5)
+        lengths = torch.full((B,), P, dtype=torch.int32, device=DEVICE)
+        rows = torch.arange(B, device=DEVICE)
+        fork = 0.0
+        for t in range(P, U):
+            pos_row[:, t] = rows  # each child's own cell from here on
+            logits, cache, lengths = lm(child[:, t : t + 1], cache=cache, cache_lengths=lengths,
+                                        pos_row=pos_row, write_rows=rows)
+            fork = max(fork, float((torch.log_softmax(logits[:, 0].float(), -1)
+                                    - ref[:, t]).abs().max()))
+    log(f"  cached LM steps, fp32, {B} rows x {U} tokens: max |d log-prob| against the full "
+        f"pass {worst:.2e}, {step_ms:.2f} ms a step; forked prefixes through pos_row / "
+        f"write_rows: {fork:.2e} (tolerance {LM_STEP_TOL})")
+    if not (worst <= LM_STEP_TOL and fork <= LM_STEP_TOL):
+        raise AssertionError(f"cached LM steps against the full pass: {worst}, fork {fork}")
+    return {"max_abs_logprob": worst, "fork_max_abs_logprob": fork, "step_ms": step_ms}
+
+
+def lm_acoustic_checkpoint(torch, directory: str) -> str:
+    """The flagship (bf16 compute) with its CTC head scaled by
+    LM_CTC_HEAD_GAIN, as a checkpoint of the port."""
+    from lcasr_torch.config import Config
+    from lcasr_torch.models.sconformer_xl import FLAGSHIP, SCConformerXL, init_weights_
+    from lcasr_torch.training.checkpointing import save_checkpoint
+
+    model = init_weights_(SCConformerXL(**FLAGSHIP, dtype=torch.bfloat16, device="cpu"), 0)
+    with torch.no_grad():
+        model.decoder.ff.weight.mul_(LM_CTC_HEAD_GAIN)
+    cfg = {k: v for k, v in FLAGSHIP.items() if k != "vocab_size"}
+    return save_checkpoint(directory, 0, model.state_dict(),
+                           config=Config({"model": dict(cfg, dtype="bfloat16")}))
+
+
+def candidates_per_frame(lp, threshold: float = -6.0):
+    """The search's candidates of each frame: ids >= 1 above max + threshold."""
+    import numpy as np
+
+    return ((lp > lp.max(-1, keepdims=True) + np.float32(threshold))[:, 1:]).sum(-1)
+
+
+def lm_create_logits(torch, workdir: str, ckpt: str) -> dict:
+    """create_logits over LM_RECORDINGS synthetic 120,000-frame recordings:
+    36 K1 launches each and no call of plain attention; the candidates a
+    frame (and what other head gains would give, from the same logits)."""
+    import numpy as np
+
+    from lcasr_torch import kernels
+    from lcasr_torch.cli.lm_rescore import create_logits
+    from lcasr_torch.ops import flash_attention as fa
+
+    out = os.path.join(workdir, "logits")
+    plain = {}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with counted(fa, "flash_attention_ref", plain):
+        create_logits(ckpt, "synthetic", "test", out, seq_len=SEQ_LEN, overlap=OVERLAP,
+                      dataset_kwargs={"n_recordings": LM_RECORDINGS, "n_frames": LONG_FRAMES},
+                      device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = expect_launches({"flash_attention_fwd": EXPECTED_LAUNCHES * LM_RECORDINGS},
+                               "create_logits")
+    if plain:
+        raise AssertionError(f"create_logits called plain attention: {plain}")
+    logs = [np.load(os.path.join(out, f"synthetic_{i}.npz"))["logits"].astype(np.float32)
+            for i in range(LM_RECORDINGS)]
+    # (fp16 at rest, as in the JAX dumps: log-probs below -65504 become -inf)
+    if any(lg.shape != (LONG_FRAMES // 8, 4096) or np.isnan(lg).any()
+           or not np.isfinite(lg.max(-1)).all() for lg in logs):
+        raise AssertionError(f"dumped logits {[lg.shape for lg in logs]}")
+    n = np.concatenate([candidates_per_frame(lg) for lg in logs])
+    # the same differences of logits at another gain g scale by g / gain
+    # (the head's bias aside): what other gains would give
+    other = {g: float(np.mean(np.concatenate([candidates_per_frame(
+        lg, -6.0 * LM_CTC_HEAD_GAIN / g) for lg in logs]))) for g in (4.0, 8.0, 32.0)}
+    log(f"  create_logits, {LM_RECORDINGS} x {LONG_FRAMES} frames (CTC head gain "
+        f"{LM_CTC_HEAD_GAIN}): {wall:.1f} s with the .npz writes, launches {launches}, plain "
+        f"attention calls 0; candidates a frame: mean {n.mean():.3f}, max {int(n.max())}, "
+        f"blank the argmax on {float(np.mean([(lg.argmax(-1) == 4095).mean() for lg in logs])):.3f}"
+        f" of frames; mean at other gains {other}")
+    return {"dir": out, "logits": logs, "wall_s": wall,
+            "launches": launches["flash_attention_fwd"],
+            "candidates_mean": float(n.mean()), "candidates_max": int(n.max())}
+
+
+def cut_dir(base: str, name: str, parts) -> str:
+    """A logits directory of `parts` ((id, (T, C) log-probs), ...) in the
+    create_logits format."""
+    import numpy as np
+
+    d = os.path.join(base, name)
+    os.makedirs(d, exist_ok=True)
+    for rid, lp in parts:
+        np.savez(os.path.join(d, f"{rid}.npz"), logits=lp.astype(np.float16),
+                 gold="this is a synthetic gold transcript")
+    return d
+
+
+def lm_rescore(torch, workdir: str, dumped: dict, lm_path: str) -> dict:
+    """beam_stage over the dumped logits at LM_SEARCH, frames cut as the
+    LM_*_FRAMES say: ids of every decode recorded through the tokenizer.
+    Host and device frame-sync ids equal; rescore_many with 4 slots equal to
+    1 slot; the native no-LM prefix beam equal to its Python path.  For each
+    path its wall time, LM steps, peak memory, and for the device search its
+    host synchronisations a segment."""
+    from unittest import mock
+
+    from lcasr_torch.cli.lm_rescore import beam_stage
+    from lcasr_torch.data.tokenizer import SentencePieceBPE, load_tokenizer
+    from lcasr_torch.decoding.beam_search import BeamSearch, TorchLMScorer
+    from lcasr_torch.decoding.frame_sync import CachedTransformerLM
+    from lcasr_torch.decoding.frame_sync_device import DeviceFrameSyncBeamSearch
+
+    lp0 = dumped["logits"][0]  # the dump's fp16 values, as beam_stage reads them
+    n = candidates_per_frame(lp0[:LM_FS_FRAMES])
+    if n.max() > LM_MAX_CANDIDATES:
+        frame = int(n.argmax())
+        raise AssertionError(f"frame {frame} of the device search's input has {int(n[frame])} "
+                             f"candidates > max_candidates {LM_MAX_CANDIDATES}")
+    dirs = {
+        "fs": cut_dir(workdir, "cut_fs", [("r0", lp0[:LM_FS_FRAMES])]),
+        "many": cut_dir(workdir, "cut_many", [
+            (f"s{i}", lp0[i * LM_MANY_FRAMES : (i + 1) * LM_MANY_FRAMES])
+            for i in range(LM_MANY_SLICES)]),
+        "prefix": cut_dir(workdir, "cut_prefix", [("r0", lp0[:LM_PREFIX_FRAMES])]),
+    }
+    runs = {
+        "frame_sync": ("fs", dict(decoder="frame_sync", lm=lm_path)),
+        "device": ("fs", dict(decoder="frame_sync", lm=lm_path, device_search=True)),
+        "many_1": ("many", dict(decoder="frame_sync", lm=lm_path, parallel_recordings=1)),
+        "many_4": ("many", dict(decoder="frame_sync", lm=lm_path,
+                                parallel_recordings=LM_MANY_SLICES)),
+        "prefix_lm": ("prefix", dict(decoder="prefix", lm=lm_path)),
+    }
+    out = {}
+    for name, (d, kw) in runs.items():
+        ids, calls = [], {}
+        real_decode = SentencePieceBPE.decode
+
+        def decode(self, i, real=real_decode, ids=ids):
+            ids.append([int(x) for x in i])
+            return real(self, i)
+
+        def run():
+            return beam_stage(dirs[d], device=DEVICE, results_csv=os.path.join(
+                workdir, "results.csv"), **LM_SEARCH, **kw)
+
+        syncs, real_many = [], DeviceFrameSyncBeamSearch.run_search_many
+
+        def search_many(self, *a, real=real_many, syncs=syncs, **k):
+            # the device search's own host synchronisations (loading the LM
+            # checkpoint, outside it, syncs once a parameter)
+            out = []
+            syncs.append(host_syncs(torch, lambda: out.append(real(self, *a, **k))))
+            return out[0]
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with mock.patch.object(SentencePieceBPE, "decode", decode), \
+                mock.patch.object(DeviceFrameSyncBeamSearch, "run_search_many", search_many), \
+                counted(CachedTransformerLM, "step", calls), \
+                counted(DeviceFrameSyncBeamSearch, "_lm_apply", calls), \
+                counted(TorchLMScorer, "__call__", calls):
+            run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        frames = LM_FS_FRAMES if d == "fs" else (
+            LM_MANY_SLICES * LM_MANY_FRAMES if d == "many" else LM_PREFIX_FRAMES)
+        steps = sum(calls.values())
+        out[name] = {"wall_s": wall, "frames": frames, "ms_a_frame": 1e3 * wall / frames,
+                     "lm_steps": steps, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "ids": ids, "tokens": [len(i) for i in ids]}
+        if name == "device":
+            segments = -(-LM_FS_FRAMES // 2048)
+            out[name].update(host_syncs=sum(syncs), segments=segments,
+                             syncs_a_segment=sum(syncs) / segments)
+        log(f"  beam_stage {name}: {frames} frames in {wall:.2f} s ({1e3 * wall / frames:.2f} ms "
+            f"a frame), {steps} LM calls, {out[name]['tokens']} tokens, peak "
+            f"{out[name]['peak_gib']:.2f} GiB"
+            + (f", {sum(syncs)} host syncs in the search over {out[name]['segments']} "
+               f"segment(s)" if name == "device" else ""))
+    if out["device"]["ids"] != out["frame_sync"]["ids"]:
+        a, b = out["device"]["ids"][0], out["frame_sync"]["ids"][0]
+        same = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        raise AssertionError(f"device search ids differ from the host's at token {same} "
+                             f"({len(a)} / {len(b)} tokens)")
+    # (the 4 slots finish, and decode, in another order than one at a time)
+    if sorted(out["many_4"]["ids"]) != sorted(out["many_1"]["ids"]):
+        raise AssertionError("rescore_many with 4 slots differs from 1 slot")
+    if not all(out["frame_sync"]["ids"]) or not all(out["prefix_lm"]["ids"]):
+        raise AssertionError("a search emitted nothing")
+
+    # the native no-LM prefix beam against its Python path (the library
+    # built before the clock starts)
+    from lcasr_torch import native
+
+    native.library("beam")
+    tok = load_tokenizer()
+    lp = lp0[:LM_NATIVE_FRAMES]
+    kw = dict(tokenizer=tok, beam_width=LM_SEARCH["beam_width"], blank_id=tok.vocab_size(),
+              pad_id=tok.pad_id())
+    native, python = BeamSearch(**kw), BeamSearch(**kw)
+    python.force_python = True
+    t0 = time.perf_counter()
+    native.run_search(lp)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python.run_search(lp)
+    t_python = time.perf_counter() - t0
+    state = [[(b.prefix, b.p_blank, b.p_non_blank, b.frames) for b in s._beams.values()]
+             for s in (native, python)]
+    if state[0] != state[1]:
+        raise AssertionError("the native no-LM prefix beam differs from its Python path")
+    log(f"  no-LM prefix beam over {LM_NATIVE_FRAMES} frames: native {t_native * 1e3:.1f} ms, "
+        f"Python {t_python * 1e3:.1f} ms, the same beams bit for bit")
+    out["native_prefix"] = {"native_s": t_native, "python_s": t_python,
+                            "frames": LM_NATIVE_FRAMES}
+    for v in out.values():
+        v.pop("ids", None)
+    return out
+
+
+def lm_serve_beam(torch, workdir: str, seed: int) -> dict:
+    """The flagship (head gain LM_CTC_HEAD_GAIN) behind a TranscriptionServer
+    with decoder="beam", width 25, top-K 32: 4 sessions fed 60 s each in
+    0.5 s chunks.  Each session's final text equals an offline BeamSearch
+    over its single-stream transcriber's finalised log-probs (dense fetch);
+    sparse refetches, the pump's ms a wave, K1 launches."""
+    import numpy as np
+
+    from lcasr_torch import kernels
+    from lcasr_torch.data.audio import SR, grab_left_channel, load_audio, resample
+    from lcasr_torch.data.tokenizer import load_tokenizer
+    from lcasr_torch.decoding.beam_search import BeamSearch
+    from lcasr_torch.serving import OnlineTranscriber, TranscriptionServer
+
+    wav = os.path.join(workdir, "serve.wav")
+    write_wav(wav, SERVE_STREAMS * SERVE_SECONDS, WAV_RATE, seed + 3)
+    wave, sr = load_audio(wav)
+    left = resample(grab_left_channel(wave), sr, SR, device=DEVICE)[0].cpu().numpy()
+    n = SERVE_SECONDS * SR
+    streams = [left[i * n : (i + 1) * n] for i in range(SERVE_STREAMS)]
+    chunk = int(SERVE_CHUNK_S * SR)
+    tok = load_tokenizer()
+    model = flagship_model(torch)
+    with torch.no_grad():
+        model.decoder.ff.weight.mul_(LM_CTC_HEAD_GAIN)
+    opts = dict(beam_width=LM_SEARCH["beam_width"], alpha=0.0, beta=0.0)
+    beam_kw = dict(decoder="beam", beam_opts=opts, **SERVE_KW)
+
+    server = TranscriptionServer(model, tok, max_streams=SERVE_STREAMS, device=DEVICE,
+                                 beam_topk=LM_SERVE_TOPK, **beam_kw)
+    sids = [server.open() for _ in streams]
+    sessions = [server._session(sid) for sid in sids]
+    kernels.reset_launch_counts()
+    wave_ms = []
+    t0 = time.perf_counter()
+    for pos in range(0, n, chunk):
+        for sid, audio in zip(sids, streams):
+            server.feed(sid, audio[pos : pos + chunk], pump=False)
+        t1, w0 = time.perf_counter(), server.wave_count
+        server.pump()
+        torch.cuda.synchronize()
+        if server.wave_count > w0:
+            wave_ms.append(1e3 * (time.perf_counter() - t1) / (server.wave_count - w0))
+    for sid in sids:
+        server.finish(sid)
+    wall = time.perf_counter() - t0
+    waves = server.wave_count
+    launches = expect_launches({"flash_attention_fwd": len(model.layers) * waves},
+                               "the beam server's run")
+    refetches = sum(s.sparse_refetches for s in sessions)
+
+    for i, audio in enumerate(streams):
+        tr = OnlineTranscriber(model, tok, device=DEVICE, beam_topk=None, **beam_kw)
+        blocks, real = [], tr._beam.advance
+
+        def advance(lp, t0=0, blocks=blocks, real=real):
+            blocks.append(np.array(lp))
+            return real(lp, t0=t0)
+
+        tr._beam.advance = advance
+        for pos in range(0, n, chunk):
+            tr.feed(audio[pos : pos + chunk])
+        tr.finish()
+        offline = BeamSearch(tokenizer=tok, blank_id=tok.vocab_size(), pad_id=0, **opts)
+        text = offline.run_search(np.concatenate(blocks))
+        if sessions[i].text != text or not text:
+            raise AssertionError(f"session {i}: the server's beam text {sessions[i].text[:200]!r}"
+                                 f" against the offline search's {text[:200]!r}")
+    log(f"  beam server, {SERVE_STREAMS} sessions x {SERVE_SECONDS} s in {SERVE_CHUNK_S} s "
+        f"chunks, width {opts['beam_width']}, top-K {LM_SERVE_TOPK}: {waves} waves, launches "
+        f"{launches}, sparse refetches {refetches}; pump a wave median "
+        f"{np.median(wave_ms):.2f} ms, p90 {np.percentile(wave_ms, 90):.2f} ms; streams' RTFx "
+        f"{SERVE_STREAMS * SERVE_SECONDS / wall:.1f}; every session's text equals the offline "
+        f"search over its single-stream log-probs ({[len(s.text.split()) for s in sessions]} "
+        f"words)")
+    return {"waves": waves, "launches": launches["flash_attention_fwd"],
+            "sparse_refetches": refetches, "wave_ms_median": float(np.median(wave_ms)),
+            "wave_ms_p90": float(np.percentile(wave_ms, 90)),
+            "rtfx": SERVE_STREAMS * SERVE_SECONDS / wall}
+
+
+def phase_lm(torch, workdir: str, seed: int) -> dict:
+    out, seconds = {}, {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return result
+
+    trained = part("train", lm_train, torch, workdir)
+    lm = trained.pop("lm")
+    out["train"] = {k: v for k, v in trained.items() if k != "path"}
+    out["cached"] = part("cached", lm_cached_against_full, torch, lm)
+    del lm
+    ckpt = part("checkpoint", lm_acoustic_checkpoint, torch, os.path.join(workdir, "am"))
+    dumped = part("create_logits", lm_create_logits, torch, workdir, ckpt)
+    out["create_logits"] = {k: v for k, v in dumped.items() if k not in ("logits", "dir")}
+    out["rescore"] = part("rescore", lm_rescore, torch, workdir, dumped, trained["path"])
+    del dumped
+    out["serve"] = part("serve", lm_serve_beam, torch, workdir, seed)
+    log(f"  phase lm seconds: {seconds}")
+    out["seconds"] = seconds
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -3622,7 +4098,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gpu = gpu_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
-    log("[1/14] build")
+    log("[1/15] build")
     build_s = kernels.build()
     log(f"  build {build_s:.2f} s into {kernels.BUILD_DIR}")
     for src, text in kernels.build_log.items():
@@ -3638,7 +4114,7 @@ def main() -> int:
     results = {}
     workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_train")
     if "kernels" in phases:
-        log("[2/14] kernels against their plain versions")
+        log("[2/15] kernels against their plain versions")
         results["flash_attention_fwd"] = phase_kernels(torch)
         results["flash_attention_fwd_db"] = phase_kernels_db(torch)
         fwd_registers = {**template_entries(kernels.build_log["flash_attn_fwd.cu"]),
@@ -3651,11 +4127,11 @@ def main() -> int:
         results["subsampling_fused"] = phase_kernels_sub(torch)
     model = None
     if "model" in phases:
-        log("[3/14] flagship model, one window batch")
+        log("[3/15] flagship model, one window batch")
         model = flagship_model(torch)
         phase_model(torch, model, plain_attention(), "flagship")
     if "decode" in phases:
-        log("[4/14] 20-minute streaming greedy decode (the serving path)")
+        log("[4/15] 20-minute streaming greedy decode (the serving path)")
         model = model or flagship_model(torch)
         launches, _, rows = phase_decode(torch, model,
                                          {"flash_attention_fwd": EXPECTED_LAUNCHES},
@@ -3670,7 +4146,7 @@ def main() -> int:
             f"(kernel phase, launches back to back: {k1.get('ms')} ms)")
     del model
     if "train" in phases:
-        log("[5/14] training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1 "
+        log("[5/15] training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1 "
             "(the training path)")
         os.makedirs(workdir, exist_ok=True)
         try:
@@ -3689,7 +4165,7 @@ def main() -> int:
         results["flash_attention_bwd_fused"]["train_step_profile"] = k3_step
         results["flash_attention_fwd"]["train_host_side"] = host
     if "train_d256" in phases:
-        log("[6/14] lcasr_6l_768d_3h (head_dim 256) trains: K1 and K3 at D = 256")
+        log("[6/15] lcasr_6l_768d_3h (head_dim 256) trains: K1 and K3 at D = 256")
         os.makedirs(workdir, exist_ok=True)
         try:
             d256 = phase_train_d256(torch, workdir)
@@ -3701,7 +4177,7 @@ def main() -> int:
         results["flash_attention_bwd_fused"]["train_d256"] = {
             k: v for k, v in d256.items() if k != "launches"}
     if "utterances" in phases:
-        log("[7/14] utterance training with debug hooks, and wild-card CTC on the card")
+        log("[7/15] utterance training with debug hooks, and wild-card CTC on the card")
         os.makedirs(workdir, exist_ok=True)
         try:
             utt = phase_utterances(torch, workdir)
@@ -3712,7 +4188,7 @@ def main() -> int:
         results["flash_attention_fwd"]["utterances_phase"] = {
             k: v for k, v in utt.items() if k != "launches"}
     if "mamba_decode" in phases:
-        log("[8/14] Mamba: one window batch, then the 20-minute streaming greedy decode")
+        log("[8/15] Mamba: one window batch, then the 20-minute streaming greedy decode")
         model = mamba_model(torch)
         phase_model(torch, model, plain_scan(torch.float32), "Mamba")
         launches, rtfx, rows = phase_decode(
@@ -3724,7 +4200,7 @@ def main() -> int:
         k6["decode_profile"] = dict(profile_share(rows, SSM_KERNELS["selective_scan_fwd"][0],
                                                   "K6", "the Mamba decode"), rtfx=rtfx)
     if "mamba_train" in phases:
-        log("[9/14] Mamba training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1")
+        log("[9/15] Mamba training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1")
         os.makedirs(workdir, exist_ok=True)
         try:
             ladder, k6_step, k7_step, host = phase_mamba_train(torch, workdir)
@@ -3739,14 +4215,14 @@ def main() -> int:
         k6["train_step_profile"] = k6_step
         k6["train_host_side"] = host
     if "decode_opt" in phases:
-        log("[10/14] the opt-in decode configuration (K2, K8) and the decoder's options")
+        log("[10/15] the opt-in decode configuration (K2, K8) and the decoder's options")
         launches, mamba_launches, numbers = phase_decode_opt(torch)
         for key in ("flash_attention_fwd_db", "subsampling_fused"):
             results.setdefault(key, {"name": key})["launches"] = launches[key]
         results["subsampling_fused"]["launches_mamba_decode"] = mamba_launches["subsampling_fused"]
         results["subsampling_fused"].update(numbers)
     if "train_opt" in phases:
-        log("[11/14] one training step under both flags, and under each alone, against the "
+        log("[11/15] one training step under both flags, and under each alone, against the "
             "same step without")
         os.makedirs(workdir, exist_ok=True)
         try:
@@ -3764,7 +4240,7 @@ def main() -> int:
         try:
             k1 = results.setdefault("flash_attention_fwd", {"name": "flash_attention_fwd"})
             if "audio" in phases:
-                log("[12/14] from a WAV file to a transcript and a WER: the frontend on the "
+                log("[12/15] from a WAV file to a transcript and a WER: the frontend on the "
                     "card, evaluate in its three modes, the head_dim-256 model")
                 audio = phase_audio(torch, audio_dir, args.seed)
                 k1["audio_phase"] = audio
@@ -3772,12 +4248,12 @@ def main() -> int:
                 results.setdefault("flash_attention_fwd_db", {"name": "flash_attention_fwd_db"})[
                     "launches_d256_decode"] = audio["wav_d256_k2"]["launches"]
             if "serve" in phases:
-                log("[13/14] the streaming server: 4 sessions on the flagship, then the CLI")
+                log("[13/15] the streaming server: 4 sessions on the flagship, then the CLI")
                 k1["serve_phase"] = phase_serve(torch, audio_dir, args.seed)
         finally:
             shutil.rmtree(audio_dir, ignore_errors=True)
     if "enc_dec" in phases:
-        log("[14/14] the encoder-decoder family: forwards, greedy decoding both ways, "
+        log("[14/15] the encoder-decoder family: forwards, greedy decoding both ways, "
             "enc_dec training, the internal-LM beam search")
         os.makedirs(workdir, exist_ok=True)
         try:
@@ -3792,6 +4268,19 @@ def main() -> int:
             entry["launches_enc_dec_micro_step"] = enc_dec["train"]["launches"][key]
             entry["launches_enc_dec_ladder"] = enc_dec["train"]["launches_ladder"][key]
         k1["enc_dec_phase"] = enc_dec
+    if "lm" in phases:
+        log("[15/15] decoding with a language model: train_lm, cached steps, create_logits, "
+            "the beam searches, beam serving")
+        lm_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_lm")
+        os.makedirs(lm_dir, exist_ok=True)
+        try:
+            lm_out = phase_lm(torch, lm_dir, args.seed)
+        finally:
+            shutil.rmtree(lm_dir, ignore_errors=True)
+        k1 = results.setdefault("flash_attention_fwd", {"name": "flash_attention_fwd"})
+        k1["launches_lm_create_logits"] = lm_out["create_logits"]["launches"]
+        k1["launches_lm_serve_beam"] = lm_out["serve"]["launches"]
+        k1["lm_phase"] = lm_out
     name, power = [s.strip() for s in gpu.split(",", 1)]
     for entry in results.values():
         entry.update(gpu=name, power_limit=power)

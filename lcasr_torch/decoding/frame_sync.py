@@ -1,6 +1,6 @@
-"""Frame-synchronous LM-fused CTC beam search (the port's copy of the
-host-side part of lcasr_tpu/decoding/frame_sync.py: `_sum_log_scores`,
-`FSBeam`, `HistoryLM`, `FrameSyncBeamSearch`), numpy on the host.
+"""Frame-synchronous LM-fused CTC beam search (the port's copy of
+lcasr_tpu/decoding/frame_sync.py): the search on the host in numpy, its LM
+on the device.
 
 The reference algorithm (reference `lcasr/decoding/ctc_beam_search.py`):
 
@@ -18,20 +18,22 @@ The reference algorithm (reference `lcasr/decoding/ctc_beam_search.py`):
 
 The LM is anything with `init(width) -> (state, log-probs)` and
 `step(state, parent_idx, tokens, update_mask) -> (state, (width, V)
-log-probs)`; `HistoryLM` adapts any full-context scorer (the
-encoder-decoder's internal LM, `models/enc_dec_sconformer.ctc_beam_search`).
-The device-cached transformer LM (`CachedTransformerLM`) and the
-search over many recordings (`rescore_many`) wait for `models/lm.py` (ROADMAP
-queue A4).
+log-probs)`; `CachedTransformerLM` adapts `models/lm.py` (per-beam KV
+caches on the device, one step a frame), `HistoryLM` any full-context scorer
+(the encoder-decoder's internal LM, `models/enc_dec_sconformer.
+ctc_beam_search`).  `rescore_many` runs many recordings' searches off one
+wide LM, one batched step a tick for every search that waits on one.
 """
 from __future__ import annotations
 
 import heapq
 import math
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 DEFAULT_BEAM_WIDTH = 25
 
@@ -87,6 +89,110 @@ class HistoryLM:
             for j in feed_rows:
                 state[j] = state[j][-self.max_cache_length:]
         return state, lps
+
+
+class CachedTransformerLM:
+    """The LM protocol over `models/lm.py:TransformerLM` with per-beam KV
+    caches on the model's device: one single-token step a frame over all
+    beam rows, the parents' rows gathered by index first (the port's copy of
+    lcasr_tpu's `CachedTransformerLM`).
+
+    `cache_dtype`: fp32 by default (beam-for-beam parity); bf16 halves the
+    buffer, the only large tensor of a rescoring run (keys and values round
+    to bf16 at rest, the scores stay fp32)."""
+
+    def __init__(self, model, width: int, max_len: int, bos_id: int = 2,
+                 cache_dtype: Optional[torch.dtype] = None):
+        self.model = model.eval()
+        self.device = next(model.parameters()).device
+        self.bos_id = bos_id
+        self.width = width
+        self.max_len = max_len
+        self.cache_dtype = cache_dtype if cache_dtype is not None else torch.float32
+        # the host's shadow of the device lengths (the same gather and
+        # increment), so an overflow is caught without a sync a step: past
+        # max_len the model drops the write and scores would go wrong quietly
+        self._host_lengths = np.zeros((width,), np.int64)
+        L, H, D = model.n_layers, model.n_heads, model.head_dim
+        self.cache_shape = (L, 2, width, H, max_len + 1, D)
+        # position capacity in buckets: every step's parent gather and
+        # attention read touch the whole buffer, so it starts at 256
+        # positions and doubles when the longest beam nears it.  The
+        # arithmetic is exact either way (padded columns are NEG_INF-masked
+        # and their exp underflows to 0.0 in the fp32 softmax).
+        self._buf_len = min(256, max_len + 1)
+
+    @torch.no_grad()
+    def _step(self, cache, lengths, parent_idx, tokens, update):
+        # one whole-cache producer a step (the parent gather); the masked
+        # advance writes B cells inside the model, so the peak is 2 buffers
+        cache = cache[:, :, parent_idx]
+        lengths = lengths[parent_idx]
+        logits, cache, lengths = self.model(tokens[:, None], cache=cache,
+                                            cache_lengths=lengths, write_mask=update)
+        return cache, lengths, F.log_softmax(logits[:, 0].float(), -1)
+
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def init(self, width: int):
+        assert width == self.width
+        self._buf_len = min(256, self.max_len + 1)
+        cache = torch.zeros(self.cache_shape[:4] + (self._buf_len,) + self.cache_shape[5:],
+                            dtype=self.cache_dtype, device=self.device)
+        lengths = torch.zeros((width,), dtype=torch.int32, device=self.device)
+        cache, lengths, lps = self._step(
+            cache, lengths, torch.arange(width, device=self.device),
+            torch.full((width,), self.bos_id, dtype=torch.int64, device=self.device),
+            torch.ones((width,), dtype=torch.bool, device=self.device))
+        self._host_lengths = np.ones((width,), np.int64)
+        return (cache, lengths), lps[0].cpu().numpy()
+
+    def step(self, state, parent_idx, tokens, update_mask):
+        cache, lengths = state
+        parent_idx = np.asarray(parent_idx, np.int64)
+        update_mask = np.asarray(update_mask, bool)
+        hl = self._host_lengths[parent_idx] + update_mask
+        if hl.max(initial=0) > self.max_len + 1:
+            raise RuntimeError(
+                f"LM KV cache overflow: a beam reached {int(hl.max())} tokens > "
+                f"max_len={self.max_len}; size the cache for the worst-case emission "
+                f"count (one per candidate frame), not a heuristic")
+        self._host_lengths = hl
+        # grow the bucket before the step, so that this step's write position
+        # stays strictly inside the buffer (the model drops a write at Nmax)
+        needed = min(int(hl.max(initial=0)) + 1, self.max_len + 1)
+        if needed > self._buf_len:
+            target = self._buf_len
+            while target < needed:
+                target *= 2
+            target = min(target, self.max_len + 1)
+            cache = F.pad(cache, (0, 0, 0, target - self._buf_len))
+            self._buf_len = target
+        cache, lengths, lps = self._step(
+            cache, lengths, self._put(parent_idx),
+            self._put(np.asarray(tokens, np.int64)), self._put(update_mask))
+        return (cache, lengths), lps.cpu().numpy()
+
+    def warm_buckets(self):
+        """Run the step once at every bucket size this cache can reach, so
+        that a timed search pays no first-use cost when the buffer doubles.
+        Returns the sizes."""
+        sizes, b = [], min(256, self.max_len + 1)
+        while True:
+            sizes.append(b)
+            if b >= self.max_len + 1:
+                break
+            b = min(b * 2, self.max_len + 1)
+        dev, W = self.device, self.width
+        for s in sizes:
+            cache = torch.zeros(self.cache_shape[:4] + (s,) + self.cache_shape[5:],
+                                dtype=self.cache_dtype, device=dev)
+            self._step(cache, torch.zeros((W,), dtype=torch.int32, device=dev),
+                       torch.arange(W, device=dev),
+                       torch.full((W,), self.bos_id, dtype=torch.int64, device=dev),
+                       torch.ones((W,), dtype=torch.bool, device=dev))
+        return sizes
 
 
 class FrameSyncBeamSearch:
@@ -269,3 +375,62 @@ class FrameSyncBeamSearch:
             beams = new_beams
 
         return beams
+
+
+def rescore_many(
+    lm,
+    logits_list: Sequence[np.ndarray],
+    n_slots: int,
+    tokenizer=None,
+    decode: bool = False,
+    **search_kwargs,
+):
+    """Rescore many recordings at once off one shared LM.
+
+    `lm` is an LM of width `n_slots * beam_width`: slot r owns rows
+    [r W, (r+1) W).  Each recording's search runs on the host until it waits
+    on an LM step (`FrameSyncBeamSearch.search_gen`); every tick issues one
+    batched step serving all waiting searches, with identity parent rows and
+    update False for the other slots.  The per-row LM arithmetic does not
+    depend on the other rows, so each recording's result is its own
+    `run_search`'s (reference counterpart: `eval/tedlium/tlm_beam.py:55-61`
+    fans recordings out over CPUs with ray).  Returns the results in input
+    order."""
+    width = search_kwargs.get("beam_width", DEFAULT_BEAM_WIDTH)
+    results: List = [None] * len(logits_list)
+
+    for wave_start in range(0, len(logits_list), n_slots):
+        wave = range(wave_start, min(wave_start + n_slots, len(logits_list)))
+        state, lps0 = lm.init(n_slots * width)
+        live = {}  # slot -> (recording index, searcher, generator)
+        pending = {}  # slot -> (parent_idx, tokens, update)
+        for slot, ridx in enumerate(wave):
+            searcher = FrameSyncBeamSearch(lm=None, tokenizer=tokenizer, **search_kwargs)
+            gen = searcher.search_gen(np.asarray(logits_list[ridx]), lps0)
+            try:
+                pending[slot] = next(gen)
+                live[slot] = (ridx, searcher, gen)
+            except StopIteration as stop:  # a recording with no LM step at all
+                results[ridx] = searcher._finalize(stop.value, decode)
+
+        while live:
+            parent = np.arange(n_slots * width, dtype=np.int32)
+            tokens = np.zeros((n_slots * width,), np.int32)
+            update = np.zeros((n_slots * width,), bool)
+            for slot, (p, t, u) in pending.items():
+                base = slot * width
+                parent[base:base + width] = base + np.asarray(p, np.int32)
+                tokens[base:base + width] = t
+                update[base:base + width] = u
+            state, lps = lm.step(state, parent, tokens, update)
+            pending = {}
+            for slot in list(live):
+                ridx, searcher, gen = live[slot]
+                base = slot * width
+                try:
+                    pending[slot] = gen.send(lps[base:base + width])
+                except StopIteration as stop:
+                    results[ridx] = searcher._finalize(stop.value, decode)
+                    del live[slot]
+
+    return results

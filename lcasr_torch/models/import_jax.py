@@ -1,5 +1,5 @@
-"""Flax variables of lcasr_tpu's SCConformerXL, Mamba and encoder-decoder
-models <-> the port's state_dict.
+"""Flax variables of lcasr_tpu's SCConformerXL, Mamba, encoder-decoder
+models and TransformerLM <-> the port's state_dict.
 
 The inverse direction of lcasr_tpu/models/import_torch.py, for the port's
 own module tree (whose names follow the flax tree one to one):
@@ -41,7 +41,7 @@ _MODULE = re.compile(
     r"pre_norm|proj_out|mixer|in_proj|x_proj|y_out|"
     r"language_model_decoder|(self|cross)_attn_\d+|(self|cross|ff)_norm_\d+|ff_\d+|"
     r"q_proj|kv_proj|embed|pos_enc|encoder_pos_enc|dynamic_pos_bias|proj|out_norm|"
-    r"acoustic_norm)$"
+    r"acoustic_norm|qkv_\d+|out_\d+|attn_norm_\d+|lm_head)$"
 )
 _PARAM_LEAVES = {"kernel", "bias", "scale", "weight", "depthwise_kernel",
                  "depthwise_bias", "inv_freq", "w_r",

@@ -3,7 +3,10 @@
   * `bpe.cpp`: the BPE merge loop of `data/tokenizer.py` (the port's copy
     of lcasr_tpu/native/bpe_native.cpp), one string or a batch per call;
   * `npy.cpp`: a thread pool that reads the data of a batch of `.npy`
-    files into buffers the caller made (lcasr_tpu/native/npy_native.cpp).
+    files into buffers the caller made (lcasr_tpu/native/npy_native.cpp);
+  * `beam.cpp`: the no-LM CTC prefix-beam block advance of
+    `decoding/beam_search.py` (lcasr_tpu/native/beam_native.cpp), flat
+    arrays in, a result handle sized and filled by two more calls.
 
 The sources are plain C++ behind an `extern "C"` API: no Python.h and no
 numpy C-API, so `g++` alone builds them.  A library is named by a digest
@@ -23,14 +26,14 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR.parent.parent / "build" / "lcasr_torch_host"
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC", "-pthread")
-SOURCES = ("bpe", "npy")
+SOURCES = ("bpe", "npy", "beam")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -81,6 +84,16 @@ def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     elif name == "npy":
         lib.npy_read_batch.argtypes = [i, p, p, p, p, i, p]
         lib.npy_read_batch.restype = i
+    elif name == "beam":
+        d = ctypes.c_double
+        lib.beam_advance.argtypes = [ll, p, p, p, p, p, p, p, ll, ll, ll, i, i, d, i, d, i]
+        lib.beam_advance.restype = p
+        lib.beam_result_sizes.argtypes = [p, p, p, p]
+        lib.beam_result_sizes.restype = None
+        lib.beam_result_fill.argtypes = [p, p, p, p, p, p, p]
+        lib.beam_result_fill.restype = None
+        lib.beam_result_free.argtypes = [p]
+        lib.beam_result_free.restype = None
     return lib
 
 
@@ -138,3 +151,47 @@ def read_npy_batch(paths: Sequence[str], threads: int = 8) -> List[np.ndarray]:
         raise OSError(int(errors[i]), f"reading the data of {paths[i]} failed: "
                       f"{os.strerror(int(errors[i])) if errors[i] > 0 else 'file too short'}")
     return arrays
+
+
+# ---------------------------------------------------------------------------
+# no-LM CTC prefix-beam block advance
+# ---------------------------------------------------------------------------
+def beam_advance(beams: Sequence[tuple], log_probs: np.ndarray, t0: int, blank: int,
+                 pad: int, threshold: float, width: int, prune_less_than: Optional[float]
+                 ) -> List[tuple]:
+    """`BeamSearch.advance` without an LM over a float32 (T, C) block, in
+    C++.  `beams`: (prefix, p_blank, p_non_blank, frames) in the search's
+    insertion order; returns the surviving beams in the same form, ranked.
+    `pad` -1: no pad filter; `prune_less_than` None: no score margin."""
+    lib = library("beam")
+    lp = np.ascontiguousarray(log_probs, np.float32)
+    T, C = lp.shape
+    n = len(beams)
+    tok_off = np.zeros(n + 1, np.int64)
+    fr_off = np.zeros(n + 1, np.int64)
+    tok_off[1:] = np.cumsum([len(b[0]) for b in beams])
+    fr_off[1:] = np.cumsum([len(b[3]) for b in beams])
+    toks = np.fromiter((t for b in beams for t in b[0]), np.int32, int(tok_off[-1]))
+    frs = np.fromiter((f for b in beams for f in b[3]), np.int32, int(fr_off[-1]))
+    p_b = np.array([b[1] for b in beams], np.float64)
+    p_nb = np.array([b[2] for b in beams], np.float64)
+    handle = lib.beam_advance(n, _ptr(toks), _ptr(tok_off), _ptr(p_b), _ptr(p_nb), _ptr(frs),
+                              _ptr(fr_off), _ptr(lp), T, C, t0, blank, pad, float(threshold),
+                              width, 0.0 if prune_less_than is None else float(prune_less_than),
+                              int(prune_less_than is not None))
+    if not handle:
+        raise MemoryError("the native beam advance ran out of memory")
+    try:
+        sizes = [ctypes.c_longlong() for _ in range(3)]
+        lib.beam_result_sizes(handle, *map(ctypes.byref, sizes))
+        nb, nt, nf = (s.value for s in sizes)
+        o_tok, o_tok_off = np.empty(nt, np.int32), np.empty(nb + 1, np.int64)
+        o_pb, o_pnb = np.empty(nb, np.float64), np.empty(nb, np.float64)
+        o_fr, o_fr_off = np.empty(nf, np.int32), np.empty(nb + 1, np.int64)
+        lib.beam_result_fill(handle, _ptr(o_tok), _ptr(o_tok_off), _ptr(o_pb), _ptr(o_pnb),
+                             _ptr(o_fr), _ptr(o_fr_off))
+    finally:
+        lib.beam_result_free(handle)
+    tok_l, fr_l = o_tok.tolist(), o_fr.tolist()
+    return [(tuple(tok_l[o_tok_off[i]:o_tok_off[i + 1]]), float(o_pb[i]), float(o_pnb[i]),
+             tuple(fr_l[o_fr_off[i]:o_fr_off[i + 1]])) for i in range(nb)]

@@ -3,7 +3,8 @@ lcasr_tpu/serving/__main__.py).
 
     python -m lcasr_torch.serving <checkpoint> <audio.wav> [more.wav ...] \
         [--chunk_seconds 0.5] [--context 2048] [--stride 512] [--delay 512] \
-        [--transfer_dtype float32|bfloat16|int8] [--device cuda|cpu]
+        [--transfer_dtype float32|bfloat16|int8] [--decoder greedy|beam] \
+        [--beam_width 25] [--beam_topk 32] [--device cuda|cpu]
 
 <checkpoint> is a reference `.pt` file or a checkpoint directory of the port
 (`evaluation.run.load_any_checkpoint`).  WAV files are read and resampled to
@@ -49,6 +50,13 @@ def main() -> None:
     parser.add_argument("--transfer_dtype", default="float32",
                         choices=["float32", "bfloat16", "int8"],
                         help="server-mode wave upload format")
+    parser.add_argument("--decoder", default="greedy", choices=["greedy", "beam"],
+                        help="beam = incremental prefix beam search over the finalised "
+                             "log-probs (sparse top-K fetch)")
+    parser.add_argument("--beam_width", type=int, default=25)
+    parser.add_argument("--beam_topk", type=int, default=32,
+                        help="the device's sparse fetch width (beam mode); "
+                             "0 = dense fp32 log-prob fetch")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the default) or cpu (the kernels' plain versions)")
     args = parser.parse_args()
@@ -66,7 +74,10 @@ def main() -> None:
     chunk = max(1, int(args.chunk_seconds * 16000))
     audio_s = sum(len(w) for w in waves) / 16000
     kw = dict(context_frames=args.context, stride_frames=args.stride,
-              right_delay_frames=args.delay, device=device)
+              right_delay_frames=args.delay, device=device, decoder=args.decoder,
+              beam_opts=(dict(beam_width=args.beam_width, alpha=0.0, beta=0.0)
+                         if args.decoder == "beam" else None),
+              beam_topk=args.beam_topk or None)
 
     if len(waves) == 1:
         if args.transfer_dtype == "bfloat16":

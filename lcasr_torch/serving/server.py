@@ -28,7 +28,12 @@ mel spans orders of magnitude across bins and sessions, so one shared int8
 scale on raw values would zero out quiet bins.
 
 `device=None` means the GPU and raises without one; the model must already
-be there.  `decoder="beam"` is not ported (ROADMAP queue A4) and raises.
+be there.  decoder="beam": each session runs its incremental prefix beam
+search over its finalised rows; a wave fetches the device's top-K values,
+ids and above-threshold counts of every row and the output lengths in one
+copy (or the dense fp32 rows with `beam_topk=None`), and a session whose
+finalised row holds more than K classes within the threshold fetches its
+window again, densely, on its own.
 """
 from __future__ import annotations
 
@@ -37,7 +42,12 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from lcasr_torch.serving.transcriber import OnlineTranscriber, model_device
+from lcasr_torch.serving.transcriber import (
+    OnlineTranscriber,
+    decode_head,
+    model_device,
+    to_host,
+)
 
 
 class TranscriptionServer:
@@ -67,9 +77,6 @@ class TranscriptionServer:
     ):
         assert max_streams >= 1
         assert decoder in ("greedy", "beam")
-        if decoder == "beam":
-            raise NotImplementedError("decoder='beam' needs decoding/beam_search.py, which "
-                                      "is not ported yet (ROADMAP queue A4)")
         # wave upload format: 'float32' (exact, the default), 'bfloat16'
         # (half the bytes), 'int8' (a quarter: one symmetric scale per wave,
         # quantised on the host, dequantised once on the device)
@@ -83,6 +90,16 @@ class TranscriptionServer:
         self.delay = right_delay_frames
         self.transfer_dtype = transfer_dtype
         self.decoder = decoder
+        self.beam_opts = beam_opts
+        self.beam_topk = None
+        self._thr = 0.0
+        if decoder == "beam" and beam_topk is not None:
+            from lcasr_torch.decoding.beam_search import DEFAULT_TOP_AM_THRESHOLD
+
+            self.beam_topk = int(min(beam_topk, tokenizer.vocab_size() + 1))
+            # looser than the search's threshold: see OnlineTranscriber
+            self._thr = float((beam_opts or {}).get(
+                "top_am_threshold", DEFAULT_TOP_AM_THRESHOLD)) - 1e-3
         self._win_buf = torch.zeros((self.S, 80, self.ctx), dtype=torch.float32,
                                     device=self.device)
         # dispatch accounting: waves, delta waves, uploaded bytes
@@ -112,7 +129,8 @@ class TranscriptionServer:
         cols = torch.arange(self.ctx, device=w.device)
         w = w.masked_fill(cols[None, None, :] >= lengths[:, None, None], 0.0)
         out = self.model(w, length=lengths)
-        return new_buf, out["final_posteriors"].argmax(-1).to(torch.int32), out["length"]
+        head = decode_head(out["final_posteriors"], self.decoder, self.beam_topk, self._thr)
+        return (new_buf,) + head + (out["length"].to(torch.int32),)
 
     def _forward_full(self, win_buf, rows, due, scale, mean, std, lengths):
         """Full wave: the due rows' buffers become `rows` (S, 80, ctx)."""
@@ -140,7 +158,8 @@ class TranscriptionServer:
         session = OnlineTranscriber(
             self.model, self.tokenizer, context_frames=self.ctx,
             stride_frames=self.stride, right_delay_frames=self.delay, norm=norm,
-            eps=eps, decoder=self.decoder, device=self.device,
+            eps=eps, decoder=self.decoder, beam_opts=self.beam_opts,
+            beam_topk=self.beam_topk, device=self.device,
         )
         sid = self._next_sid
         self._next_sid += 1
@@ -223,16 +242,18 @@ class TranscriptionServer:
                                               else host.itemsize)
             dev = self.device
             fwd = self._forward_delta if all_delta else self._forward_full
-            self._win_buf, ids, out_lens = fwd(
+            self._win_buf, *outs = fwd(
                 self._win_buf, self._to_device(host),
                 torch.from_numpy(due_mask).to(dev),
                 torch.tensor(scale, dtype=torch.float32, device=dev),
                 torch.from_numpy(mean).to(dev), torch.from_numpy(std).to(dev),
                 torch.from_numpy(lengths).to(dev),
             )
-            ids, out_lens = ids.cpu().numpy(), out_lens.cpu().numpy()  # one fetch each
+            *head, out_lens = to_host(*outs)  # the wave's one fetch
             for s, i, end, final, win_start in metas:
-                s._apply(end, final, win_start, ids[i], int(out_lens[i]))
+                payload = tuple(h[i] for h in head)
+                s._apply(end, final, win_start, payload if len(payload) > 1 else payload[0],
+                         int(out_lens[i]))
         for sid, s in self._sessions.items():
             s._trim()
             delta = s._delta()

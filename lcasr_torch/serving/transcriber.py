@@ -27,13 +27,19 @@ mean/std (`audio_tools.py:44-57`), which is unavailable online.  Options:
 
 The JAX module shares jitted forwards between sessions; here the forward is
 a plain `torch.no_grad()` call of the model the caller placed on `device`
-(None: the GPU).  The argmax runs on the device, so only int32 ids come
-back.  `decoder="beam"` needs `decoding/beam_search.py`, which is not ported
-(ROADMAP queue A4), and raises.
+(None: the GPU).  Greedy decoding takes the argmax on the device, so only
+int32 ids come back.  decoder="beam" runs an incremental prefix beam search
+(`decoding/beam_search.py`, LM-fusable through `beam_opts`) over the
+finalised log-prob rows; its fetch is the device's top-K values and ids of
+each row and the row's count of classes within the threshold (exact while
+the count fits in K, a dense refetch of the window where it does not), or
+the dense fp32 rows with `beam_topk=None`.  Mid-stream the text is the live
+beams' common prefix; finish() settles on the best beam, which is the
+offline search's over the same rows.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -42,6 +48,34 @@ from lcasr_torch.data.audio import HOP_LENGTH, N_FFT, power_to_mel
 from lcasr_torch.device import resolve_device
 
 _PAD = N_FFT // 2  # center=True padding (reflect), as data/audio.py
+
+
+def to_host(*tensors: torch.Tensor) -> List[np.ndarray]:
+    """Tensors of 4-byte elements on the device -> numpy arrays, in one
+    copy (packed as int32 and cut apart on the host)."""
+    flat = torch.cat([t.contiguous().view(torch.int32).reshape(-1) for t in tensors])
+    host, out, at = flat.cpu().numpy(), [], 0
+    for t in tensors:
+        n = t.numel()
+        out.append(host[at : at + n].view(np.dtype(str(t.dtype).replace("torch.", "")))
+                   .reshape(tuple(t.shape)))
+        at += n
+    return out
+
+
+def decode_head(lp: torch.Tensor, decoder: str, beam_topk: Optional[int], thr: float):
+    """The device's part of a decode step on (k, rows, C) log-probs, still on
+    the device: greedy -> (ids int32,); beam with top-K -> (values fp32,
+    ids int32, count int32), `count` the classes >= the row's max + thr;
+    dense beam -> (fp32 log-probs,)."""
+    if decoder == "greedy":
+        return (lp.argmax(-1).to(torch.int32),)
+    lp = lp.float()
+    if beam_topk is None:
+        return (lp,)
+    vals, idx = torch.topk(lp, beam_topk, dim=-1)
+    count = (lp >= lp.max(-1, keepdim=True).values + thr).sum(-1)
+    return vals, idx.to(torch.int32), count.to(torch.int32)
 
 
 def model_device(model, device) -> torch.device:
@@ -84,9 +118,6 @@ class OnlineTranscriber:
         assert right_delay_frames % sf == 0
         assert context_frames >= stride_frames + right_delay_frames
         assert decoder in ("greedy", "beam")
-        if decoder == "beam":
-            raise NotImplementedError("decoder='beam' needs decoding/beam_search.py, which "
-                                      "is not ported yet (ROADMAP queue A4)")
         self.device = model_device(model, device)
         self.model = model.eval()
         self.tokenizer = tokenizer
@@ -132,6 +163,27 @@ class OnlineTranscriber:
         self._text = ""
         self._finished = False
 
+        # decoder='beam': the incremental prefix beam search over the
+        # finalised rows (exact by the finalisation contract); beam_opts go
+        # to BeamSearch (beam_width, alpha / beta with lm_scores, pruning)
+        self.beam_topk: Optional[int] = None
+        self._thr = 0.0
+        if decoder == "beam":
+            from lcasr_torch.decoding.beam_search import BeamSearch
+
+            opts = dict(beam_opts or {})
+            opts.setdefault("pad_id", 0)
+            self._beam = BeamSearch(tokenizer=tokenizer, blank_id=self.blank_id, **opts)
+            self.sparse_refetches = 0  # dense refetches (observability)
+            if beam_topk is not None:
+                # the search reads only a frame's above-threshold entries, so
+                # the top-K fetch is exact when their count fits in K; the
+                # count's threshold is a little looser than the search's, so
+                # that fp32 rounding at the boundary can only cause a
+                # needless refetch, never a miss
+                self.beam_topk = int(min(beam_topk, self.blank_id + 1))
+                self._thr = float(self._beam.top_am_threshold) - 1e-3
+
     # ---------------- device side ----------------
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         """One host array to the device as fp32 (int8: quantised on the host
@@ -144,13 +196,18 @@ class OnlineTranscriber:
                 * torch.tensor(s, dtype=torch.float32, device=self.device))
 
     @torch.no_grad()
-    def _forward(self, windows: torch.Tensor, widths) -> Tuple[np.ndarray, np.ndarray]:
-        """(k, 80, ctx) windows on the device -> ((k, rows) int32 argmax ids,
-        (k,) output lengths), on the host."""
+    def _forward(self, windows: torch.Tensor, widths, dense: bool = False
+                 ) -> Tuple[list, np.ndarray]:
+        """(k, 80, ctx) windows on the device -> (the k rows' payloads for
+        `_apply`, (k,) output lengths), on the host, in one copy.  `dense`:
+        the beam's fp32 log-probs whatever `beam_topk` is."""
         lengths = torch.as_tensor(np.asarray(widths, np.int32), device=self.device)
         out = self.model(windows, length=lengths)
-        ids = out["final_posteriors"].argmax(-1).to(torch.int32)
-        return ids.cpu().numpy(), out["length"].cpu().numpy()
+        head = decode_head(out["final_posteriors"], self.decoder,
+                           None if dense else self.beam_topk, self._thr)
+        *head, out_len = to_host(*head, out["length"].to(torch.int32))
+        rows = [tuple(h[i] for h in head) for i in range(len(windows))]
+        return [r[0] if len(r) == 1 else r for r in rows], out_len
 
     # ---------------- incremental mel frontend ----------------
     def _frames_available(self, n_samples: int) -> int:
@@ -286,11 +343,68 @@ class OnlineTranscriber:
             window = np.pad(window, ((0, 0), (0, self.ctx - width)))
         return window, width, win_start
 
-    def _apply(self, end: int, final: bool, win_start: int, frame_ids, out_len: int) -> None:
+    def _emit_beam(self, g0: int, g1: int, win_start: int, log_probs, out_len: int,
+                   tail: bool) -> None:
+        """Beam-mode finalisation: advance the incremental prefix beam over
+        the finalised (rows, C) log-prob block; publish the live beams'
+        common prefix mid-stream, the best beam at the end of the stream."""
+        r0 = (g0 - win_start) // self.sf
+        r1 = out_len if tail else min((g1 - win_start) // self.sf, out_len)
+        if r1 > r0:
+            row0 = win_start // self.sf
+            self._beam.advance(np.asarray(log_probs[r0:r1], np.float32), t0=row0 + r0)
+        best = self._beam.best()
+        if tail:
+            ids, frames = list(best.prefix), list(best.frames)
+        else:
+            prefixes = self._beam.live_prefixes()
+            lcp = prefixes[0]
+            for p in prefixes[1:]:
+                n = 0
+                for a, b in zip(lcp, p):
+                    if a != b:
+                        break
+                    n += 1
+                lcp = lcp[:n]
+            # the best beam starts with the common prefix, so its
+            # timestamps align with the emitted ids
+            ids, frames = list(lcp), list(best.frames[: len(lcp)])
+        if ids != self._ids:
+            self._ids, self._id_frames = ids, frames
+            self._dirty = True
+
+    def _densify_beam(self, payload, end: int, final: bool, win_start: int, out_len: int,
+                      fin_end: int) -> np.ndarray:
+        """A sparse (values, ids, count) payload -> the (rows, C) block
+        `_emit_beam` reads.  Rows outside the finalised range stay at -1e30
+        (never read).  If a finalised row's count exceeds K, the top-K is
+        not provably exact: the window is fetched again, densely."""
+        vals, idx, count = payload
+        C = self.blank_id + 1
+        r0 = (self._frontier - win_start) // self.sf
+        r1 = out_len if final else min((fin_end - win_start) // self.sf, out_len)
+        if r1 > r0 and int(count[r0:r1].max()) > self.beam_topk:
+            self.sparse_refetches += 1
+            window, width, _ = self._prepare(end)
+            rows, _ = self._forward(self._upload(window[None]), [width], dense=True)
+            return rows[0]
+        dense = np.full((vals.shape[0], C), -1e30, np.float32)
+        if r1 > r0:
+            rows = np.arange(r0, r1)
+            dense[rows[:, None], idx[r0:r1]] = vals[r0:r1]
+        return dense
+
+    def _apply(self, end: int, final: bool, win_start: int, payload, out_len: int) -> None:
         """Consume a forward's output for the step (end, final): this
-        session's (rows,) device-argmaxed ids."""
+        session's (rows,) device-argmaxed ids (greedy), its (rows, C) fp32
+        log-probs (dense beam) or its (values, ids, count) top-K triple."""
         fin_end = end if final else end - self.delay
-        self._emit(self._frontier, fin_end, win_start, frame_ids, out_len, tail=final)
+        if self.decoder == "beam":
+            if isinstance(payload, tuple):
+                payload = self._densify_beam(payload, end, final, win_start, out_len, fin_end)
+            self._emit_beam(self._frontier, fin_end, win_start, payload, out_len, tail=final)
+        else:
+            self._emit(self._frontier, fin_end, win_start, payload, out_len, tail=final)
         self._frontier = fin_end
 
     def _emit(self, g0: int, g1: int, win_start: int, frame_ids, out_len: int,
@@ -317,8 +431,8 @@ class OnlineTranscriber:
         """One fixed-shape forward over mel [end-ctx, end), finalising frames
         [frontier, end - delay), or everything through `end` when final."""
         window, width, win_start = self._prepare(end)
-        ids, out_len = self._forward(self._upload(window[None]), [width])
-        self._apply(end, final, win_start, ids[0], int(out_len[0]))
+        payloads, out_len = self._forward(self._upload(window[None]), [width])
+        self._apply(end, final, win_start, payloads[0], int(out_len[0]))
 
     def _delta(self) -> str:
         """Newly finalised text since the last call."""
@@ -369,9 +483,9 @@ class OnlineTranscriber:
             batch = strip.unfold(-1, self.ctx, self.stride).permute(1, 0, 2)
         else:
             batch = self._upload(np.stack(wins))
-        ids, out_len = self._forward(batch, widths)
+        payloads, out_len = self._forward(batch, widths)
         for i, e in enumerate(ends):
-            self._apply(e, False, starts[i], ids[i], int(out_len[i]))
+            self._apply(e, False, starts[i], payloads[i], int(out_len[i]))
 
     def _drain(self) -> str:
         while True:

@@ -231,7 +231,7 @@ def test_port_imports_no_jax_and_no_lcasr_tpu():
     # use are blocked outright: the port must import without them
     code = (
         "import importlib, importlib.abc, pkgutil, sys\n"
-        "BLOCKED = ('scipy', 'transformers', 'rapidfuzz', 'regex')\n"
+        "BLOCKED = ('scipy', 'transformers', 'rapidfuzz', 'regex', 'pandas')\n"
         "class Block(importlib.abc.MetaPathFinder):\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if name.split('.')[0] in BLOCKED:\n"
@@ -251,7 +251,10 @@ def test_port_imports_no_jax_and_no_lcasr_tpu():
         "             'lcasr_torch.evaluation.datasets.rev16', 'lcasr_torch.native',\n"
         "             'lcasr_torch.data.utterances', 'lcasr_torch.training.debug_hooks',\n"
         "             'lcasr_torch.ops.ctc', 'lcasr_torch.models.enc_dec_sconformer',\n"
-        "             'lcasr_torch.decoding.frame_sync'):\n"
+        "             'lcasr_torch.decoding.frame_sync', 'lcasr_torch.models.lm',\n"
+        "             'lcasr_torch.decoding.beam_search',\n"
+        "             'lcasr_torch.decoding.frame_sync_device', 'lcasr_torch.cli.train_lm',\n"
+        "             'lcasr_torch.cli.lm_rescore'):\n"
         "    assert name in sys.modules, name\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('lcasr_torch')]))\n"

@@ -1,8 +1,10 @@
 """lcasr_torch's streaming transcriber and server, on the CPU in fp32: the
-properties tests/test_serving.py holds for lcasr_tpu's (those that need no
-beam search), and ids equal to the JAX `OnlineTranscriber`'s on the same
-weights.
+properties tests/test_serving.py holds for lcasr_tpu's, ids equal to the JAX
+`OnlineTranscriber`'s on the same weights, and beam transcripts equal to an
+offline `BeamSearch` over the same log-probs.
 """
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -231,10 +233,12 @@ def test_int8_transfer_close_to_float(model):
 
 
 def test_beam_and_device_refusals(model):
-    with pytest.raises(NotImplementedError, match="A4"):
-        _tr(model, decoder="beam")
-    with pytest.raises(NotImplementedError, match="A4"):
-        TranscriptionServer(model, _IdTokenizer(), decoder="beam", device="cpu")
+    """decoder="beam" is taken (A4 is ported) and another decoder is not;
+    without a GPU the default device is refused."""
+    assert _tr(model, decoder="beam")._beam.beam_width == 25
+    assert TranscriptionServer(model, _IdTokenizer(), decoder="beam", device="cpu").beam_topk == 17
+    with pytest.raises(AssertionError):
+        _tr(model, decoder="lattice")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             OnlineTranscriber(model, _IdTokenizer())
@@ -448,3 +452,147 @@ def test_serving_cli_on_the_cpu(tmp_path, capsys, monkeypatch):
         cli.main()
         out = capsys.readouterr().out.strip().splitlines()
         assert out[-1].startswith("-- ") and "RTFx" in out[-1] and out[-1].endswith("on cpu")
+
+
+# ---------------- beam decoding ----------------
+BEAM_OPTS = dict(beam_width=4, alpha=0.0, beta=0.0)
+
+
+def _offline_beam(port, tok, wave, opts):
+    """The offline prefix beam search over one full-recording forward of
+    the unnormalised mel (norm="none" on the streaming side)."""
+    from lcasr_torch.decoding.beam_search import BeamSearch
+
+    mel = mel_spectrogram(torch.from_numpy(wave), global_normalisation=False)
+    with torch.no_grad():
+        out = port(mel, length=torch.tensor([mel.shape[-1]], dtype=torch.int32))
+    lp = out["final_posteriors"][0, : int(out["length"][0])].float().numpy()
+    return BeamSearch(tokenizer=tok, blank_id=tok.vocab_size(), pad_id=0, **opts).run_search(lp)
+
+
+def _stream_beam(port, wave, opts, topk, **kw):
+    tr = _tr(port, norm="none", decoder="beam", beam_opts=opts, beam_topk=topk, **kw)
+    pieces = _feed_in_chunks(tr, wave, 3)
+    return tr, pieces
+
+
+@pytest.mark.parametrize("topk", [None, 17])
+def test_beam_serving_matches_offline(model, topk):
+    """decoder="beam", dense and top-K fetch: the final transcript is the
+    offline prefix beam search's over the full forward (the finalised rows
+    are exact by the finalisation contract); the deltas end with it."""
+    wave = _random_wave(8.0, 11)
+    tok = _IdTokenizer()
+    tr, pieces = _stream_beam(model, wave, BEAM_OPTS, topk)
+    assert tr.text == _offline_beam(model, tok, wave, BEAM_OPTS) and tr.text
+    assert pieces[-1] == "" or tr.text.endswith(pieces[-1])
+    assert tr.sparse_refetches == 0
+
+
+def test_beam_serving_lm_fusion_matches_offline(model):
+    """alpha > 0 with a deterministic toy LM: the incremental search's LM
+    memo across streamed blocks lands on the offline result."""
+    V = _IdTokenizer().vocab_size()
+    table = np.random.default_rng(99).normal(size=(V, V)).astype(np.float32)
+    table -= np.log(np.exp(table).sum(-1, keepdims=True))
+
+    def lm_scores(prefixes):
+        return np.stack([table[p[-1] if p else 2] for p in prefixes])
+
+    opts = dict(beam_width=4, alpha=0.3, beta=0.1, lm_scores=lm_scores)
+    wave = _random_wave(6.0, 12)
+    tr, _ = _stream_beam(model, wave, opts, 8)
+    assert tr.text == _offline_beam(model, _IdTokenizer(), wave, opts)
+
+
+def test_beam_serving_sparse_fetch_tight_and_overflowing(model):
+    """The top-K fetch is exact where the above-threshold count fits in K
+    (a tight threshold with K = 4), and where it does not (a loose threshold
+    with K = 2: every row) the window is fetched again densely: the same
+    transcript as the offline search either way."""
+    wave = _random_wave(5.0, 13)
+    tok = _IdTokenizer()
+    tight = dict(BEAM_OPTS, top_am_threshold=-0.5)
+    tr, _ = _stream_beam(model, wave, tight, 4)
+    assert tr.text == _offline_beam(model, tok, wave, tight)
+    loose = dict(BEAM_OPTS, top_am_threshold=-50.0)
+    tr, _ = _stream_beam(model, wave, loose, 2)
+    assert tr.text == _offline_beam(model, tok, wave, loose) and tr.sparse_refetches > 0
+
+
+def test_beam_transcript_matches_the_jax_transcriber():
+    """The same weights and stream in the same chunks: the JAX and the port's
+    beam transcribers (top-K fetch, backlog batching) give the same text."""
+    from lcasr_tpu.serving import OnlineTranscriber as JTranscriber
+
+    jm, variables, port = _pair(TINY, 4)
+    wave = _random_wave(8.0, 14) * 0.3
+    kw = dict(context_frames=256, stride_frames=64, right_delay_frames=64, norm="running",
+              decoder="beam", beam_opts=BEAM_OPTS, beam_topk=8)
+    jtr = JTranscriber(jm, variables, _IdTokenizer(), **kw)
+    ttr = OnlineTranscriber(port, _IdTokenizer(), device="cpu", **kw)
+    _feed_in_chunks(jtr, wave, 6)
+    _feed_in_chunks(ttr, wave, 6)
+    assert ttr.text == jtr.text and ttr.text
+    assert ttr._id_frames == jtr._id_frames
+
+
+def test_server_beam_matches_single_stream():
+    """Server sessions in beam mode (top-K fetch per wave) give the
+    single-stream beam transcribers' texts, fed in the same chunks."""
+    port = _pair(TINY, 4)[2]
+    rng = np.random.default_rng(22)
+    streams = [rng.normal(size=(int(16000 * s),)).astype(np.float32) * 0.1 for s in (2.3, 3.1)]
+    chunk = 4000
+    kw = dict(decoder="beam", beam_opts=BEAM_OPTS, beam_topk=8)
+    singles = []
+    for audio in streams:
+        t = _tr(port, norm="running", **SERVER_KW, **kw)
+        for p in range(0, len(audio), chunk):
+            t.feed(audio[p : p + chunk])
+        t.finish()
+        singles.append(t.text)
+    server = _server(port, max_streams=3, **kw)
+    sids = [server.open() for _ in streams]
+    got = {sid: "" for sid in sids}
+    for p in range(0, max(map(len, streams)), chunk):
+        for sid, audio in zip(sids, streams):
+            if p < len(audio):
+                server.feed(sid, audio[p : p + chunk], pump=False)
+        server.pump()
+        for sid in sids:
+            got[sid] += server.poll(sid)
+    sessions = [server._session(sid) for sid in sids]
+    for sid in sids:
+        server.finish(sid)
+    assert [s.text for s in sessions] == singles and all(singles)
+
+
+def test_serving_cli_beam_on_the_cpu(tmp_path, capsys, monkeypatch):
+    """`python -m lcasr_torch.serving ... --decoder beam` in both modes."""
+    from scipy.io import wavfile
+
+    from lcasr_torch.config import Config
+    from lcasr_torch.data.tokenizer import load_tokenizer
+    from lcasr_torch.serving import __main__ as cli
+    from lcasr_torch.training.checkpointing import save_checkpoint
+
+    cfg = {**TINY, "vocab_size": load_tokenizer().vocab_size()}
+    port = _pair(cfg, 2)[2]
+    with torch.no_grad():
+        port.decoder.ff.weight.mul_(20.0)  # peaked posteriors: few candidates a frame
+    model_cfg = {k: v for k, v in cfg.items() if k != "vocab_size"}
+    save_checkpoint(str(tmp_path), 1, port.state_dict(), config=Config({"model": model_cfg}))
+    rng = np.random.default_rng(1)
+    for name in ("a", "b"):
+        wavfile.write(str(tmp_path / f"{name}.wav"), 16000,
+                      (rng.normal(size=16000 * 2) * 3000).astype(np.int16))
+    for files in (["a.wav"], ["a.wav", "b.wav"]):
+        monkeypatch.setattr(sys, "argv", ["serving", str(tmp_path),
+                                          *[str(tmp_path / f) for f in files],
+                                          "--context", "256", "--stride", "64", "--delay", "64",
+                                          "--decoder", "beam", "--beam_width", "4",
+                                          "--beam_topk", "16", "--device", "cpu"])
+        cli.main()
+        out = capsys.readouterr().out.strip().splitlines()
+        assert out[-1].startswith("-- ") and out[-1].endswith("on cpu")
