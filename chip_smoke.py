@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases audio,serve   # WAV -> WER and the server only
     python3 chip_smoke.py --phases enc_dec       # the encoder-decoder family only
     python3 chip_smoke.py --phases lm            # decoding with a language model only
+    python3 chip_smoke.py --phases parallel      # the ring schedule and a world of one
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -142,6 +143,20 @@ Phases, in order; any failure raises and exits non-zero:
               behind a TranscriptionServer with decoder="beam" (4 sessions
               x 60 s, width 25, top-K 32), each session's text equal to an
               offline BeamSearch over its single-stream log-probs.
+ 16. parallel the parallel layer on one card (multi-rank runs need one card a
+              rank; the CPU tests hold them): every rank's schedule of an
+              8-rank ring at the flagship's 20-minute attention (1, 15000,
+              6, 128) bf16, blocks of 1,875, with and without a (256, 256)
+              band, against one kernel over the sequence (8 K1 a rank
+              forward, 8 K3 or 8 K4 + 8 K5 backward; ms both ways); then a
+              world of one over NCCL and the mesh {data 1, model 1, seq 1}:
+              the flagship 16384 x 4 micro step against the same step
+              without a mesh (gradient gate, equal launch counts),
+              lcasr_3l_2048d_16h_tp at full width, one optimizer step with
+              zero_optimizer against the same step without a mesh (peak
+              memory), the 20-minute mesh decode (ids equal to
+              StreamingDecoder's) and the context-parallel single pass over
+              120,000 frames against the windowed one.
 
 The line before the last two is one JSON object with each kernel's numbers;
 the last line is the device record.  Without a GPU, or without the repo
@@ -159,7 +174,8 @@ import sys
 import time
 
 PHASES = ("kernels", "model", "decode", "train", "train_d256", "utterances", "mamba_decode",
-          "mamba_train", "decode_opt", "train_opt", "audio", "serve", "enc_dec", "lm")
+          "mamba_train", "decode_opt", "train_opt", "audio", "serve", "enc_dec", "lm",
+          "parallel")
 
 # configs/ladder_9l_768d_6h.yaml, written out: the machine with the card is
 # not promised pyyaml (tests/test_torch_port_train.py holds the two equal)
@@ -1713,8 +1729,8 @@ def fp32_subsampling():
 
     real = conv.dw_striding_chain
 
-    def chain(h, params, act="silu", causal=False):
-        return real(h.float(), [p.float() for p in params], act, causal).to(h.dtype)
+    def chain(h, params, act="silu", causal=False, seq=None):
+        return real(h.float(), [p.float() for p in params], act, causal, seq).to(h.dtype)
 
     return mock.patch.object(conv, "dw_striding_chain", chain)
 
@@ -1732,10 +1748,10 @@ def subsampling_without_cudnn():
 
     real = conv.dw_striding_chain
 
-    def chain(h, params, act="silu", causal=False):
-        y = real(h, params, act, causal)
+    def chain(h, params, act="silu", causal=False, seq=None):
+        y = real(h, params, act, causal, seq)
         with torch.no_grad(), torch.backends.cudnn.flags(enabled=False):
-            other = real(h, params, act, causal)
+            other = real(h, params, act, causal, seq)
         return (y.float() + (other.float() - y.float()).detach()).to(y.dtype)
 
     return mock.patch.object(conv, "dw_striding_chain", chain)
@@ -4072,6 +4088,424 @@ def phase_lm(torch, workdir: str, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: parallelism on torch.distributed
+# ---------------------------------------------------------------------------
+# the flagship's attention at the 20-minute decode (120,000 frames / 8), cut
+# into the blocks of an 8-rank ring: 1,875 tokens, a multiple of no tile
+RING_SHAPE = (1, 15_000, 6, 128)
+RING_RANKS = 8
+RING_WINDOWS = ((-1, -1), (256, 256))
+RING_LSE_TOL = 1e-3  # merged lse against one K1's, both fp32 sums of the same products
+# configs/lcasr_3l_2048d_16h_tp.yaml written out (tests/test_torch_port_tp.py
+# holds the two equal); one optimizer step on a 16384 x 4 chunk
+TP_CONFIG = {
+    "model_class": "SCConformerXL",
+    "model": {"d_model": 2048, "n_heads": 16, "head_dim": 128, "n_layers": 3,
+              "subsampling_factor": 8, "subsampling_conv_channels": 256,
+              "subsampling_act": "silu", "conv_kernel_size": 9, "use_rotary": True,
+              "rotary_base_freq": 1500000.0, "rotary_interpolation_factor": 1.0,
+              "self_conditioning": True, "default_norm": "layer_norm",
+              "checkpoint_every_n_layers": 1},
+    "training": {"batch_size": 704, "backprop_every": 1, "backwards_every": 1,
+                 "clip_value": 0.8, "max_epochs": 1, "random_seed": 1234, "dtype": "bfloat16"},
+    "optimizer": {"name": "madgrad", "args": {"lr": 3.0e-3}},
+    "scheduler": {"warmup_steps": 1500, "final_value": 3.0e-5},
+    "parallel": {"mesh": {"data": 2, "model": 4, "seq": 1}, "zero_optimizer": True},
+}
+TP_STEP_LR = 3.0e-3
+MULTI_RANK_NOTE = (
+    "multi-rank runs are not possible on one card (NCCL takes one rank a device); the CPU "
+    "tests hold them against lcasr_tpu over gloo: tests/test_torch_port_parallel.py "
+    "({data: 2}: Trainer step, two optimizer steps, mesh decode), tests/test_torch_port_cp.py "
+    "({seq: 4}: halo exchange, gather and ring attention, full-model forward and training), "
+    "tests/test_torch_port_tp.py ({data: 2, model: 2} with ZeRO, its checkpoint, the CLI "
+    "in two processes)")
+
+
+def rel_err(a, ref) -> float:
+    return ((a.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def ring_schedule(torch, window) -> dict:
+    """Every rank's ring schedule of an 8-rank ring, block by block on this
+    card (`ring_step_fwd` / `merge` / `ring_finish`, then `ring_step_bwd`
+    against the merged lse), against one kernel over the whole sequence:
+    the output and the gradients within YARDSTICK_FACTOR times the single
+    kernel's error against its own fp32 run, the lse within RING_LSE_TOL;
+    8 K1 launches a rank forward, 8 K3 (banded: 8 K4 + 8 K5) backward."""
+    from lcasr_torch import kernels
+    from lcasr_torch.ops.flash_attention import flash_attention_bwd, flash_attention_with_lse
+    from lcasr_torch.parallel import ring_attention as ra
+
+    B, T, H, D = RING_SHAPE
+    n, t = RING_RANKS, RING_SHAPE[1] // RING_RANKS
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    q, k, v, do = (torch.randn(RING_SHAPE, generator=gen, device=DEVICE, dtype=torch.bfloat16)
+                   for _ in range(4))
+    lens = torch.full((B,), T, dtype=torch.int32, device=DEVICE)
+    blk = [[x[:, j * t:(j + 1) * t].contiguous() for j in range(n)] for x in (q, k, v, do)]
+
+    def ring_fwd():
+        outs = []
+        for i in range(n):  # rank i: its queries against every block in ring order
+            acc = ra.ring_init(blk[0][i])
+            for s in range(n):
+                j = (i - s) % n
+                acc = ra.merge(*acc, *ra.ring_step_fwd(blk[0][i], blk[1][j], blk[2][j], lens,
+                                                       window, None, i * t, j * t))
+            outs.append(ra.ring_finish(*acc, q.dtype))
+        return outs
+
+    def ring_bwd(outs):
+        dq = []
+        dk = [torch.zeros((B, t, H, D), dtype=torch.float32, device=DEVICE) for _ in range(n)]
+        dv = [torch.zeros_like(x) for x in dk]
+        for i, (o, lse) in enumerate(outs):
+            dqi = torch.zeros((B, t, H, D), dtype=torch.float32, device=DEVICE)
+            for s in range(n):
+                j = (i - s) % n
+                dq_s, dk_s, dv_s = ra.ring_step_bwd(blk[0][i], blk[1][j], blk[2][j], o, lse,
+                                                    blk[3][i], lens, window, None, i * t, j * t)
+                dqi += dq_s.float()
+                dk[j] += dk_s.float()
+                dv[j] += dv_s.float()
+            dq.append(dqi)
+        return [torch.cat(g, 1).to(q.dtype) for g in (dq, dk, dv)]
+
+    o1, lse1 = flash_attention_with_lse(q, k, v, lens, window)
+    g1 = flash_attention_bwd(q, k, v, o1, lse1, do, lens, window)
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+    o32, lse32 = flash_attention_with_lse(q32, k32, v32, lens, window)
+    g32 = flash_attention_bwd(q32, k32, v32, o32, lse32, do32, lens, window)
+    kernels.reset_launch_counts()
+    outs = ring_fwd()
+    torch.cuda.synchronize()
+    banded = window[0] >= 0 and window[1] >= 0
+    fwd = expect_launches({"flash_attention_fwd": n * n}, f"ring forward, window {window}")
+    kernels.reset_launch_counts()
+    g = ring_bwd(outs)
+    torch.cuda.synchronize()
+    bwd = expect_launches({"flash_attention_bwd_dq": n * n, "flash_attention_bwd_dkv": n * n}
+                          if banded else {"flash_attention_bwd_fused": n * n},
+                          f"ring backward, window {window}")
+    o = torch.cat([x[0] for x in outs], 1)
+    lse = torch.cat([x[1] for x in outs], 2)
+    errs = {"o": (rel_err(o, o32), rel_err(o1, o32))}
+    errs.update({name: (rel_err(a, ref), rel_err(b, ref))
+                 for name, a, b, ref in zip(("dq", "dk", "dv"), g, g1, g32)})
+    lse_d = (lse - lse1).abs().max().item()
+    max_abs = (o.float() - o1.float()).abs().max().item()
+    verdict = (f"ring of {n} x {t} at {RING_SHAPE} bf16, window {window}: merged lse vs one K1 "
+               f"{lse_d:.2e} (<= {RING_LSE_TOL:g}), max|o - one K1| {max_abs:.3e}; rel L2 "
+               f"against the fp32 kernels, ring / one kernel: " + ", ".join(
+                   f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in errs.items())
+               + f" (gate: ring <= {YARDSTICK_FACTOR:g} x one kernel's); launches forward "
+               f"{n} a rank {fwd}, backward {n} a rank {bwd}")
+    log("  " + verdict)
+    if not (lse_d <= RING_LSE_TOL and all(a <= YARDSTICK_FACTOR * b + 1e-7
+                                          for a, b in errs.values())):
+        raise AssertionError("the ring schedule disagrees with one kernel: " + verdict)
+    ms = {"ring_fwd": time_ms(torch, ring_fwd, n=5),
+          "one_fwd": time_ms(torch, lambda: flash_attention_with_lse(q, k, v, lens, window), n=5),
+          "ring_bwd": time_ms(torch, lambda: ring_bwd(outs), n=5),
+          "one_bwd": time_ms(torch, lambda: flash_attention_bwd(q, k, v, o1, lse1, do, lens,
+                                                                  window), n=5)}
+    log(f"  ring ms (all {n} ranks' steps in series on this card) against one kernel over "
+        f"the sequence: forward {ms['ring_fwd']:.3f} vs {ms['one_fwd']:.3f}, backward "
+        f"{ms['ring_bwd']:.3f} vs {ms['one_bwd']:.3f}")
+    return {"window": list(window), "launches_fwd": fwd, "launches_bwd": bwd, "lse_diff": lse_d,
+            "max_abs_err": max_abs, "rel_l2": errs, "ms": ms}
+
+
+def world_of_one_flagship(torch, run, chunk, mesh) -> dict:
+    """One 16384 x 4 flagship micro step on the mesh of one, and the same
+    step through the context-parallel path at seq 1 (context_parallel_apply:
+    the time shard, the halo exchanges, the gathered K / V and log-probs,
+    the statistics summed over data and seq), each against the same step
+    without a mesh (other Trainers on other copies of the weights), under
+    the gradient gate with the step without a mesh, run again, as the
+    yardstick; the launch counts of the three steps equal."""
+    from lcasr_torch import kernels
+    from lcasr_torch.models.registry import load_model
+    from lcasr_torch.models.sconformer_xl import init_weights_
+    from lcasr_torch.training.trainer import Trainer
+
+    def fresh_model(seed, config):
+        return init_weights_(load_model(config, 4095, device=DEVICE), seed=seed)
+
+    trainers = {
+        "plain": Trainer(run.cfg, fresh_model(0, run.cfg), run.tok, device=DEVICE,
+                         checkpoint_dir=os.path.join(run.tmp, "plain")),
+        "mesh": Trainer(run.cfg, fresh_model(0, run.cfg), run.tok, device=DEVICE, mesh=mesh,
+                        checkpoint_dir=os.path.join(run.tmp, "mesh")),
+        "cp": Trainer(run.cfg, fresh_model(0, run.cfg), run.tok, device=DEVICE, mesh=mesh,
+                      checkpoint_dir=os.path.join(run.tmp, "cp")),
+    }
+    trainers["cp"].context_parallel = True  # the seq-sharded micro step at seq 1
+    active = {}
+    stats = {k: [b.clone() for b in tr._stat_buffers()] for k, tr in trainers.items()}
+
+    @contextlib.contextmanager
+    def use(name):
+        active["name"] = name
+        yield
+
+    def one_step():
+        tr = trainers[active["name"]]
+        tr.zero_pending()
+        loss, _ = tr.micro_step(chunk)
+        for b, old in zip(tr._stat_buffers(), stats[active["name"]]):
+            b.copy_(old)
+        return float(loss), flat_grads(tr.model)
+
+    launches = {}
+    for name in trainers:
+        with use(name):
+            kernels.reset_launch_counts()
+            one_step()
+            torch.cuda.synchronize()
+            launches[name] = dict(kernels.launch_counts)
+    log(f"  micro step launches: on the mesh {launches['mesh']}, context-parallel at seq 1 "
+        f"{launches['cp']}, without {launches['plain']}")
+    layers = LADDER_CONFIG["model"]["n_layers"]  # K1 forward and again in the recompute
+    if (launches["mesh"] != launches["plain"] or launches["cp"] != launches["plain"]
+            or launches["mesh"]["flash_attention_fwd"] != 2 * layers):
+        raise AssertionError(f"launch counts differ: {launches}")
+    gates = {name: gradient_gate(what, "the same step without a mesh", one_step, use("plain"),
+                                 {"the step without a mesh, again": use("plain")},
+                                 floors=(1e-4, 1e-6), kernel_ctx=use(name), plain_contexts=False)
+             for name, what in (("mesh", "flagship on a mesh of one"),
+                                ("cp", "flagship context-parallel at seq 1"))}
+    # the micro step's wall ms in turns (plain, mesh, cp, cp, mesh, plain) x 2
+    ms = {"plain": [], "mesh": [], "cp": []}
+    for name in ("plain", "mesh", "cp", "cp", "mesh", "plain") * 2:
+        tr = trainers[name]
+        tr.zero_pending()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.micro_step(chunk)
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3)
+        for b, old in zip(tr._stat_buffers(), stats[name]):
+            b.copy_(old)
+    for tr in trainers.values():
+        tr.zero_pending()
+    log(f"  flagship 16384 x 4 micro step wall ms in turns: on the mesh "
+        f"{[round(x, 1) for x in ms['mesh']]}, context-parallel at seq 1 "
+        f"{[round(x, 1) for x in ms['cp']]}, without {[round(x, 1) for x in ms['plain']]}")
+    return dict(gates["mesh"], cp=gates["cp"], launches=launches["mesh"], step_ms=ms)
+
+
+def world_of_one_tp_zero(torch, run, chunk, mesh) -> dict:
+    """lcasr_3l_2048d_16h_tp at full width: one optimizer step with
+    zero_optimizer on the mesh of one, the model cut by `parallelize` over
+    the model axis of size 1 (every projection's tensor-parallel mode and
+    its collectives; ZeRO's reduce-scatter, global norm and all-gather),
+    against the same step without a mesh.  A row-parallel projection adds
+    its bias after the all-reduce, so in bf16 it rounds twice (the product,
+    then the sum) where the layer without a mesh rounds once; the reference
+    is therefore the step without a mesh whose row projections round so
+    (`bias_after_product`).  The parameters' change on the mesh lies within
+    YARDSTICK_FACTOR times that reference's two runs apart (K3's dq atomics
+    do not repeat bit for bit), and within YARDSTICK_FACTOR times the
+    larger of the plain step's two runs apart and the rounding's own effect
+    from the plain step.  Each run builds its model afresh from the same
+    host copy of the weights."""
+    import numpy as np
+
+    from lcasr_torch.config import Config
+    from lcasr_torch.models.registry import load_model
+    from lcasr_torch.models.sconformer_xl import init_weights_
+    from lcasr_torch.parallel.tensor_parallel import parallelize
+    from lcasr_torch.training.trainer import Trainer
+
+    cfg_d = merged(TP_CONFIG, {"parallel": {"mesh": {"data": 1, "model": 1, "seq": 1}},
+                               "checkpointing": {"dir": os.path.join(run.tmp, "ckpt")}})
+    # without a mesh: no parallel section (the Trainer would build the mesh of one)
+    cfg_plain = {k: v for k, v in cfg_d.items() if k != "parallel"}
+    model = init_weights_(load_model(Config(cfg_d), 4095, device=DEVICE), seed=3)
+    start = {k: v.cpu() for k, v in model.state_dict().items()}
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    deltas, out = {}, {}
+    # in turns; the weights and the parameters' changes are kept on the
+    # host, out of every run's peak
+    for name in ("plain", "mesh", "rounded", "rounded_again", "mesh_again", "plain_again"):
+        on_mesh = name.startswith("mesh")
+        model = load_model(Config(cfg_d), 4095, device=DEVICE)
+        model.load_state_dict(start)
+        if on_mesh:
+            parallelize(model, mesh)
+        if name.startswith("rounded"):
+            bias_after_product(torch, model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(Config(cfg_d if on_mesh else cfg_plain), model, run.tok,
+                     device=DEVICE, mesh=mesh if on_mesh else None,
+                     checkpoint_dir=os.path.join(run.tmp, name))
+        tr.init_state()
+        t0 = time.perf_counter()
+        loss, _ = tr.micro_step(chunk)
+        tr.fold_group(100.0 / (PODCAST_FRAMES * 4))
+        tr.optimizer_step(TP_STEP_LR)
+        torch.cuda.synchronize()
+        out[f"{name}_step_ms"] = (time.perf_counter() - t0) * 1e3
+        out[f"{name}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out[f"{name}_loss"] = float(loss)
+        deltas[name] = torch.cat([(p.detach().float().cpu() - start[k].float()).reshape(-1)
+                                  for k, p in model.named_parameters()])
+        if on_mesh:
+            # at model 1 every projection of the layout is cut: 6 a layer,
+            # and the decoder's two
+            n_cut = 6 * TP_CONFIG["model"]["n_layers"] + 2
+            if not (tr.zero_opt and len(model.tp_layout) == n_cut):
+                raise AssertionError(f"zero_optimizer {tr.zero_opt}, {len(model.tp_layout)} "
+                                     f"tensor-parallel projections, not {n_cut}")
+            out["zero_state_numel"] = sum(
+                t.numel() for st in tr.optimizer.inner.state.values() for t in st.values()
+                if torch.is_tensor(t))
+            out["tp_projections"] = len(model.tp_layout)
+        del tr, model
+
+    def rel(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+    mesh_err, rerun = rel(deltas["mesh"], deltas["plain"]), rel(deltas["plain_again"],
+                                                                deltas["plain"])
+    mesh_r, rerun_r = rel(deltas["mesh"], deltas["rounded"]), rel(deltas["rounded_again"],
+                                                                  deltas["rounded"])
+    rounding = rel(deltas["rounded"], deltas["plain"])
+    loss_rel = abs(out["mesh_loss"] - out["plain_loss"]) / abs(out["plain_loss"])
+    verdict = (f"lcasr_3l_2048d_16h_tp ({n_params / 1e6:.1f}M parameters) one ZeRO optimizer "
+               f"step on the mesh of one vs without: loss rel {loss_rel:.2e}; parameter change "
+               f"rel L2 against the step without a mesh rounded as the row projections round "
+               f"{mesh_r:.3e} (its two runs: {rerun_r:.3e}), against the plain step "
+               f"{mesh_err:.3e} (its two runs: {rerun:.3e}; the rounding alone: "
+               f"{rounding:.3e}); step ms in turns: without {out['plain_step_ms']:.1f}, on the "
+               f"mesh (cut by parallelize at model 1: {out['tp_projections']} tensor-parallel "
+               f"projections) {out['mesh_step_ms']:.1f}, rounded {out['rounded_step_ms']:.1f}, "
+               f"{out['rounded_again_step_ms']:.1f}, on the mesh {out['mesh_again_step_ms']:.1f}, "
+               f"without {out['plain_again_step_ms']:.1f}; peak memory on the mesh "
+               f"{out['mesh_peak_gb']:.2f} / {out['mesh_again_peak_gb']:.2f} GB, without "
+               f"{out['plain_peak_gb']:.2f} / {out['plain_again_peak_gb']:.2f} GB; MADGRAD state "
+               f"{out['zero_state_numel'] / 1e6:.1f}M values (3 x the parameters at data 1)")
+    log("  " + verdict)
+    if not (np.isfinite(out["mesh_loss"]) and loss_rel <= LOSS_REL_MAX
+            and mesh_r <= YARDSTICK_FACTOR * rerun_r + 1e-6
+            and mesh_err <= YARDSTICK_FACTOR * max(rerun, rounding) + 1e-6):
+        raise AssertionError("the ZeRO step on the mesh of one disagrees: " + verdict)
+    out.update(rel_l2=mesh_err, rerun_rel_l2=rerun, rounded_rel_l2=mesh_r,
+               rounded_rerun_rel_l2=rerun_r, rounding_rel_l2=rounding, loss_rel=loss_rel,
+               params=n_params)
+    return out
+
+
+def bias_after_product(torch, model) -> None:
+    """Round `model`'s row-parallel projections (out_proj, fc2, the
+    reprojection) as `Dense.tp`'s row path does, without its collective:
+    the product in the compute dtype, then the bias added."""
+    from lcasr_torch.parallel.partition import tp_layout
+
+    for prefix, mode in tp_layout(model, 1).items():
+        if mode.startswith("row"):
+            dense = model.get_submodule(prefix)
+
+            def forward(x, d=dense):
+                y = torch.nn.functional.linear(x.to(d.dtype), d.weight.to(d.dtype))
+                return y + d.bias.to(d.dtype) if d.bias is not None else y
+
+            dense.forward = forward
+
+
+def world_of_one_decode(torch, mesh) -> dict:
+    """The 20-minute decode through the mesh decode (data 1) against
+    StreamingDecoder without a mesh: equal ids, 36 K1 each; then the
+    context-parallel single pass (seq 1) over all 120,000 frames against
+    the windowed single pass."""
+    import numpy as np
+
+    from lcasr_torch import kernels
+    from lcasr_torch.evaluation.streaming import (
+        StreamingDecoder, fetch_logits, make_cp_windowed_model_fn, make_windowed_model_fn)
+    from lcasr_torch.parallel.cp_model import bind_mesh
+
+    model = flagship_model(torch)
+    spec = np.random.default_rng(2).normal(size=(1, 80, TOTAL_FRAMES)).astype(np.float32)
+    ids, launches = {}, {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        dec = StreamingDecoder(model, 4096, window_batch_size=WINDOW_BATCH,
+                               transfer_dtype=torch.bfloat16, device=DEVICE, mesh=m)
+        kernels.reset_launch_counts()
+        ids[name] = dec.greedy(spec, seq_len=SEQ_LEN, overlap=OVERLAP)
+        launches[name] = expect_launches({"flash_attention_fwd": EXPECTED_LAUNCHES},
+                                         f"the {name} decode")
+    same = bool(np.array_equal(ids["mesh"], ids["plain"]))
+    log(f"  20-minute decode on the mesh (data 1) vs without: {ids['mesh'].shape[0]} ids, equal "
+        f"{same}, launches {launches['mesh']}")
+    if not same:
+        raise AssertionError("the mesh decode's ids differ from StreamingDecoder's")
+    one = {}
+    for name, fn in (("windowed", make_windowed_model_fn(model)),
+                     ("cp", make_cp_windowed_model_fn(model, mesh))):
+        kernels.reset_launch_counts()
+        one[name] = torch.from_numpy(fetch_logits(fn, spec, seq_len=TOTAL_FRAMES, overlap=0,
+                                                  n_classes=4096, window_batch_size=1))
+        expect_launches({"flash_attention_fwd": model.n_layers}, f"the {name} single pass")
+    bind_mesh(model, None)
+    out_len = torch.tensor([one["cp"].shape[0]])
+    agree, max_d, mean_d = logprob_agreement(torch, one["cp"][None].to(DEVICE),
+                                             one["windowed"][None].to(DEVICE),
+                                             out_len.to(DEVICE),
+                                             "the context-parallel single pass (seq 1)")
+    log(f"  single pass over {TOTAL_FRAMES} frames, context-parallel (seq 1) vs windowed: "
+        f"argmax agreement {agree:.5f}, max|dlogp| {max_d:.3e}, mean|dlogp| {mean_d:.2e}")
+    del model
+    return {"ids_equal": same, "launches": launches["mesh"], "cp_single_pass": {
+        "agreement": agree, "max_dlogp": max_d, "mean_dlogp": mean_d}}
+
+
+def phase_parallel(torch, workdir: str) -> dict:
+    """The ring schedule on the card, then a world of one over NCCL: the
+    flagship micro step, the TP model's ZeRO step, the mesh decode."""
+    import torch.distributed as dist
+
+    from lcasr_torch.parallel.mesh import make_mesh, maybe_init_distributed
+
+    log("  " + MULTI_RANK_NOTE)
+    out, seconds = {}, {}
+    t0 = time.perf_counter()
+    out["ring"] = [ring_schedule(torch, w) for w in RING_WINDOWS]
+    seconds["ring"] = round(time.perf_counter() - t0, 1)
+    init = os.path.join(workdir, "nccl_world")
+    if os.path.exists(init):
+        os.remove(init)
+    maybe_init_distributed(num_processes=1, process_id=0, init_method=f"file://{init}")
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"the world of one runs {dist.get_backend()}, not NCCL")
+        mesh = make_mesh({"data": 1, "model": 1, "seq": 1})
+        # the first collective on a group builds its NCCL communicator: do
+        # it here, not inside a timed step
+        for axis in ("data", "model", "seq"):
+            dist.all_reduce(torch.zeros(1, device=DEVICE), group=mesh.group(axis))
+        log(f"  world of one over {dist.get_backend()}: {mesh}")
+        run = TrainRun(torch, workdir, LADDER_CONFIG, None, {}, "flagship")
+        _, chunk = run.chunk_16384x4()
+        for name, fn, args in (("flagship", world_of_one_flagship, (torch, run, chunk, mesh)),
+                               ("tp_zero", world_of_one_tp_zero, (torch, run, chunk, mesh)),
+                               ("decode", world_of_one_decode, (torch, mesh))):
+            t0 = time.perf_counter()
+            out[name] = fn(*args)
+            seconds[name] = round(time.perf_counter() - t0, 1)
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    log(f"  phase parallel seconds: {seconds}")
+    out["seconds"] = seconds
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -4098,7 +4532,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gpu = gpu_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
-    log("[1/15] build")
+    log("[1/16] build")
     build_s = kernels.build()
     log(f"  build {build_s:.2f} s into {kernels.BUILD_DIR}")
     for src, text in kernels.build_log.items():
@@ -4114,7 +4548,7 @@ def main() -> int:
     results = {}
     workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_train")
     if "kernels" in phases:
-        log("[2/15] kernels against their plain versions")
+        log("[2/16] kernels against their plain versions")
         results["flash_attention_fwd"] = phase_kernels(torch)
         results["flash_attention_fwd_db"] = phase_kernels_db(torch)
         fwd_registers = {**template_entries(kernels.build_log["flash_attn_fwd.cu"]),
@@ -4127,11 +4561,11 @@ def main() -> int:
         results["subsampling_fused"] = phase_kernels_sub(torch)
     model = None
     if "model" in phases:
-        log("[3/15] flagship model, one window batch")
+        log("[3/16] flagship model, one window batch")
         model = flagship_model(torch)
         phase_model(torch, model, plain_attention(), "flagship")
     if "decode" in phases:
-        log("[4/15] 20-minute streaming greedy decode (the serving path)")
+        log("[4/16] 20-minute streaming greedy decode (the serving path)")
         model = model or flagship_model(torch)
         launches, _, rows = phase_decode(torch, model,
                                          {"flash_attention_fwd": EXPECTED_LAUNCHES},
@@ -4146,7 +4580,7 @@ def main() -> int:
             f"(kernel phase, launches back to back: {k1.get('ms')} ms)")
     del model
     if "train" in phases:
-        log("[5/15] training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1 "
+        log("[5/16] training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1 "
             "(the training path)")
         os.makedirs(workdir, exist_ok=True)
         try:
@@ -4165,7 +4599,7 @@ def main() -> int:
         results["flash_attention_bwd_fused"]["train_step_profile"] = k3_step
         results["flash_attention_fwd"]["train_host_side"] = host
     if "train_d256" in phases:
-        log("[6/15] lcasr_6l_768d_3h (head_dim 256) trains: K1 and K3 at D = 256")
+        log("[6/16] lcasr_6l_768d_3h (head_dim 256) trains: K1 and K3 at D = 256")
         os.makedirs(workdir, exist_ok=True)
         try:
             d256 = phase_train_d256(torch, workdir)
@@ -4177,7 +4611,7 @@ def main() -> int:
         results["flash_attention_bwd_fused"]["train_d256"] = {
             k: v for k, v in d256.items() if k != "launches"}
     if "utterances" in phases:
-        log("[7/15] utterance training with debug hooks, and wild-card CTC on the card")
+        log("[7/16] utterance training with debug hooks, and wild-card CTC on the card")
         os.makedirs(workdir, exist_ok=True)
         try:
             utt = phase_utterances(torch, workdir)
@@ -4188,7 +4622,7 @@ def main() -> int:
         results["flash_attention_fwd"]["utterances_phase"] = {
             k: v for k, v in utt.items() if k != "launches"}
     if "mamba_decode" in phases:
-        log("[8/15] Mamba: one window batch, then the 20-minute streaming greedy decode")
+        log("[8/16] Mamba: one window batch, then the 20-minute streaming greedy decode")
         model = mamba_model(torch)
         phase_model(torch, model, plain_scan(torch.float32), "Mamba")
         launches, rtfx, rows = phase_decode(
@@ -4200,7 +4634,7 @@ def main() -> int:
         k6["decode_profile"] = dict(profile_share(rows, SSM_KERNELS["selective_scan_fwd"][0],
                                                   "K6", "the Mamba decode"), rtfx=rtfx)
     if "mamba_train" in phases:
-        log("[9/15] Mamba training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1")
+        log("[9/16] Mamba training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1")
         os.makedirs(workdir, exist_ok=True)
         try:
             ladder, k6_step, k7_step, host = phase_mamba_train(torch, workdir)
@@ -4215,14 +4649,14 @@ def main() -> int:
         k6["train_step_profile"] = k6_step
         k6["train_host_side"] = host
     if "decode_opt" in phases:
-        log("[10/15] the opt-in decode configuration (K2, K8) and the decoder's options")
+        log("[10/16] the opt-in decode configuration (K2, K8) and the decoder's options")
         launches, mamba_launches, numbers = phase_decode_opt(torch)
         for key in ("flash_attention_fwd_db", "subsampling_fused"):
             results.setdefault(key, {"name": key})["launches"] = launches[key]
         results["subsampling_fused"]["launches_mamba_decode"] = mamba_launches["subsampling_fused"]
         results["subsampling_fused"].update(numbers)
     if "train_opt" in phases:
-        log("[11/15] one training step under both flags, and under each alone, against the "
+        log("[11/16] one training step under both flags, and under each alone, against the "
             "same step without")
         os.makedirs(workdir, exist_ok=True)
         try:
@@ -4240,7 +4674,7 @@ def main() -> int:
         try:
             k1 = results.setdefault("flash_attention_fwd", {"name": "flash_attention_fwd"})
             if "audio" in phases:
-                log("[12/15] from a WAV file to a transcript and a WER: the frontend on the "
+                log("[12/16] from a WAV file to a transcript and a WER: the frontend on the "
                     "card, evaluate in its three modes, the head_dim-256 model")
                 audio = phase_audio(torch, audio_dir, args.seed)
                 k1["audio_phase"] = audio
@@ -4248,12 +4682,12 @@ def main() -> int:
                 results.setdefault("flash_attention_fwd_db", {"name": "flash_attention_fwd_db"})[
                     "launches_d256_decode"] = audio["wav_d256_k2"]["launches"]
             if "serve" in phases:
-                log("[13/15] the streaming server: 4 sessions on the flagship, then the CLI")
+                log("[13/16] the streaming server: 4 sessions on the flagship, then the CLI")
                 k1["serve_phase"] = phase_serve(torch, audio_dir, args.seed)
         finally:
             shutil.rmtree(audio_dir, ignore_errors=True)
     if "enc_dec" in phases:
-        log("[14/15] the encoder-decoder family: forwards, greedy decoding both ways, "
+        log("[14/16] the encoder-decoder family: forwards, greedy decoding both ways, "
             "enc_dec training, the internal-LM beam search")
         os.makedirs(workdir, exist_ok=True)
         try:
@@ -4269,7 +4703,7 @@ def main() -> int:
             entry["launches_enc_dec_ladder"] = enc_dec["train"]["launches_ladder"][key]
         k1["enc_dec_phase"] = enc_dec
     if "lm" in phases:
-        log("[15/15] decoding with a language model: train_lm, cached steps, create_logits, "
+        log("[15/16] decoding with a language model: train_lm, cached steps, create_logits, "
             "the beam searches, beam serving")
         lm_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_lm")
         os.makedirs(lm_dir, exist_ok=True)
@@ -4281,6 +4715,31 @@ def main() -> int:
         k1["launches_lm_create_logits"] = lm_out["create_logits"]["launches"]
         k1["launches_lm_serve_beam"] = lm_out["serve"]["launches"]
         k1["lm_phase"] = lm_out
+    if "parallel" in phases:
+        log("[16/16] parallelism: the ring schedule on the card, then a world of one over NCCL "
+            "(the flagship step, the TP model's ZeRO step, the mesh decode)")
+        par_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                               "smoke_parallel")
+        os.makedirs(par_dir, exist_ok=True)
+        try:
+            par = phase_parallel(torch, par_dir)
+        finally:
+            shutil.rmtree(par_dir, ignore_errors=True)
+        full, band = par["ring"]
+        k1 = results.setdefault("flash_attention_fwd", {"name": "flash_attention_fwd"})
+        k1["ring_phase"] = {"full": {k: full[k] for k in ("launches_fwd", "lse_diff",
+                                                          "max_abs_err", "ms")},
+                            "band": {k: band[k] for k in ("launches_fwd", "lse_diff",
+                                                          "max_abs_err", "ms")}}
+        k1["launches_parallel_flagship_step"] = par["flagship"]["launches"]["flash_attention_fwd"]
+        k1["launches_parallel_mesh_decode"] = par["decode"]["launches"]["flash_attention_fwd"]
+        k1["parallel_phase"] = {k: par[k] for k in ("flagship", "tp_zero", "decode", "seconds")}
+        for key, ring in (("flash_attention_bwd_fused", full), ("flash_attention_bwd_dq", band),
+                          ("flash_attention_bwd_dkv", band)):
+            entry = results.setdefault(key, {"name": key})
+            entry["launches_ring"] = ring["launches_bwd"][key]
+            entry["ring_phase"] = {"window": ring["window"], "rel_l2": ring["rel_l2"],
+                                   "ms": ring["ms"]}
     name, power = [s.strip() for s in gpu.split(",", 1)]
     for entry in results.values():
         entry.update(gpu=name, power_limit=power)

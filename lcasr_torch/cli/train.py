@@ -2,8 +2,15 @@
 (counterpart of lcasr_tpu/cli/train.py): config -> tokenizer -> model ->
 trainer -> checkpoint resume (seen_ids / step / epoch) -> duration-bucketed
 dataloader -> train loop.  The same flags, plus `--device` (default: the
-GPU; `--device cpu` runs the plain versions of the kernels).  The JAX
-CLI's multi-host flags are accepted and refused unless left unset.
+GPU; `--device cpu` runs the plain versions of the kernels).
+
+One process per GPU: `torchrun --nproc_per_node 8 -m lcasr_torch.cli.train
+-config configs/lcasr_9l_768d_6h.yaml` (its RANK / WORLD_SIZE / LOCAL_RANK
+/ MASTER_ADDR / MASTER_PORT are read), or on many hosts the JAX CLI's flags
+`--coordinator_address host:port --num_processes N --process_id i` on each
+(`--coordinator_address` also takes an init URL such as file:///path).  The
+Trainer then builds `parallel.mesh` over the world; NCCL on the GPU, gloo
+with `--device cpu`.
 """
 from __future__ import annotations
 
@@ -31,15 +38,26 @@ def main(args=None):
                         help="enable torch.autograd anomaly detection")
     parser.add_argument("-debug_hooks", "--debug_hooks", action="store_true",
                         help="log per-parameter gradient statistics")
-    parser.add_argument("-coordinator", "--coordinator_address", default=None)
+    parser.add_argument("-coordinator", "--coordinator_address", default=None,
+                        help="multi-host: coordinator host:port (or an init URL such as "
+                             "file:///path); one process per GPU with --num_processes / "
+                             "--process_id, or launch with torchrun")
     parser.add_argument("--num_processes", type=int, default=None)
     parser.add_argument("--process_id", type=int, default=None)
+    parser.add_argument("--dist_timeout", type=float, default=None,
+                        help="seconds before a collective of the process group fails")
     parser.add_argument("-o", "--overrides", nargs="*", default=[])
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda; 'cpu' runs the plain versions)")
     ns = parser.parse_args(args)
-    if ns.coordinator_address or (ns.num_processes or 1) > 1:
-        raise NotImplementedError("multi-host training is not ported yet")
+    from lcasr_torch.parallel.mesh import maybe_init_distributed, rank, world_size
+
+    url = ns.coordinator_address if ns.coordinator_address and "://" in ns.coordinator_address \
+        else None
+    if maybe_init_distributed(None if url else ns.coordinator_address, ns.num_processes,
+                              ns.process_id, device=ns.device, init_method=url,
+                              timeout=ns.dist_timeout):
+        print(f"distributed: process {rank()}/{world_size()}")
     if ns.anomaly:
         torch.autograd.set_detect_anomaly(True)
 
@@ -47,6 +65,7 @@ def main(args=None):
     if ns.overrides:
         config = config.apply_overrides(ns.overrides)
     tokenizer = load_tokenizer()
+    torch.manual_seed(12345)  # the same initial weights on every rank (the JAX init key)
     model = load_model(config, tokenizer.vocab_size(), device=ns.device)
     trainer = Trainer(config, model, tokenizer, device=ns.device)
     trainer.debug_hooks = ns.debug_hooks

@@ -9,6 +9,12 @@ Counterpart of reference `eval/run.py:30-148`:
     tile skip) | buffered,
   * per-recording greedy decode + Whisper-normalised WER, then aggregate.
 
+Under `torchrun` (one process per GPU) `data_parallel` shards the
+averaged-moving-window decode's windows over every rank (the mesh's `data`
+axis) and `context_parallel` shards the windowed-attention single pass's
+time axis over them (`seq`); every rank returns the same rows, and only
+rank 0 prints.
+
 Accepts reference `.pt` checkpoints (converted on the fly by
 `models.import_torch`) and checkpoint directories of the port
 (`training/checkpointing.py`).  The JAX package's orbax checkpoints are not
@@ -35,7 +41,9 @@ from lcasr_torch.evaluation.datasets import get_dataset_fn
 from lcasr_torch.evaluation.normalizer import normalize
 from lcasr_torch.evaluation.streaming import (
     StreamingDecoder,
+    fetch_logits,
     fetch_logits_buffered,
+    make_cp_windowed_model_fn,
     make_windowed_model_fn,
 )
 from lcasr_torch.evaluation.wer import word_error_rate_detail
@@ -92,15 +100,12 @@ def evaluate(
     skip_recordings: Optional[set] = None,
     transfer_dtype: Optional[str] = None,  # 'bfloat16' (default) | 'int8' | 'int4' | 'float32'
     pipeline_upload: bool = False,  # stripe uploads to overlap with compute
-    data_parallel: bool = False,  # not ported (ROADMAP queue A5)
-    context_parallel: bool = False,  # not ported (ROADMAP queue A5)
+    data_parallel: bool = False,  # shard decode windows over the world's ranks
+    context_parallel: bool = False,  # windowed_attention: shard the time axis
     quant_w8a8: Any = False,  # not ported (ROADMAP queue A6)
     cache_upload: bool = False,  # keep a recording's upload for a second decode
     device=None,
 ) -> Dict[str, Any]:
-    if data_parallel or context_parallel:
-        raise NotImplementedError("data_parallel / context_parallel decode is not ported "
-                                  "yet (ROADMAP queue A5)")
     if quant_w8a8:
         raise NotImplementedError("quant_w8a8 (W8A8 projections) is not ported yet "
                                   "(ROADMAP queue A6)")
@@ -125,24 +130,40 @@ def evaluate(
     elif evaluation_mode not in ("buffered", "averaged_moving_window"):
         raise ValueError(f"unknown evaluation_mode {evaluation_mode!r}")
     if evaluation_mode != "averaged_moving_window" and (
-        transfer_dtype or pipeline_upload or cache_upload
+        transfer_dtype or pipeline_upload or cache_upload or data_parallel
     ):
         import warnings
 
         warnings.warn(
-            "transfer_dtype/pipeline_upload/cache_upload only apply to "
+            "transfer_dtype/pipeline_upload/cache_upload/data_parallel only apply to "
             "averaged_moving_window decode and are ignored in "
             f"{evaluation_mode!r}", stacklevel=2,
         )
+    world = 1
+    if data_parallel or context_parallel:
+        from lcasr_torch.parallel.mesh import make_mesh, maybe_init_distributed, rank, world_size
+
+        maybe_init_distributed(device=device)  # torchrun's world; a no-op without one
+        world = world_size()
+        verbose = verbose and rank() == 0
 
     model = build_model(cfg, state_dict, tokenizer.vocab_size(), device, model_cfg)
+    mesh = cp_model_fn = None
     if evaluation_mode == "buffered":
         model_fn = make_windowed_model_fn(model)
+    elif evaluation_mode == "windowed_attention" and context_parallel and world > 1:
+        # the single pass sharded over the seq axis: the route for a
+        # recording whose one-pass forward exceeds one card's memory
+        mesh = make_mesh({"seq": world})
+        cp_model_fn = make_cp_windowed_model_fn(model, mesh)
     else:
+        if data_parallel and world > 1:
+            mesh = make_mesh()  # every rank on the data axis
         streamer = StreamingDecoder(
             model, n_classes, subsampling_factor=subsampling_factor,
             transfer_dtype=transfer_dtype,
             pipeline_upload=pipeline_upload, cache_upload=cache_upload, device=device,
+            mesh=mesh,
         )
 
     decoder = GreedyCTCDecoder(tokenizer, blank_id=n_classes - 1)
@@ -161,6 +182,11 @@ def evaluate(
             logits = fetch_logits_buffered(
                 model_fn, spec, seq_len=seq_len, overlap=overlap, n_classes=n_classes,
                 subsampling_factor=subsampling_factor,
+            )
+        elif cp_model_fn is not None:
+            logits = fetch_logits(
+                cp_model_fn, spec, seq_len=seq_len, overlap=0, n_classes=n_classes,
+                subsampling_factor=subsampling_factor, window_batch_size=1,
             )
         else:
             logits = streamer.logits(spec, seq_len=seq_len, overlap=overlap)
@@ -255,6 +281,13 @@ def main():
                         help="stripe the spectrogram upload and overlap it with compute")
     parser.add_argument("--cache_upload", action="store_true",
                         help="reuse the device copy when a recording is decoded again")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="under torchrun: shard the decode windows over every rank "
+                             "(the mesh's data axis)")
+    parser.add_argument("--context_parallel", action="store_true",
+                        help="windowed_attention mode under torchrun: shard the single "
+                             "pass's time axis over every rank (for recordings whose "
+                             "forward exceeds one card's memory)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the default) or cpu (the kernels' plain versions)")
     parser.add_argument("--dataset_base_path", default=None)
@@ -278,6 +311,8 @@ def main():
         transfer_dtype=args.transfer_dtype,
         pipeline_upload=args.pipeline_upload,
         cache_upload=args.cache_upload,
+        data_parallel=args.data_parallel,
+        context_parallel=args.context_parallel,
         device=args.device,
     )
 

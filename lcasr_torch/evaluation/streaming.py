@@ -27,6 +27,14 @@ the same.
 symmetric scale per recording; int4: a (lo, step) pair per mel bin, two
 codes per byte, big nibble first) and dequantise to bf16 on the device, so
 the forward never sees the quantised array.
+
+`mesh` (a `parallel.Mesh`, one process per GPU) decodes data-parallel:
+every rank holds the spectrogram, each window batch (W padded to a
+multiple of `data`) is cut into `data` parts, each rank forwards its part
+and accumulates local sums and counts, and one all-reduce over `data`
+merges them, as the JAX decoder's shard_map psums.  Every rank returns the
+same result.  `make_cp_windowed_model_fn` is the context-parallel single
+pass: the recording's time axis sharded over `seq`.
 """
 from __future__ import annotations
 
@@ -135,14 +143,15 @@ class StreamingDecoder:
     the same host array object is decoded again.  `pipeline_upload` uploads
     one stripe per window group from pinned memory on a side stream, each
     group's forward waiting for its own stripe and the next one's halo only.
-    `mesh` (the data-parallel decode) is not ported."""
+    `mesh`: the data-parallel decode (see the module docstring); it takes
+    precedence over `pipeline_upload`, which it ignores with a warning."""
 
     def __init__(self, model, n_classes: int, subsampling_factor: Optional[int] = None,
                  window_batch_size: int = 16, transfer_dtype=torch.bfloat16,
                  subsampling_mode: Optional[str] = None, device=None,
                  pipeline_upload: bool = False, mesh=None, cache_upload: bool = False):
-        if mesh is not None:
-            raise NotImplementedError("the mesh data-parallel decode is not ported yet")
+        self.mesh = mesh
+        self.n_dp = mesh.size("data") if mesh is not None else 1
         self.transfer_dtype = _normalize_transfer_dtype(transfer_dtype)
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
@@ -198,7 +207,15 @@ class StreamingDecoder:
     def _accumulate_group(self, spec_dev, base, group, offsets, n_valid, seq_len, W,
                           sums, counts):
         """Gather the group's windows from `spec_dev` (whose column 0 is the
-        recording's frame `base`), run them, add their posteriors."""
+        recording's frame `base`), run them, add their posteriors.  Under a
+        mesh: this rank's W / data of them (a rank whose part holds only
+        padding windows runs nothing)."""
+        if self.mesh is not None:
+            W //= self.n_dp
+            lo = self.mesh.index("data") * W
+            group, offsets, n_valid = group[lo:lo + W], offsets[lo:lo + W], n_valid[lo:lo + W]
+            if not group:
+                return
         dev = self.device
         T = spec_dev.shape[-1]
         cols = torch.arange(seq_len, device=dev)
@@ -294,6 +311,14 @@ class StreamingDecoder:
         counts = torch.zeros((total, 1), dtype=torch.float32, device=dev)
         W = min(self.W, len(positions))
         pipelined = self.pipeline_upload and len(positions) > W
+        if self.mesh is not None:
+            # W padded to a multiple of the data axis (zero-length windows
+            # are inert)
+            W = -(-W // self.n_dp) * self.n_dp
+            if self.pipeline_upload:
+                warnings.warn("pipeline_upload is ignored under data-parallel decode "
+                              "(the mesh path takes precedence)", stacklevel=3)
+            pipelined = False
         if pipelined and overlap > W * (seq_len - overlap):
             # a group's halo is one stripe; windows reaching further would
             # read clamped frames
@@ -316,6 +341,11 @@ class StreamingDecoder:
                 self._accumulate_group(spec_dev, 0, positions[b0 : b0 + W],
                                        offsets[b0 : b0 + W], n_valid[b0 : b0 + W],
                                        seq_len, W, sums, counts)
+        if self.mesh is not None:  # the ranks' partial overlap-sums, merged
+            from lcasr_torch.parallel.collectives import all_reduce_
+
+            all_reduce_(sums, self.mesh.group("data"))
+            all_reduce_(counts, self.mesh.group("data"))
         return sums[:n_out] / counts[:n_out].clamp_min(1.0)
 
     def logits(self, spec: np.ndarray, seq_len: int, overlap: int) -> np.ndarray:
@@ -340,6 +370,38 @@ def make_windowed_model_fn(model) -> Callable:
         dev = next(model.parameters()).device
         out = model(torch.as_tensor(audio).to(dev),
                     length=torch.as_tensor(length).to(dev, torch.int32))
+        return out["final_posteriors"], out["length"]
+
+    return call
+
+
+def make_cp_windowed_model_fn(model, mesh, seq_axis: str = "seq") -> Callable:
+    """Context-parallel single-pass forward (lcasr_tpu's function of the
+    same name): the recording's time axis sharded over the mesh `seq` axis
+    (`parallel/cp_model.py`), for a windowed-attention decode whose
+    one-pass forward exceeds one card's memory.  model_fn(audio (W, 80, T)
+    whole on every rank, lengths (W,)) -> (log-probs of the whole sequence,
+    out lengths) on every rank; the static width is padded to a multiple of
+    n x the subsampling factor, the true lengths mask the pad.  Use it with
+    `fetch_logits(..., window_batch_size=1)`.  The model stays bound to the
+    mesh (`parallel.cp_model.bind_mesh(model, None)` undoes it)."""
+    from lcasr_torch.parallel.cp_model import context_parallel_apply, shard_time
+
+    model.eval()
+    n = mesh.size(seq_axis)
+    sf = getattr(model, "subsampling_factor", 8)
+
+    @torch.no_grad()
+    def call(audio, length):
+        dev = next(model.parameters()).device
+        audio = torch.as_tensor(np.asarray(audio) if not torch.is_tensor(audio) else audio)
+        pad = (-audio.shape[-1]) % (n * sf)
+        if pad:
+            audio = torch.nn.functional.pad(audio, (0, pad))
+        local = shard_time(audio, mesh, seq_axis).to(dev)
+        out = context_parallel_apply(model, local, mesh,
+                                     lengths=torch.as_tensor(length).to(dev, torch.int32),
+                                     seq_axis=seq_axis, gather=True)
         return out["final_posteriors"], out["length"]
 
     return call

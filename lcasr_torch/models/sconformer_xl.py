@@ -24,6 +24,16 @@ recompute draws the same masks), and `checkpoint_every_n_layers` /
 `remat_subsampling` recompute layers / the subsampling in the backward
 (`torch.utils.checkpoint`, non-reentrant; the JAX model's `nn.remat` with
 policy "nothing").
+
+Context parallelism (`seq_axis_name`, with a mesh from
+`parallel.context_parallel_apply`): the audio's time axis is sharded over
+the `seq` axis; the subsampling and the conformer convs take their padding
+from the neighbouring shards, rotary tables, Fourier positions and masks
+run at global positions, and the attention either gathers K / V
+(`attention_cp_impl="gather"`) or rotates them around a ring ("ring").
+`stat_axes` names the axes over which batch-norm statistics are summed.
+Tensor parallelism (`parallel.tensor_parallel.parallelize`) splits each
+attention by heads and each feed-forward by its hidden units.
 """
 from __future__ import annotations
 
@@ -46,6 +56,9 @@ from lcasr_torch.ops.flash_attention import flash_attention
 from lcasr_torch.ops.mlp import ConformerFeedForward
 from lcasr_torch.ops.norms import get_norm
 from lcasr_torch.ops.rotary import RotaryEmbedding, apply_rotary
+from lcasr_torch.parallel.context_parallel import context_parallel_attention
+from lcasr_torch.parallel.mesh import NO_PARALLEL, ParallelState, bind
+from lcasr_torch.parallel.ring_attention import ring_attention
 
 # lcasr-9L-768D-6H, rotary theta 1.5e6 (~120M params): the repo's flagship
 FLAGSHIP = dict(
@@ -72,9 +85,6 @@ _NOT_PORTED = {
     "longconv_smooth_freq": (False, "longconv"),
     "return_attention_weights": (False, "attention capture (analysis)"),
     "capture_qkv": (False, "attention capture (analysis)"),
-    "seq_axis_name": (None, "context parallelism"),
-    "attention_cp_impl": ("gather", "context parallelism"),
-    "stat_axes": ((), "context parallelism"),
     "quant_w8a8": (False, "W8A8 quantisation"),
 }
 
@@ -146,22 +156,33 @@ class Attention(nn.Module):
                  qkv_bias: bool = False, dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        # n_heads is this rank's share under tensor parallelism
         self.n_heads, self.head_dim, self.window = n_heads, head_dim, window
         self.dropout = dropout
         self.qkv_proj = Dense(n_feats, 3 * n_heads * head_dim, bias=qkv_bias, dtype=dtype)
         self.out_proj = Dense(n_heads * head_dim, n_feats, bias=bias, dtype=dtype)
+        self.parallel = NO_PARALLEL
 
     def forward(self, x, lengths=None, rotary=None, drop: Dropout = NO_DROPOUT):
         B, N, _ = x.shape
         H, D = self.n_heads, self.head_dim
-        mask = length_mask(lengths, N)[..., None] if lengths is not None else None
+        seq = self.parallel.seq()
+        q_off = seq.index * N if seq is not None else 0
+        mask = length_mask(lengths, N, offset=q_off)[..., None] if lengths is not None else None
         if mask is not None:
             x = x.masked_fill(~mask, 0.0)
         qkv = self.qkv_proj(x).view(B, N, 3, H, D)
         q, k, v = qkv.unbind(2)
         if rotary is not None:
+            # under context parallelism the tables are at the shard's
+            # global positions, for q and the still-local k alike
             q, k = apply_rotary(q, k, *rotary)
-        out = flash_attention(q, k, v, lengths=lengths, window=self.window)
+        if seq is None:
+            out = flash_attention(q, k, v, lengths=lengths, window=self.window)
+        elif self.parallel.cp_impl == "ring":
+            out = ring_attention(q, k, v, seq, lengths=lengths, window=self.window)
+        else:
+            out = context_parallel_attention(q, k, v, seq, lengths=lengths, window=self.window)
         out = out.reshape(B, N, H * D)
         if mask is not None:
             out = out.masked_fill(~mask, 0.0)
@@ -276,6 +297,9 @@ class SCConformerXL(nn.Module):
         attention_window_size: int = -1,
         attention_window_size_left: Optional[int] = None,
         attention_window_size_right: Optional[int] = None,
+        seq_axis_name: Optional[str] = None,
+        attention_cp_impl: str = "gather",
+        stat_axes: Tuple[str, ...] = (),
         dtype: torch.dtype = torch.float32,
         dropout_seed: int = 0,
         device=None,
@@ -343,6 +367,9 @@ class SCConformerXL(nn.Module):
         self.decoder = ASRLinearSCDecoder(d_model, vocab_size, norm=decoder_norm,
                                           norm_type=default_norm, dtype=dtype,
                                           reproject=self_conditioning and n_layers > 1)
+        self.parallel = ParallelState(seq_axis=seq_axis_name, cp_impl=attention_cp_impl,
+                                      stat_axes=tuple(stat_axes))
+        bind(self, self.parallel)
         self.to(device)
         self.eval()
 
@@ -350,20 +377,31 @@ class SCConformerXL(nn.Module):
                 train: bool = False, return_logits: bool = False):
         x = audio_signal.transpose(1, 2).to(self.dtype)  # (B, T, feat)
         B = x.shape[0]
+        # context parallel: x is this rank's time shard; lengths are global
+        seq = self.parallel.seq()
+        if seq is not None and self.subsampling_mode == "stacking":
+            # StackingSubsampling pads the local shard to a factor multiple:
+            # zeros in the middle of the global sequence
+            raise NotImplementedError("context parallel: stacking subsampling unsupported "
+                                      "(use dw_striding/striding)")
         have_lengths = length is not None
         if not have_lengths:
-            length = torch.full((B,), x.shape[1], dtype=torch.int32, device=x.device)
+            t_global = x.shape[1] * (seq.size if seq is not None else 1)
+            length = torch.full((B,), t_global, dtype=torch.int32, device=x.device)
         length = length.to(x.device)
         if train and self.remat_subsampling:
             x, length = checkpoint(self.subsampling, x, length, use_reentrant=False)
         else:
             x, length = self.subsampling(x, length)
         N = x.shape[1]
+        off = seq.index * N if seq is not None else 0  # the shard's first global frame
         lengths_arg = length if have_lengths else None
-        pad_mask = ~length_mask(length, N) if have_lengths else None
-        rotary = self.rotary_pos_emb(N, dtype=torch.float32) if self.use_rotary else None
+        pad_mask = ~length_mask(length, N, offset=off) if have_lengths else None
+        rotary = (self.rotary_pos_emb(N, dtype=torch.float32, offset=off) if self.use_rotary
+                  else None)
         if self.use_fourier:
-            x = self.fourier_pos_enc(x)
+            x = self.fourier_pos_enc(
+                x, offsets=torch.full((B,), off, device=x.device) if seq is not None else None)
 
         dec = self.decoder
         draw = train and max(self.dropout_rates) > 0.0

@@ -11,6 +11,15 @@ backward re-runs the forward: there (inside `recomputing()`) the module
 uses the running statistics its first pass saw and updates nothing, so
 the statistics advance once per micro step, as JAX's functional
 `mutable=["batch_stats"]` does.
+
+Under a mesh (`lcasr_torch/parallel/`) the modules read the model's
+`ParallelState`: batch statistics (count, sum, squared deviation) are
+all-reduced over its `stat_axes`, as JAX psums them inside shard_map and
+pjit computes them over the global batch, so every rank's running
+statistics are those of one device; with a `seq` axis (context
+parallelism) the depthwise conv and the stride-2 subsampling stages take
+their time padding from the neighbouring shards (`halo_exchange`) and the
+keep-mask runs at global columns.
 """
 from __future__ import annotations
 
@@ -29,6 +38,8 @@ from lcasr_torch.ops.norms import LayerNorm
 from lcasr_torch.ops.subsampling import (
     ACTS, dw_striding_chain, fused_dw_striding, fused_eligible, fused_subsampling_enabled,
     strided_conv)
+from lcasr_torch.parallel.collectives import all_reduce_, all_reduce_sum, halo_exchange
+from lcasr_torch.parallel.mesh import NO_PARALLEL
 
 _STATE = threading.local()
 
@@ -62,6 +73,7 @@ class BatchRenorm(nn.Module):
         self.register_buffer("running_std", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.long))
         self._first_pass = None  # running stats the last training forward used
+        self.parallel = NO_PARALLEL
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
                 train: bool = False) -> torch.Tensor:
@@ -69,7 +81,7 @@ class BatchRenorm(nn.Module):
         if not train:
             y = (xf - self.running_mean) / self.running_std
             return (self.weight * y + self.bias).to(x.dtype)
-        mean, var, _ = _masked_moments(xf, pad_mask)
+        mean, var, _ = _masked_moments(xf, pad_mask, self.parallel.stat_groups())
         std = torch.sqrt(var) + self.eps
 
         if is_recomputing():
@@ -92,17 +104,27 @@ class BatchRenorm(nn.Module):
         return (self.weight * y + self.bias).to(x.dtype)
 
 
-def _masked_moments(xf: torch.Tensor, pad_mask: Optional[torch.Tensor]):
-    """(mean, biased variance, frame count) over (B, T), padded frames out."""
+def _masked_moments(xf: torch.Tensor, pad_mask: Optional[torch.Tensor], groups=()):
+    """(mean, biased variance, frame count) over (B, T), padded frames out;
+    each sum all-reduced over the process groups of `groups` ((name, group)
+    pairs), as the JAX module's `_psum` over its stat_axes."""
+
+    def psum(val):
+        for _, g in groups:
+            val = all_reduce_sum(val, g)
+        return val
+
     if pad_mask is not None:
         w = (~pad_mask).to(xf.dtype)[..., None]  # (B, T, 1)
-        count = w.sum((0, 1)).clamp_min(1.0)
-        mean = (xf * w).sum((0, 1)) / count
-        var = ((xf - mean) ** 2 * w).sum((0, 1)) / count
+        count = psum(w.sum((0, 1))).clamp_min(1.0)
+        mean = psum((xf * w).sum((0, 1))) / count
+        var = psum(((xf - mean) ** 2 * w).sum((0, 1))) / count
     else:
         count = float(xf.shape[0] * xf.shape[1])
-        mean = xf.sum((0, 1)) / count
-        var = ((xf - mean) ** 2).sum((0, 1)) / count
+        if groups:
+            count = psum(torch.tensor(count, dtype=xf.dtype, device=xf.device))
+        mean = psum(xf.sum((0, 1))) / count
+        var = psum(((xf - mean) ** 2).sum((0, 1))) / count
     return mean, var, count
 
 
@@ -119,12 +141,13 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.parallel = NO_PARALLEL
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
                 train: bool = False) -> torch.Tensor:
         xf = x.float()
         if train:
-            mean, var, n = _masked_moments(xf, pad_mask)
+            mean, var, n = _masked_moments(xf, pad_mask, self.parallel.stat_groups())
             if not is_recomputing():
                 with torch.no_grad():
                     n = torch.as_tensor(n, dtype=xf.dtype, device=xf.device)
@@ -158,12 +181,17 @@ CONV_NORMS = ("batch_renorm", "batch_norm", "layer_norm", "group_norm", "none")
 
 
 def depthwise_conv1d(x: torch.Tensor, kernel: torch.Tensor,
-                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     bias: Optional[torch.Tensor] = None, seq=None) -> torch.Tensor:
     """Depthwise 1-D conv with 'same' padding.  x: (B, T, C); kernel:
-    (C, 1, K)."""
+    (C, 1, K).  With `seq` (the `collectives.Axis` of a time-sharded x) the
+    padding is a (K - 1) / 2-frame halo from the neighbouring shards and the
+    conv runs 'valid': each shard's output is its slice of the global conv."""
     K = kernel.shape[-1]
-    out = F.conv1d(x.transpose(1, 2), kernel, bias, padding=(K - 1) // 2,
-                   groups=kernel.shape[0])
+    pad = (K - 1) // 2
+    if seq is not None and pad > 0:
+        x = halo_exchange(x, seq, left=pad, right=pad, dim=1)
+        pad = 0
+    out = F.conv1d(x.transpose(1, 2), kernel, bias, padding=pad, groups=kernel.shape[0])
     return out.transpose(1, 2)
 
 
@@ -192,34 +220,53 @@ class ConformerConvolution(nn.Module):
             self.norm = {"batch_renorm": BatchRenorm, "batch_norm": BatchNorm,
                          "layer_norm": LayerNorm, "group_norm": GroupNorm}[norm_type](inner)
         self.pointwise_conv2 = Dense(inner, d_model, dtype=dtype)
+        self.parallel = NO_PARALLEL
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
                 train: bool = False) -> torch.Tensor:
+        seq = self.parallel.seq()
+        if seq is not None and self.norm_type == "group_norm":
+            # its statistics run over every frame of a sample, which the
+            # time shards split
+            raise NotImplementedError("context parallel: conv_norm group_norm is unsupported")
         x = self.pointwise_conv1(x)
         a, b = x.chunk(2, dim=-1)
         x = a * torch.sigmoid(b)  # GLU, a = first half
         if pad_mask is not None:
             x = x.masked_fill(pad_mask[..., None], 0.0)
         x = depthwise_conv1d(x, self.depthwise_kernel.to(x.dtype),
-                             self.depthwise_bias.to(x.dtype))
+                             self.depthwise_bias.to(x.dtype), seq=seq)
         if self.norm_type in ("batch_renorm", "batch_norm"):
-            stat_mask = _stat_mask(pad_mask) if train and pad_mask is not None else None
+            stat_mask = (_stat_mask(pad_mask, self.parallel) if train and pad_mask is not None
+                         else None)
             x = self.norm(x, pad_mask=stat_mask, train=train)
         elif self.norm_type != "none":
             x = self.norm(x)
         return self.pointwise_conv2(F.silu(x))
 
 
-def _stat_mask(pad_mask: torch.Tensor) -> torch.Tensor:
+def _stat_mask(pad_mask: torch.Tensor, parallel=NO_PARALLEL) -> torch.Tensor:
     """Frames kept out of the training batch statistics (True = out), the
     JAX module's rule for static batches (lcasr_tpu/ops/conv.py:283-319):
     rows of length 0 (finished samples) count for nothing, and live rows
     count every frame up to the longest live row's length, padding
-    included, as the reference's shrinking dynamic batches do."""
+    included, as the reference's shrinking dynamic batches do.  Under a
+    mesh the rows' lengths are summed over the time shards, the columns
+    are global, and the longest live row is the longest over the other
+    statistics axes (the rows of the other data shards)."""
+    T_loc = pad_mask.shape[1]
     row_len = (~pad_mask).sum(1).float()  # (B,)
+    col0 = 0
+    seq = parallel.seq()
+    if seq is not None:
+        row_len = all_reduce_(row_len, seq.group)
+        col0 = seq.index * T_loc
     live = row_len > 0
     u_len = torch.where(live, row_len, torch.zeros_like(row_len)).max()
-    cols = torch.arange(pad_mask.shape[1], device=pad_mask.device, dtype=torch.float32)
+    for name, group in parallel.stat_groups():
+        if name != parallel.seq_axis:
+            u_len = all_reduce_(u_len, group, op=torch.distributed.ReduceOp.MAX)
+    cols = col0 + torch.arange(T_loc, device=pad_mask.device, dtype=torch.float32)
     keep = live[:, None] & (cols[None, :] < u_len)
     return ~keep
 
@@ -303,6 +350,7 @@ class ConvSubsampling(nn.Module):
                 f = math.floor((f - 3 + (3 if is_causal else 2)) / 2 + 1)
         self.out = Dense(int(f) * C, feat_out, bias=norm_out, dtype=dtype)
         self.norm_out = LayerNorm(feat_out) if norm_out else None
+        self.parallel = NO_PARALLEL
 
     def _params(self, *names):
         return [t.to(self.dtype) for n in names
@@ -324,18 +372,29 @@ class ConvSubsampling(nn.Module):
                                       repeat_num=self.sampling_num)
         x = x.to(self.dtype)
         act = ACTS[self.activation]
+        # context parallel: each stride-2 stage takes a one-frame left halo
+        # from the previous time shard in place of its zero padding
+        seq = self.parallel.seq()
+        if seq is not None and self.mode == "vggnet":
+            raise NotImplementedError("context parallel: use dw_striding/striding")
+        if seq is not None and self.is_causal:
+            # the causal right pad (s - 1) adds one output a stage that the
+            # halo scheme does not reproduce
+            raise NotImplementedError("context parallel: causal subsampling unsupported")
         if self.mode == "dw_striding":
-            if fused_subsampling_enabled() and fused_eligible(
+            # never the fused kernel under context parallelism, as in JAX
+            if seq is None and fused_subsampling_enabled() and fused_eligible(
                     x.shape[1], self.feat_in, self.conv_channels, self.sampling_num,
                     self.is_causal):
                 h = fused_dw_striding(x, self._conv_params(), self.activation)
             else:
                 h = dw_striding_chain(x[:, None], self._conv_params(), self.activation,
-                                      causal=self.is_causal).permute(0, 2, 3, 1)
+                                      causal=self.is_causal, seq=seq).permute(0, 2, 3, 1)
         elif self.mode == "striding":
             h = x[:, None]  # (B, 1, T, F)
             for i in range(self.sampling_num):
-                h = act(strided_conv(h, *self._params(f"conv_{i}"), causal=self.is_causal))
+                h = act(strided_conv(h, *self._params(f"conv_{i}"), causal=self.is_causal,
+                                     seq=seq))
             h = h.permute(0, 2, 3, 1)
         else:
             h = x[:, None]

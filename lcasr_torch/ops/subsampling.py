@@ -43,24 +43,38 @@ _SRC = "subsampling_fused.cu"
 
 
 def strided_conv(h: torch.Tensor, k: torch.Tensor, b: torch.Tensor, causal: bool = False,
-                 groups: int = 1) -> torch.Tensor:
+                 groups: int = 1, seq=None) -> torch.Tensor:
     """3x3 stride-2 conv on NCHW, padded (1, 1) on both axes, or (2, 1)
-    (left k - 1, right s - 1) when causal."""
+    (left k - 1, right s - 1) when causal.  With `seq` (the
+    `parallel.collectives.Axis` of a time-sharded h, context parallelism)
+    the time axis takes a one-frame left halo from the previous shard and
+    no right padding, then runs 'valid': with an even local T each shard's
+    T / 2 outputs are its slice of the global conv's (the JAX
+    `ConvSubsampling.strided`)."""
+    if seq is not None:
+        from lcasr_torch.parallel.collectives import halo_exchange
+
+        if h.shape[2] % 2:
+            raise ValueError(f"context parallel needs an even local T per stride-2 stage, got "
+                             f"{h.shape[2]} (global T must divide shards x subsampling_factor)")
+        h = halo_exchange(h, seq, left=1, right=0, dim=2)
+        return F.conv2d(h, k, b, stride=2, padding=(0, 1), groups=groups)
     if causal:
         return F.conv2d(F.pad(h, (2, 1, 2, 1)), k, b, stride=2, groups=groups)
     return F.conv2d(h, k, b, stride=2, padding=1, groups=groups)
 
 
 def dw_striding_chain(h: torch.Tensor, params: Sequence[torch.Tensor],
-                      act: str = "silu", causal: bool = False) -> torch.Tensor:
-    """params = (k0, b0, [kd, bd, kp, bp] x stages), torch OIHW kernels."""
+                      act: str = "silu", causal: bool = False, seq=None) -> torch.Tensor:
+    """params = (k0, b0, [kd, bd, kp, bp] x stages), torch OIHW kernels;
+    `seq`: see `strided_conv`."""
     f = ACTS[act]
     k0, b0 = params[0], params[1]
     C = k0.shape[0]
-    h = f(strided_conv(h, k0, b0, causal))
+    h = f(strided_conv(h, k0, b0, causal, seq=seq))
     for i in range((len(params) - 2) // 4):
         kd, bd, kp, bp = params[2 + 4 * i : 6 + 4 * i]
-        h = f(F.conv2d(strided_conv(h, kd, bd, causal, groups=C), kp, bp))
+        h = f(F.conv2d(strided_conv(h, kd, bd, causal, groups=C, seq=seq), kp, bp))
     return h
 
 

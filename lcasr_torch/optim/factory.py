@@ -29,21 +29,25 @@ class ClippedOptimizer:
         return self.inner.param_groups
 
     @torch.no_grad()
-    def clip_(self) -> Optional[torch.Tensor]:
+    def clip_(self, norm: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+        """Clip by `norm`, or by the norm of the gradients here when it is
+        None (under a mesh the Trainer passes the global norm of gradients
+        that are sharded over ranks)."""
         if not self.clip_value or self.clip_value <= 0:
             return None
         grads = [p.grad for g in self.param_groups for p in g["params"] if p.grad is not None]
         if not grads:
             return None
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)).float())
+        if norm is None:
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)).float())
         # a select on the device (no host sync); multi-tensor scaling
         factor = torch.where(norm < self.clip_value, torch.ones_like(norm),
                              self.clip_value / norm)
         torch._foreach_mul_(grads, factor)
         return norm
 
-    def step(self) -> None:
-        self.clip_()
+    def step(self, norm: Optional[torch.Tensor] = None) -> None:
+        self.clip_(norm)
         self.inner.step()
 
     def zero_grad(self) -> None:

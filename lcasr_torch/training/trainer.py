@@ -24,9 +24,27 @@ lcasr_tpu/training/trainer.py `make_chunks` and `Trainer.train`).
   * `training.loss_mode: enc_dec` trains the encoder-decoder family on the
     joint CTC + CE loss (`micro_step`).
 
-Not ported yet: meshes (data, tensor and context parallelism) and ZeRO.
-A `parallel.mesh` that asks for more devices than there are runs on one
-device, as the JAX trainer does.
+Parallelism (`parallel.mesh` or a `mesh=` argument, over the world that
+`parallel.maybe_init_distributed` joined; one process per GPU):
+  * data: B is padded to a multiple of `data` with weight-0 rows and each
+    rank takes its rows; the loss is each rank's share of the global sum
+    (normalised by global counts under enc_dec), batch-renorm statistics
+    are summed over `data`, the gradient is accumulated in one flat buffer
+    and all-reduced once per optimizer step, then clipped by the global
+    norm;
+  * seq (context parallelism, SCConformerXL): each rank also takes its
+    time shard of every chunk (`context_parallel_apply`); the log-probs
+    are gathered over `seq` for the CTC loss, which every seq rank
+    computes alike;
+  * model (tensor parallelism, SCConformerXL): the model is cut into this
+    rank's shard (`parallel/tensor_parallel.py`);
+  * `parallel.zero_optimizer`: the parameters are views of one flat
+    buffer, the gradient buffer is reduce-scattered into each rank's range
+    of it and the optimizer state kept for that range only
+    (`optim/zero.py`).
+Only rank 0 writes metrics and checkpoints, and a checkpoint holds whole
+tensors whatever the mesh.  A mesh that asks for more ranks than the world
+has runs on one device, as the JAX trainer does.
 """
 from __future__ import annotations
 
@@ -35,6 +53,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lcasr_torch.config import Config
 from lcasr_torch.data.augmentation import SpecAugment
@@ -47,8 +66,15 @@ from lcasr_torch.device import resolve_device
 from lcasr_torch.models.base import decay_mask
 from lcasr_torch.ops.conv import BatchRenorm
 from lcasr_torch.ops.ctc import ctc_loss
-from lcasr_torch.optim.factory import build_optimizer, set_learning_rate
+from lcasr_torch.optim.factory import build_optimizer, param_groups, set_learning_rate
 from lcasr_torch.optim.scheduling import CosineLRScheduler, SequenceWarmupManager
+from lcasr_torch.optim.zero import ZeroShards, flat_buffer
+from lcasr_torch.parallel.collectives import all_reduce_
+from lcasr_torch.parallel.cp_model import bind_mesh, context_parallel_apply, shard_time
+from lcasr_torch.parallel.mesh import make_mesh, world_size
+from lcasr_torch.parallel.partition import (
+    gather_state_dict, gather_tensor, shard_state_dict, shard_tensor)
+from lcasr_torch.parallel.tensor_parallel import parallelize, refuse_family
 from lcasr_torch.training import checkpointing
 from lcasr_torch.training.debug_hooks import grad_statistics
 from lcasr_torch.training.metrics import MetricsLogger
@@ -102,14 +128,22 @@ def make_chunks(audio: np.ndarray, audio_lengths: np.ndarray, txt: List[list], t
     return out
 
 
+class _NoMetrics:
+    """The metrics sink of ranks other than 0."""
+
+    def log(self, metrics) -> None:
+        pass
+
+
 class Trainer:
     """`Trainer(config, model, tokenizer)`, then `init_state()`, `resume()`
     and `train(dataloader, ...)`.  The model's parameters are the state.
     `device=None` means the GPU and raises without one; the model must be
-    on the trainer's device."""
+    on the trainer's device.  `mesh`: a `parallel.Mesh` (else one is built
+    from `parallel.mesh` when the world is large enough)."""
 
     def __init__(self, config: Config, model, tokenizer, checkpoint_dir: Optional[str] = None,
-                 device=None):
+                 device=None, mesh=None):
         self.config = config
         self.model = model
         self.tokenizer = tokenizer
@@ -119,18 +153,26 @@ class Trainer:
             raise ValueError(f"the model is on {on}, the trainer on {self.device}")
         self.optimizer = None
 
+        # the (data, model, seq) mesh: passed in, or built from parallel.mesh
+        # when the world has the ranks it needs
+        self.mesh = mesh
         par_cfg = config.get("parallel", Config({}))
         mesh_shape = par_cfg.get("mesh", None)
-        if mesh_shape:
+        if self.mesh is None and mesh_shape:
             shape = mesh_shape.to_dict() if hasattr(mesh_shape, "to_dict") else dict(mesh_shape)
             need = int(np.prod([max(1, int(v)) for v in shape.values()]))
-            have = torch.cuda.device_count() if self.device.type == "cuda" else 1
+            have = world_size()
             if need > have:
                 print(f"parallel.mesh {shape} needs {need} devices, have {have} — "
                       f"running single-device")
-            elif need > 1:
-                raise NotImplementedError("parallel.mesh (data / tensor / context "
-                                          "parallelism) is not ported yet")
+            elif dist.is_available() and dist.is_initialized():
+                self.mesh = make_mesh(shape)
+        self.zero_opt = bool(par_cfg.get("zero_optimizer", False)) and self.mesh is not None
+        mesh = self.mesh
+        self.dp, self.tp, self.cp = ((mesh.size("data"), mesh.size("model"), mesh.size("seq"))
+                                     if mesh is not None else (1, 1, 1))
+        self.is_main = mesh is None or mesh.rank == 0
+        self._zero = None  # ZeroShards under zero_optimizer
 
         tr = config.get("training", Config({}))
         # 'ctc' (SCConformerXL, Mamba) or 'enc_dec' (the joint loss of the
@@ -175,6 +217,30 @@ class Trainer:
             self.chunk_size = self.sequence_scheduler.cur_sequence_length
             self.batch_size = self.sequence_scheduler.cur_batch_size
 
+        if mesh is not None:
+            # every rank starts from rank 0's weights (a model built without
+            # a seed differs from rank to rank)
+            with torch.no_grad():
+                for t in list(model.parameters()) + list(model.buffers()):
+                    dist.broadcast(t, src=0)
+            if self.tp > 1:
+                parallelize(model, mesh)
+            if self.cp > 1:
+                refuse_family(model, "context parallelism")
+                if self.loss_mode != "ctc":
+                    raise ValueError("context-parallel training supports loss_mode='ctc' only")
+                sf = getattr(model, "subsampling_factor", 8)
+                if self.chunk_size % (self.cp * sf):
+                    raise ValueError(f"audio_chunking.size={self.chunk_size} must divide seq "
+                                     f"shards ({self.cp}) x subsampling factor ({sf})")
+            # batch statistics over the global batch (context_parallel_apply
+            # adds the seq axis at each micro step)
+            bind_mesh(model, mesh, stat_axes=("data",))
+        # the micro step runs the model on this rank's time shard through
+        # context_parallel_apply: on whenever seq > 1 (a mesh of one may set
+        # it to run that path's collectives at size 1)
+        self.context_parallel = self.cp > 1
+
         self.augmentation = None
         if "spec_augment" in config:
             self.augmentation = SpecAugment(**config["spec_augment"].to_dict())
@@ -199,23 +265,46 @@ class Trainer:
             log_dir=self.checkpoint_dir,
             use_wandb=config.get("wandb", Config({})).get("use", False),
             wandb_config=config.get("wandb", Config({})).to_dict() if "wandb" in config else None,
-        )
+        ) if self.is_main else _NoMetrics()
         self._acc: Dict[torch.nn.Parameter, torch.Tensor] = {}
+        # under a mesh: the accumulated gradient in one flat buffer (the
+        # layout of optim/zero.py), `_acc` its views
+        self._flat_acc: Optional[torch.Tensor] = None
+        self._acc_started = False
         self.debug_hooks = False  # per-parameter gradient statistics (-debug_hooks)
 
     # -- state ----------------------------------------------------------------
     def init_state(self) -> None:
-        """Build the optimizer over the model's parameters."""
+        """Build the optimizer over the model's parameters (under
+        zero_optimizer: over this rank's slices of them)."""
+        named = list(self.model.named_parameters())
+        mask = decay_mask(self.model) if self.weight_decay_groups == "default" else None
+        wd = self.opt_args.get("weight_decay", 0.0)
+        if self.zero_opt:
+            named = [(n, p) for n, p in named if p.requires_grad]
+            self._zero = ZeroShards([p for _, p in named], self.mesh.axis("data"))
+            # the parameters' names in the buffer's order, and in the groups
+            # and the order of an optimizer without ZeRO (for checkpoints)
+            self._trainable_names = [n for n, _ in named]
+            self._whole_groups = [g["params"] for g in
+                                  param_groups([(n, n) for n, _ in named], wd, mask)]
+            self._whole_names = [n for g in self._whole_groups for n in g]
+            named = [(named[i][0], torch.nn.Parameter(v))
+                     for (i, _, _), v in zip(self._zero.pieces, self._zero.local())]
+            self._zero_slices = [p for _, p in named]
         self.optimizer = build_optimizer(
-            self.model.named_parameters(),
+            named,
             name=self.optimizer_name,
             lr=self.opt_args.get("lr", 1e-3),
-            weight_decay=self.opt_args.get("weight_decay", 0.0),
+            weight_decay=wd,
             momentum=self.opt_args.get("momentum", 0.9),
             clip_value=self.clip_value,
-            weight_decay_mask=(decay_mask(self.model)
-                               if self.weight_decay_groups == "default" else None),
+            weight_decay_mask=mask,
         )
+        # names of the optimizer's state indices, in its order
+        name_of = {id(p): n for n, p in named}
+        self._opt_names = [name_of[id(p)] for g in self.optimizer.param_groups
+                           for p in g["params"]]
 
     def _params(self):
         return [p for p in self.model.parameters() if p.requires_grad]
@@ -234,12 +323,39 @@ class Trainer:
             return t.to(self.device)
         return t.pin_memory().to(self.device, non_blocking=True)
 
+    def _rank_rows(self, chunk: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """Under a mesh: B padded to a multiple of `data` with weight-0 rows
+        (length 0: no loss, no batch statistics), then this rank's rows."""
+        d, i = self.dp, self.mesh.index("data")
+        B = chunk["audio"].shape[0]
+        pad = (-B) % d
+        rows = (B + pad) // d
+        out = {}
+        for k, v in chunk.items():
+            if pad:
+                v = np.concatenate([v, np.zeros((pad,) + v.shape[1:], v.dtype)], axis=0)
+            out[k] = v[i * rows:(i + 1) * rows]
+        return out
+
+    def _data_sum(self, x: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """A value summed (or reduced by `op`) over the data axis; itself
+        without a mesh."""
+        if self.mesh is None:
+            return x
+        return all_reduce_(x.detach().clone(), self.mesh.group("data"), op)
+
     def micro_step(self, chunk: Dict[str, np.ndarray], augment: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Forward and backward of one chunk; the raw gradient of its
         weighted CTC sum (under `enc_dec`: of its joint loss) adds into
-        `p.grad`.  Returns (loss, blank_p), both still on the device."""
+        `p.grad`.  Returns (loss, blank_p), both still on the device.
+        Under a mesh the gradient is this rank's part (the optimizer step
+        reduces it) and the loss and blank_p are the whole chunk's."""
         dev = self.device
+        if self.mesh is not None:
+            chunk = self._rank_rows(chunk)
+            if self._flat_acc is None:
+                self.zero_pending()
         audio, lengths, weight, labels, label_lengths = (self._upload(chunk[k]) for k in (
             "audio", "audio_lengths", "weight", "labels", "label_lengths"))
         if augment and self.augmentation is not None:
@@ -247,8 +363,14 @@ class Trainer:
         if self.loss_mode == "enc_dec":
             loss = self._enc_dec_loss(audio, lengths, weight, labels, label_lengths)
             loss.backward()
-            return loss.detach(), torch.zeros((), device=dev)
-        out = self.model(audio, length=lengths, train=True)
+            return self._data_sum(loss.detach()), torch.zeros((), device=dev)
+        if self.context_parallel:
+            # this rank's time shard, the lengths global; the log-probs are
+            # gathered over seq, so every seq rank computes the whole CTC loss
+            out = context_parallel_apply(self.model, shard_time(audio, self.mesh), self.mesh,
+                                         lengths, train=True, data_axis="data", gather=True)
+        else:
+            out = self.model(audio, length=lengths, train=True)
         log_probs = out["final_posteriors"].float()
         nll = ctc_loss(log_probs, labels, out["length"], label_lengths,
                        blank_id=self.blank_id, reduction="none",
@@ -262,8 +384,10 @@ class Trainer:
             am = log_probs.argmax(-1)
             live = ((torch.arange(am.shape[1], device=dev)[None, :] < out["length"][:, None])
                     & (weight > 0)[:, None])
-            blank_p = (live & (am == self.blank_id)).sum() / live.sum().clamp_min(1)
-        return loss.detach(), blank_p
+            counts = self._data_sum(torch.stack([(live & (am == self.blank_id)).sum(),
+                                                 live.sum()]).float())
+            blank_p = counts[0] / counts[1].clamp_min(1)
+        return self._data_sum(loss.detach()), blank_p
 
     def _enc_dec_loss(self, audio, lengths, weight, labels, label_lengths) -> torch.Tensor:
         """The joint loss of the JAX trainer's `enc_dec` mode, normalised per
@@ -276,8 +400,10 @@ class Trainer:
         text_bos = torch.nn.functional.pad(labels, (1, 0), value=0)  # bos 0
         out = self.model(audio, text_sequence=text_bos, length=lengths, train=True)
         live = weight > 0
-        n_live = live.sum().float().clamp_min(1.0)
-        n_sub = out["length"].max().float().clamp_min(1.0)
+        # the whole batch's counts under a mesh: the ranks' losses sum to it
+        n_live = self._data_sum(live.sum().float()).clamp_min(1.0)
+        n_sub = self._data_sum(out["length"].max().float(),
+                               dist.ReduceOp.MAX).clamp_min(1.0)
         loss = torch.zeros((), device=audio.device)
         ctc_out = out["final_posteriors_ctc"]
         if ctc_out is not None and ctc_w > 0:
@@ -295,13 +421,16 @@ class Trainer:
         logp = torch.log_softmax(out["final_posteriors_lm"].float(), dim=-1)
         ce = -logp.gather(-1, targets[..., None].long())[..., 0]
         ce_sum = torch.where(valid, ce, torch.zeros_like(ce)).sum()
-        u1_ref = (torch.where(live, label_lengths, 0).max().float() + 1.0).clamp_min(1.0)
+        u1_ref = (self._data_sum(torch.where(live, label_lengths, 0).max().float(),
+                                 dist.ReduceOp.MAX) + 1.0).clamp_min(1.0)
         return loss + (1 - ctc_w) * ce_sum / (n_live * u1_ref)
 
     @torch.no_grad()
     def fold_group(self, weight: float) -> None:
         """acc += weight * group gradient (the reference's per-group loss
         weight, by linearity), and clear the group gradient."""
+        if self.mesh is not None:
+            return self._fold_flat(weight)
         ps = [p for p in self._params() if p.grad is not None]
         fresh = [p for p in ps if p not in self._acc]
         seen = [p for p in ps if p in self._acc]
@@ -315,7 +444,35 @@ class Trainer:
         for p in ps:
             p.grad = None
 
+    def _fold_flat(self, weight: float) -> None:
+        """fold_group under a mesh: the first group of an optimizer step
+        accumulated its gradient in the flat buffer itself (`p.grad` are its
+        views), later groups in fresh tensors."""
+        params = self._params()
+        if not self._acc_started:
+            self._flat_acc.mul_(weight)
+            self._acc_started = True
+        else:
+            ps = [p for p in params if p.grad is not None]
+            if ps:
+                torch._foreach_add_([self._acc[p] for p in ps], [p.grad for p in ps],
+                                    alpha=weight)
+        for p in params:
+            p.grad = None
+
     def zero_pending(self) -> None:
+        if self.mesh is not None:
+            # the next backward accumulates into the zeroed flat buffer
+            params = self._params()
+            if self._flat_acc is None:
+                self._flat_acc, views = flat_buffer(params, self.dp if self.zero_opt else 1)
+                self._acc = dict(zip(params, views))
+            else:
+                self._flat_acc.zero_()
+            for p in params:
+                p.grad = self._acc[p]
+            self._acc_started = False
+            return
         self._acc = {}
         for p in self._params():
             p.grad = None
@@ -329,12 +486,70 @@ class Trainer:
 
     def optimizer_step(self, lr: float) -> None:
         """Clip and apply the accumulated gradient at learning rate lr."""
+        if self.mesh is not None:
+            return self._mesh_optimizer_step(lr)
         if self.debug_hooks:
             self.metrics.log(self.grad_statistics())
         for p in self._params():
             p.grad = self._acc.get(p)
         set_learning_rate(self.optimizer, lr)
         self.optimizer.step()
+        self.zero_pending()
+
+    def _tp_sharded(self) -> List[bool]:
+        """Per trainable parameter: is it cut over the model axis?"""
+        layout = getattr(self.model, "tp_layout", {})
+        out = []
+        for name, p in self.model.named_parameters():
+            if p.requires_grad:
+                prefix, _, leaf = name.rpartition(".")
+                mode = layout.get(prefix)
+                out.append(mode is not None and not (leaf == "bias" and mode.startswith("row")))
+        return out
+
+    def _global_norm(self, grads: List[torch.Tensor], sharded: List[bool]) -> torch.Tensor:
+        """The norm of the whole gradient from this rank's pieces: summed
+        over data under ZeRO (the pieces partition the parameters), over
+        model for the tensors tensor parallelism cuts (`sharded`, one flag
+        a gradient); a replicated one counts once."""
+        norms = torch.stack(torch._foreach_norm(grads)).float() ** 2
+        mask = torch.tensor(sharded, device=norms.device)
+        sq = torch.stack([norms[mask].sum(), norms[~mask].sum()])
+        if self.zero_opt:
+            all_reduce_(sq, self.mesh.group("data"))
+        sq[0:1] = all_reduce_(sq[0:1].clone(), self.mesh.group("model"))
+        return sq.sum().sqrt()
+
+    @torch.no_grad()
+    def _mesh_optimizer_step(self, lr: float) -> None:
+        """The accumulated gradient summed over the ranks that hold other
+        data (seq, then data: one all-reduce of the flat buffer each, or
+        under ZeRO one reduce-scatter over data), clipped by the global
+        norm, applied; under ZeRO the updated ranges are all-gathered back
+        into the parameters."""
+        params = self._params()
+        all_reduce_(self._flat_acc, self.mesh.group("seq"))
+        if not self.zero_opt:
+            all_reduce_(self._flat_acc, self.mesh.group("data"))
+        if self.debug_hooks:
+            if self.zero_opt or self.tp > 1:
+                raise NotImplementedError("debug_hooks under tensor parallelism or ZeRO: the "
+                                          "gradient is not whole on any rank")
+            self.metrics.log(self.grad_statistics())
+        sharded = self._tp_sharded()
+        if self.zero_opt:
+            targets, grads = self._zero_slices, self._zero.reduce_scatter(self._flat_acc)
+            sharded = [sharded[i] for i, _, _ in self._zero.pieces]
+        else:
+            targets, grads = params, [self._acc[p] for p in params]
+        for t, g in zip(targets, grads):
+            t.grad = g
+        set_learning_rate(self.optimizer, lr)
+        self.optimizer.step(norm=self._global_norm(grads, sharded))
+        if self.zero_opt:
+            self._zero.all_gather()
+            for t in targets:
+                t.grad = None
         self.zero_pending()
 
     # -- training loop ----------------------------------------------------------
@@ -508,11 +723,77 @@ class Trainer:
         return step
 
     # -- checkpoints ------------------------------------------------------------
-    def save(self, step: int, epoch: int, seen_ids: List[str]) -> str:
+    def _whole_state(self):
+        """(model state_dict, optimizer state_dict) as whole tensors under
+        the port's names, whatever the mesh: tensor-parallel shards
+        gathered over model, ZeRO slices over data (every rank takes part)."""
+        model_state = self.model.state_dict()
+        opt_state = self.optimizer.state_dict()
+        if self.mesh is None:
+            return model_state, opt_state
+        names = self._opt_names
+        if self.zero_opt:
+            # the parameters are views of the ZeRO buffer: whole tensors of
+            # their own, so that the checkpoint does not hold the buffer
+            model_state = {k: v.clone() for k, v in model_state.items()}
+            opt_state, names = self._zero_whole_opt_state(opt_state), self._whole_names
+        layout = getattr(self.model, "tp_layout", {})
+        axis = self.mesh.axis("model")
+        model_state = gather_state_dict(model_state, layout, axis)
+        state = {}
+        for i, st in opt_state["state"].items():
+            state[i] = {k: gather_tensor(names[i], v, layout, axis)
+                        if torch.is_tensor(v) and v.dim() > 0 else v for k, v in st.items()}
+        return model_state, dict(opt_state, state=state)
+
+    def _zero_whole_opt_state(self, opt_state):
+        """This rank's optimizer state (on its pieces) -> the state of the
+        whole parameters (of this rank's tensor-parallel shard), indexed as
+        an optimizer without ZeRO indexes it: one all-gather per kind of
+        state tensor.  Every piece is stepped at every step, so the kinds and
+        the scalars (the step count) are the same on every piece."""
+        inner = self.optimizer.inner
+        pieces = [inner.state.get(p, {}) for p in self._zero_slices]
+        whole = [{} for _ in self._zero.shapes]
+        for k, v in pieces[0].items():
+            if torch.is_tensor(v) and v.dim() > 0:
+                for w, t in zip(whole, self._zero.gather([st[k] for st in pieces])):
+                    w[k] = t
+            else:
+                for w in whole:
+                    w[k] = v.clone() if torch.is_tensor(v) else v
+        index = {n: j for j, n in enumerate(self._whole_names)}
+        return {"state": {index[n]: w for n, w in zip(self._trainable_names, whole) if w},
+                "param_groups": [dict(g, params=[index[n] for n in names]) for g, names
+                                 in zip(opt_state["param_groups"], self._whole_groups)]}
+
+    def _zero_piece_opt_state(self, opt_state, cut_model):
+        """The inverse of `_zero_whole_opt_state`: a whole optimizer state
+        -> this rank's, on its pieces (`cut_model(name, tensor)` cuts a
+        whole tensor to this rank's tensor-parallel shard first)."""
+        by_name = {self._whole_names[int(j)]: st for j, st in opt_state["state"].items()}
+        piece_of = {self._trainable_names[i]: (i, a, b) for i, a, b in self._zero.pieces}
+        state = {}
+        for j, n in enumerate(self._opt_names):
+            if n in by_name:
+                i, a, b = piece_of[n]
+                state[j] = {k: self._zero.cut(i, a, b, cut_model(n, v))
+                            if torch.is_tensor(v) and v.dim() > 0 else v
+                            for k, v in by_name[n].items()}
+        mine = self.optimizer.state_dict()["param_groups"]
+        return {"state": state, "param_groups": [dict(g, params=m["params"]) for g, m
+                                                 in zip(opt_state["param_groups"], mine)]}
+
+    def save(self, step: int, epoch: int, seen_ids: List[str]) -> Optional[str]:
+        """Write step_<step>/ (rank 0 only; under a mesh every rank must
+        call it, as it gathers the state)."""
+        model_state, opt_state = self._whole_state()
+        if not self.is_main:
+            return None
         return checkpointing.save_checkpoint(
             self.checkpoint_dir, step=step,
-            model_state=self.model.state_dict(),
-            optimizer_state=self.optimizer.state_dict(),
+            model_state=model_state,
+            optimizer_state=opt_state,
             config=self.config,
             scheduler_state=self.scheduler.state_dict(),
             sequence_scheduler_state=(self.sequence_scheduler.state_dict()
@@ -537,9 +818,13 @@ class Trainer:
                 "layer); it was written before the port stopped creating the unused "
                 "reprojection, and its optimizer state counts those parameters too, so "
                 "it cannot resume this model")
-        self.model.load_state_dict(arrays["model"], strict=True)
-        if arrays.get("optimizer"):
-            self.optimizer.load_state_dict(arrays["optimizer"])
+        model_state, opt_state = arrays["model"], arrays.get("optimizer")
+        if self.mesh is not None:
+            model_state, opt_state = self._shard_state(model_state, opt_state)
+        # (under ZeRO the optimizer's pieces are views of the parameters)
+        self.model.load_state_dict(model_state, strict=True)
+        if opt_state:
+            self.optimizer.load_state_dict(opt_state)
         if meta.get("scheduler"):
             self.scheduler.load_state_dict(meta["scheduler"])
         if self.sequence_scheduler is not None and meta.get("sequence_scheduler"):
@@ -547,3 +832,25 @@ class Trainer:
             self.chunk_size = self.sequence_scheduler.cur_sequence_length
             self.batch_size = self.sequence_scheduler.cur_batch_size
         return meta["podcast_step"], meta["epoch"], meta["seen_ids"]
+
+    def _shard_state(self, model_state, opt_state):
+        """Whole checkpoint tensors -> this rank's: cut over model by the
+        tensor-parallel layout, optimizer state also over data under ZeRO."""
+        layout = getattr(self.model, "tp_layout", {})
+        heads = getattr(self.model, "tp_heads", {})
+        m, i = self.tp, self.mesh.index("model")
+        model_state = shard_state_dict(model_state, layout, i, m, heads)
+        if opt_state and self.zero_opt:
+            opt_state = self._zero_piece_opt_state(
+                opt_state, lambda name, v: shard_tensor(name, v, layout, i, m, heads))
+        elif opt_state:
+            state = {}
+            for j, st in opt_state["state"].items():
+                name = self._opt_names[int(j)]
+                state[j] = {}
+                for k, v in st.items():
+                    if torch.is_tensor(v) and v.dim() > 0:
+                        v = shard_tensor(name, v, layout, i, m, heads)
+                    state[j][k] = v
+            opt_state = dict(opt_state, state=state)
+        return model_state, opt_state

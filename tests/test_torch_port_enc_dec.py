@@ -341,9 +341,11 @@ def test_cli_trains_an_enc_dec_config_on_the_cpu(tmp_path):
     assert len(losses()) == 1
 
 
-def test_trainer_refuses_a_mesh_it_could_run(tmp_path):
-    """A parallel.mesh the host's cards could hold is refused (ROADMAP A5),
-    whatever the loss mode; a larger one runs on one device."""
+def test_trainer_refuses_a_mesh_it_could_run(tmp_path, capsys):
+    """A parallel.mesh is sized against the process world, not the host's
+    cards: without a world of 4 ranks a {data: 4} mesh runs on one device,
+    however many cards there are, whatever the loss mode (the world's
+    meshes are held against JAX in test_torch_port_parallel.py)."""
     from lcasr_torch.config import Config
     from lcasr_torch.training.trainer import Trainer
 
@@ -354,8 +356,12 @@ def test_trainer_refuses_a_mesh_it_could_run(tmp_path):
     cfg = dict(_enc_dec_config(PORT_TINY, tmp_path), parallel={"mesh": {"data": 4}})
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(torch.cuda, "device_count", lambda: 8)
-        with pytest.raises(NotImplementedError, match="parallel.mesh"):
-            Trainer(Config(cfg), OnTheCard(), _Tok(), device="cuda")
+        # the trainer's augmentation generator would live on the card
+        mp.setattr(torch, "Generator", lambda device=None: types.SimpleNamespace(
+            manual_seed=lambda seed: None))
+        trainer = Trainer(Config(cfg), OnTheCard(), _Tok(), device="cuda")
+    assert trainer.mesh is None
+    assert "needs 4 devices, have 1" in capsys.readouterr().out
 
 
 # ---------------------------------------------------------------------------

@@ -475,8 +475,18 @@ def test_evaluate_refusals(reference_checkpoint, tmp_path):
 
     path, _ = reference_checkpoint
     kw = dict(checkpoint=path, dataset="synthetic", verbose=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        trun.evaluate(**kw, data_parallel=True)
+    # data_parallel / context_parallel are taken (the spawned worlds of
+    # test_torch_port_parallel.py / test_torch_port_cp.py run them); with no
+    # world joined they decode on one device, as the JAX function does on one
+    # chip, and give the rows of the decode without them
+    small = dict(kw, seq_len=512, overlap=384,
+                 dataset_kwargs={"n_recordings": 1, "n_frames": 1500})
+    for mode in ("averaged_moving_window", "windowed_attention"):
+        plain = trun.evaluate(**small, evaluation_mode=mode)
+        both = trun.evaluate(**small, evaluation_mode=mode,
+                             data_parallel=mode == "averaged_moving_window",
+                             context_parallel=mode == "windowed_attention")
+        assert _rows(both) == _rows(plain)
     with pytest.raises(NotImplementedError, match="A6"):
         trun.evaluate(**kw, quant_w8a8=True)
     orbax = tmp_path / "orbax_ckpt"

@@ -161,12 +161,19 @@ def test_unported_options_raise():
 
     small = dict(vocab_size=8, d_model=32, n_layers=1, n_heads=1, head_dim=32,
                  subsampling_conv_channels=8, device="cpu")
-    for kw in (dict(seq_axis_name="seq"), dict(quant_w8a8=True), dict(conv_type="longconv"),
-               dict(capture_qkv=True)):
+    for kw in (dict(quant_w8a8=True), dict(conv_type="longconv"), dict(capture_qkv=True)):
         with pytest.raises(NotImplementedError):
             SCConformerXL(**small, **kw)
     with pytest.raises(TypeError):
         SCConformerXL(**small, no_such_option=1)
+    # context parallelism is ported: its options need a mesh to run, and
+    # unknown forms or axes raise
+    m = SCConformerXL(**small, seq_axis_name="seq", attention_cp_impl="ring")
+    with pytest.raises(ValueError, match="needs a mesh"):
+        m(torch.zeros(1, 80, 64))
+    for kw in (dict(attention_cp_impl="ulysses"), dict(stat_axes=("batch",))):
+        with pytest.raises(ValueError):
+            SCConformerXL(**small, **kw)
     # names that do not exist raise as in the JAX model
     for kw in (dict(subsampling="conv1d"), dict(conv_norm="instance_norm")):
         with pytest.raises(ValueError):
@@ -254,7 +261,11 @@ def test_port_imports_no_jax_and_no_lcasr_tpu():
         "             'lcasr_torch.decoding.frame_sync', 'lcasr_torch.models.lm',\n"
         "             'lcasr_torch.decoding.beam_search',\n"
         "             'lcasr_torch.decoding.frame_sync_device', 'lcasr_torch.cli.train_lm',\n"
-        "             'lcasr_torch.cli.lm_rescore'):\n"
+        "             'lcasr_torch.cli.lm_rescore', 'lcasr_torch.parallel.mesh',\n"
+        "             'lcasr_torch.parallel.collectives', 'lcasr_torch.parallel.partition',\n"
+        "             'lcasr_torch.parallel.context_parallel',\n"
+        "             'lcasr_torch.parallel.ring_attention', 'lcasr_torch.parallel.cp_model',\n"
+        "             'lcasr_torch.parallel.tensor_parallel', 'lcasr_torch.optim.zero'):\n"
         "    assert name in sys.modules, name\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('lcasr_torch')]))\n"

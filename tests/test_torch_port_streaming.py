@@ -137,13 +137,12 @@ def test_single_window_mode_matches_jax(decoders, spec_n):
 
 
 def test_unported_options_raise(decoders):
-    """Only the mesh (data-parallel) decode is still refused; an integer
-    upload type other than int8 / int4 is refused as in the reference."""
+    """Every option of the JAX decoder is ported (the mesh decode is held
+    against JAX in test_torch_port_parallel.py); an integer upload type
+    other than int8 / int4 is refused as in the reference."""
     from lcasr_torch.evaluation.streaming import StreamingDecoder
 
     model = decoders[1].model
-    with pytest.raises(NotImplementedError):
-        StreamingDecoder(model, N_CLASSES, device="cpu", mesh=object())
     for bad in ("int16", torch.int32, np.uint8, object()):
         with pytest.raises(ValueError):
             StreamingDecoder(model, N_CLASSES, device="cpu", transfer_dtype=bad)
