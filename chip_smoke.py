@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases enc_dec       # the encoder-decoder family only
     python3 chip_smoke.py --phases lm            # decoding with a language model only
     python3 chip_smoke.py --phases parallel      # the ring schedule and a world of one
+    python3 chip_smoke.py --phases analysis,variants,adapt  # analysis, W8A8, long conv, adaptation
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -157,6 +158,31 @@ Phases, in order; any failure raises and exits non-zero:
               memory), the 20-minute mesh decode (ids equal to
               StreamingDecoder's) and the context-parallel single pass over
               120,000 frames against the windowed one.
+ 17. analysis the paper's question on the flagship: attention_summary over a
+              seeded one-hour (360,000-frame) spectrogram in one pass (one
+              capture forward and one lse launch of K1 a layer; row blocks of
+              512 against T' = 45,000, top 8; each layer's mean entropy and
+              expected distance), attention_prob_rows of 256 rows in two
+              layers against plain fp32 attention on the same captured q, k,
+              context_attribution of the middle frame of 16,384 frames (K1
+              and K3) held by the gradient gate against plain attention, the
+              rotary interpolation probe at factors 1, 2, 4, 8.
+ 18. variants the 20-minute flagship decode under quant_w8a8 False, "auto"
+              and True (RTFx, ids equal to bf16's, 36 K1 each); the int8
+              product at fc1's shape bit-equal to the host's; the Mamba (K6),
+              EncDecSconformer and TransformerLM forwards at their class
+              defaults under W8A8; conv_type longconv at the flagship's width:
+              a 16384 x 4 forward and micro step (gated against plain
+              attention), and a forward with the direct kernel and frequency
+              smoothing.
+ 19. adapt    SCConformerMeta at its class defaults: MetaTrainer over 16
+              seeded 2,048-frame utterances (the frozen parameters the same
+              bits after), refine_at_inference; dynamic evaluation of the
+              flagship over 36,864 frames at lr 0 (equal to the averaged
+              decode) and 8e-5 (moved), the model the same bits after each;
+              SelfTrainWrapper on 16,384 frames.
+
+Each phase's seconds are printed as it ends.
 
 The line before the last two is one JSON object with each kernel's numbers;
 the last line is the device record.  Without a GPU, or without the repo
@@ -167,6 +193,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -175,7 +202,7 @@ import time
 
 PHASES = ("kernels", "model", "decode", "train", "train_d256", "utterances", "mamba_decode",
           "mamba_train", "decode_opt", "train_opt", "audio", "serve", "enc_dec", "lm",
-          "parallel")
+          "parallel", "analysis", "variants", "adapt")
 
 # configs/ladder_9l_768d_6h.yaml, written out: the machine with the card is
 # not promised pyyaml (tests/test_torch_port_train.py holds the two equal)
@@ -2339,7 +2366,8 @@ def grad_error(g, ref, names):
 
 
 def gradient_gate(what, ref_name, one_step, ref_ctx, yardsticks: dict, floors=(0.0, 0.0),
-                  kernel_ctx=None, plain_contexts: bool = True):
+                  kernel_ctx=None, plain_contexts: bool = True, shape: str = "16384x4",
+                  min_numel: int = 0):
     """One 16384 x 4 micro step with the kernels (inside `kernel_ctx`, when
     given), again (the step may not be reproducible), inside each context of
     `yardsticks` ({name: context}) and inside `ref_ctx` (the reference), on
@@ -2349,7 +2377,11 @@ def gradient_gate(what, ref_name, one_step, ref_ctx, yardsticks: dict, floors=(0
     caller checks.  The loss must lie within LOSS_REL_MAX of the reference's;
     the gradient's relative L2 error and worst per-tensor cosine deficit
     (1 - cos) against the reference within `floors` + YARDSTICK_FACTOR times
-    the largest of the yardsticks', and never past the absolute caps."""
+    the largest of the yardsticks', and never past the absolute caps.
+    `min_numel`: tensors of fewer values stay out of the cosines (they stay
+    in the relative L2 error): the long convolution's three base rates have
+    a gradient that is a sum of large terms cancelling, whose direction
+    rounding alone turns around."""
     from lcasr_torch import kernels
 
     kernels.reset_launch_counts()
@@ -2369,7 +2401,8 @@ def gradient_gate(what, ref_name, one_step, ref_ctx, yardsticks: dict, floors=(0
     den = sum((g_r[n] ** 2).sum().item() for n in g_r)
     # cosines over the tensors whose gradient is not ~0 by construction (a
     # bias before BatchRenorm gets only rounding noise)
-    names = [n for n in g_r if g_r[n].norm().item() > 1e-4 * den ** 0.5]
+    names = [n for n in g_r if g_r[n].norm().item() > 1e-4 * den ** 0.5
+             and g_r[n].numel() >= min_numel]
     kr, kc, kn = grad_error(g_k, g_r, names)
     rerun, rerun_c, _ = grad_error(g_k2, g_k, names)
     kl = abs(loss_k - loss_r) / abs(loss_r)
@@ -2379,7 +2412,7 @@ def gradient_gate(what, ref_name, one_step, ref_ctx, yardsticks: dict, floors=(0
     yd = max(1 - y[2] for y in yard.values())
     l2_max = min(GRAD_REL_L2_MAX, floors[0] + YARDSTICK_FACTOR * yr)
     cos_max = min(1 - GRAD_COS_MIN, floors[1] + YARDSTICK_FACTOR * yd)
-    verdict = (f"16384x4 {what} step against {ref_name} (loss {loss_r:.4f}; cosines over "
+    verdict = (f"{shape} {what} step against {ref_name} (loss {loss_r:.4f}; cosines over "
                f"{len(names)} of {len(g_r)} tensors above 1e-4 of the global gradient norm): "
                f"kernels: loss rel {kl:.2e}, gradient rel L2 {kr:.3e} (a rerun of the kernel step "
                f"differs by {rerun:.3e}, worst cosine deficit {1 - rerun_c:.3e}), worst cosine "
@@ -4310,10 +4343,12 @@ def world_of_one_tp_zero(torch, run, chunk, mesh) -> dict:
     YARDSTICK_FACTOR times that reference's two runs apart (K3's dq atomics
     do not repeat bit for bit), and within YARDSTICK_FACTOR times the
     larger of the plain step's two runs apart and the rounding's own effect
-    from the plain step.  Each run builds its model afresh from the same
-    host copy of the weights."""
-    import numpy as np
-
+    from the plain step.  The model is built once: every run starts from
+    the same device copy of the weights, the runs without a mesh first,
+    then `parallelize` cuts it for the two on the mesh; the parameters'
+    changes stay on the device (the plain and the rounded ones are kept,
+    the others compared as they come), and each run's peak memory is
+    counted without those copies."""
     from lcasr_torch.config import Config
     from lcasr_torch.models.registry import load_model
     from lcasr_torch.models.sconformer_xl import init_weights_
@@ -4325,20 +4360,25 @@ def world_of_one_tp_zero(torch, run, chunk, mesh) -> dict:
     # without a mesh: no parallel section (the Trainer would build the mesh of one)
     cfg_plain = {k: v for k, v in cfg_d.items() if k != "parallel"}
     model = init_weights_(load_model(Config(cfg_d), 4095, device=DEVICE), seed=3)
-    start = {k: v.cpu() for k, v in model.state_dict().items()}
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
     n_params = sum(p.numel() for p in model.parameters())
-    del model
-    deltas, out = {}, {}
-    # in turns; the weights and the parameters' changes are kept on the
-    # host, out of every run's peak
-    for name in ("plain", "mesh", "rounded", "rounded_again", "mesh_again", "plain_again"):
+    names = [k for k, _ in model.named_parameters()]
+
+    def rel(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+    kept, errs, out = {}, {}, {}
+    held = sum(v.numel() * v.element_size() for v in start.values())
+    for name in ("plain", "rounded", "rounded_again", "plain_again", "mesh", "mesh_again"):
         on_mesh = name.startswith("mesh")
-        model = load_model(Config(cfg_d), 4095, device=DEVICE)
         model.load_state_dict(start)
-        if on_mesh:
-            parallelize(model, mesh)
-        if name.startswith("rounded"):
+        if name == "rounded":
             bias_after_product(torch, model)
+        elif name == "plain_again":
+            for m in model.modules():  # the row projections' own forward back
+                m.__dict__.pop("forward", None)
+        elif name == "mesh":
+            parallelize(model, mesh)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         tr = Trainer(Config(cfg_d if on_mesh else cfg_plain), model, run.tok,
@@ -4351,11 +4391,23 @@ def world_of_one_tp_zero(torch, run, chunk, mesh) -> dict:
         tr.optimizer_step(TP_STEP_LR)
         torch.cuda.synchronize()
         out[f"{name}_step_ms"] = (time.perf_counter() - t0) * 1e3
-        out[f"{name}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out[f"{name}_peak_gb"] = (torch.cuda.max_memory_allocated() - held) / 1e9
         out[f"{name}_loss"] = float(loss)
-        deltas[name] = torch.cat([(p.detach().float().cpu() - start[k].float()).reshape(-1)
-                                  for k, p in model.named_parameters()])
-        if on_mesh:
+        params = dict(model.named_parameters())
+        delta = torch.cat([(params[k].detach().float() - start[k].float()).reshape(-1)
+                           for k in names])
+        if name in ("plain", "rounded"):
+            kept[name] = delta
+            held += delta.numel() * delta.element_size()
+        if name == "rounded":
+            errs["rounding"] = rel(delta, kept["plain"])
+        elif name == "rounded_again":
+            errs["rerun_r"] = rel(delta, kept["rounded"])
+        elif name == "plain_again":
+            errs["rerun"] = rel(delta, kept["plain"])
+        elif name == "mesh":
+            errs["mesh_err"], errs["mesh_r"] = rel(delta, kept["plain"]), rel(delta,
+                                                                             kept["rounded"])
             # at model 1 every projection of the layout is cut: 6 a layer,
             # and the decoder's two
             n_cut = 6 * TP_CONFIG["model"]["n_layers"] + 2
@@ -4366,32 +4418,29 @@ def world_of_one_tp_zero(torch, run, chunk, mesh) -> dict:
                 t.numel() for st in tr.optimizer.inner.state.values() for t in st.values()
                 if torch.is_tensor(t))
             out["tp_projections"] = len(model.tp_layout)
-        del tr, model
-
-    def rel(a, b):
-        return ((a.double() - b.double()).norm() / b.double().norm()).item()
-
-    mesh_err, rerun = rel(deltas["mesh"], deltas["plain"]), rel(deltas["plain_again"],
-                                                                deltas["plain"])
-    mesh_r, rerun_r = rel(deltas["mesh"], deltas["rounded"]), rel(deltas["rounded_again"],
-                                                                  deltas["rounded"])
-    rounding = rel(deltas["rounded"], deltas["plain"])
+        del tr, delta, params  # the next run's peak must not hold these parameters
+    del model, kept, start
+    torch.cuda.empty_cache()
+    mesh_err, rerun, mesh_r, rerun_r, rounding = (
+        errs[k] for k in ("mesh_err", "rerun", "mesh_r", "rerun_r", "rounding"))
     loss_rel = abs(out["mesh_loss"] - out["plain_loss"]) / abs(out["plain_loss"])
     verdict = (f"lcasr_3l_2048d_16h_tp ({n_params / 1e6:.1f}M parameters) one ZeRO optimizer "
                f"step on the mesh of one vs without: loss rel {loss_rel:.2e}; parameter change "
                f"rel L2 against the step without a mesh rounded as the row projections round "
                f"{mesh_r:.3e} (its two runs: {rerun_r:.3e}), against the plain step "
                f"{mesh_err:.3e} (its two runs: {rerun:.3e}; the rounding alone: "
-               f"{rounding:.3e}); step ms in turns: without {out['plain_step_ms']:.1f}, on the "
-               f"mesh (cut by parallelize at model 1: {out['tp_projections']} tensor-parallel "
-               f"projections) {out['mesh_step_ms']:.1f}, rounded {out['rounded_step_ms']:.1f}, "
-               f"{out['rounded_again_step_ms']:.1f}, on the mesh {out['mesh_again_step_ms']:.1f}, "
-               f"without {out['plain_again_step_ms']:.1f}; peak memory on the mesh "
+               f"{rounding:.3e}); step ms (one model, runs without a mesh first): without "
+               f"{out['plain_step_ms']:.1f}, rounded {out['rounded_step_ms']:.1f}, "
+               f"{out['rounded_again_step_ms']:.1f}, without {out['plain_again_step_ms']:.1f}, "
+               f"on the mesh (cut by parallelize at model 1: {out['tp_projections']} "
+               f"tensor-parallel projections) {out['mesh_step_ms']:.1f}, "
+               f"{out['mesh_again_step_ms']:.1f}; peak memory of a run on the mesh "
                f"{out['mesh_peak_gb']:.2f} / {out['mesh_again_peak_gb']:.2f} GB, without "
-               f"{out['plain_peak_gb']:.2f} / {out['plain_again_peak_gb']:.2f} GB; MADGRAD state "
+               f"{out['plain_peak_gb']:.2f} / {out['plain_again_peak_gb']:.2f} GB (the script's "
+               f"copies of the weights and changes not counted); MADGRAD state "
                f"{out['zero_state_numel'] / 1e6:.1f}M values (3 x the parameters at data 1)")
     log("  " + verdict)
-    if not (np.isfinite(out["mesh_loss"]) and loss_rel <= LOSS_REL_MAX
+    if not (math.isfinite(out["mesh_loss"]) and loss_rel <= LOSS_REL_MAX
             and mesh_r <= YARDSTICK_FACTOR * rerun_r + 1e-6
             and mesh_err <= YARDSTICK_FACTOR * max(rerun, rounding) + 1e-6):
         raise AssertionError("the ZeRO step on the mesh of one disagrees: " + verdict)
@@ -4506,6 +4555,667 @@ def phase_parallel(torch, workdir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 17-19: the paper's analysis, the model variants, test-time adaptation
+# ---------------------------------------------------------------------------
+HOUR_FRAMES = 360_000  # one hour of 10 ms frames: T' = 45,000 after the 8x subsampling
+SUMMARY_ROW_BLOCK, SUMMARY_TOP_K = 512, 8
+PROB_LAYERS, PROB_ROWS = (0, 8), (22_400, 256)  # two layers' rows in the middle of the hour
+# probability rows against plain fp32 attention on the kernel's own bf16-scaled q: the
+# same fp32 scores, the lse summed in another order
+PROB_TOL = 1e-4
+ATTRIBUTION_FRAMES = 16_384
+PROBE_FACTORS = (1.0, 2.0, 4.0, 8.0)
+W8A8_POLICIES = (False, "auto", True)
+INT8_GEMM_SHAPE = (32_768, 768, 3_072)  # fc1 of one 16-window batch: (M, K, N)
+LM_W8A8_ROWS = (25, 4)  # full-pass rows, and a cached step's rows (below _int_mm's 17)
+META_UTTERANCES, META_FRAMES, META_BATCH = 16, 2_048, 2
+META_REFINE_ITERATIONS = 10
+DYN_FRAMES, DYN_NEGATIVES, DYN_LR = 36_864, 2, 8e-5
+SELFTRAIN_FRAMES, SELFTRAIN_ITERATIONS = 16_384, 2
+# the long convolution's gate takes no cosine of its 3 base rates (see gradient_gate)
+LONGCONV_COS_MIN_NUMEL = 64
+
+
+def seeded_spec(seed: int, frames: int):
+    import numpy as np
+
+    return np.random.default_rng(seed).normal(size=(1, 80, frames)).astype(np.float32)
+
+
+def peak_gb(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def same_bits(torch, before: dict, model, what: str, keys=None) -> None:
+    """Every tensor of `model.state_dict()` named in `keys` (all: None) is
+    the same bits as in `before`."""
+    after = model.state_dict()
+    for k in (keys if keys is not None else before):
+        if not torch.equal(after[k], before[k]):
+            raise AssertionError(f"{what}: {k} changed")
+
+
+def analysis_summary(torch, model, spec) -> dict:
+    """attention_summary over the hour in one pass: 2 K1 a layer (the
+    capture, then the lse), the statistics' ranges, each layer's means."""
+    import numpy as np
+
+    from lcasr_torch import kernels
+    from lcasr_torch.evaluation import analysis
+
+    L = model.n_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = analysis.attention_summary(model, spec, row_block=SUMMARY_ROW_BLOCK,
+                                         top_k=SUMMARY_TOP_K)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = expect_launches({"flash_attention_fwd": 2 * L}, "attention_summary")
+    peak = peak_gb(torch)
+    T = summary[0]["entropy"].shape[-1]
+    layers = []
+    for i, s in enumerate(summary):
+        ent, dist, tv, ti = (s[k] for k in ("entropy", "expected_distance", "topk_probs",
+                                             "topk_cols"))
+        ok = (np.isfinite(ent).all() and ent.min() >= -1e-4 and ent.max() <= np.log(T) + 1e-3
+              and dist.min() >= 0 and dist.max() < T and (np.diff(tv, axis=-1) <= 0).all()
+              and ti.min() >= 0 and ti.max() < T)
+        if not ok:
+            raise AssertionError(f"layer {i}'s attention statistics are out of range")
+        layers.append({"mean_entropy": float(ent.mean()),
+                       "mean_expected_distance": float(dist.mean()),
+                       "mean_topk_mass": float(tv.sum(-1).mean())})
+    log(f"  attention_summary over {spec.shape[-1]} frames (T' = {T}, row block "
+        f"{SUMMARY_ROW_BLOCK}, top {SUMMARY_TOP_K}): {seconds:.2f} s, peak memory {peak:.2f} GB, "
+        f"launches {launches}")
+    for i, layer in enumerate(layers):
+        log(f"    layer {i}: mean entropy {layer['mean_entropy']:.4f} nats (uniform "
+            f"{np.log(T):.4f}), mean expected distance {layer['mean_expected_distance']:.1f} "
+            f"frames, mean top-{SUMMARY_TOP_K} mass {layer['mean_topk_mass']:.4f}")
+    return {"seconds": seconds, "peak_gb": peak, "launches": launches, "frames": spec.shape[-1],
+            "T_sub": T, "layers": layers}
+
+
+def analysis_prob_rows(torch, model, spec) -> dict:
+    """attention_prob_rows of PROB_ROWS in two layers (10 K1 each: the
+    capture and the lse) against plain fp32 attention with
+    return_weights=True on the same captured q, k: within PROB_TOL of it on
+    the q that the kernel scales in bf16, within YARDSTICK_FACTOR times that
+    scale's own rounding of it on the unscaled q; valid rows sum to 1."""
+    from lcasr_torch import kernels
+    from lcasr_torch.evaluation import analysis
+    from lcasr_torch.ops.attention import reference_attention
+    from lcasr_torch.ops.flash_attention import _scaled
+
+    r0, n = PROB_ROWS
+    captured = analysis._captured_qkv(model, spec)
+    out = {}
+    for layer in PROB_LAYERS:
+        kernels.reset_launch_counts()
+        rows = analysis.attention_prob_rows(model, spec, layer, PROB_ROWS)
+        launches = expect_launches({"flash_attention_fwd": model.n_layers + 1},
+                                   f"attention_prob_rows of layer {layer}")
+        rows = torch.from_numpy(rows).to(DEVICE)
+        q, k, v, _ = captured[layer]
+        with torch.no_grad():
+            ref32 = reference_attention(q[:, r0:r0 + n], k, v, window=model.window,
+                                        q_offset=r0, return_weights=True)[1]
+            qs = _scaled(q[:, r0:r0 + n], None)
+            ref_scaled = reference_attention(qs, k, v, window=model.window, q_offset=r0,
+                                             softmax_scale=1.0, return_weights=True)[1]
+        err_scaled = (rows - ref_scaled).abs().max().item()
+        err32 = (rows - ref32).abs().max().item()
+        rounding = (ref_scaled - ref32).abs().max().item()
+        row_sum = (rows.sum(-1) - 1).abs().max().item()
+        log(f"  layer {layer} rows {r0}-{r0 + n - 1} of {q.shape[1]}: max |p - plain fp32| "
+            f"{err32:.3e} (the bf16 scaling of q alone: {rounding:.3e}), against plain fp32 on "
+            f"the bf16-scaled q {err_scaled:.3e} (tolerance {PROB_TOL:g}), max |row sum - 1| "
+            f"{row_sum:.2e}, max p {rows.max().item():.4f}, launches {launches}")
+        if not (err_scaled <= PROB_TOL and err32 <= YARDSTICK_FACTOR * rounding + PROB_TOL
+                and row_sum <= 1e-3):
+            raise AssertionError(f"attention_prob_rows of layer {layer} disagree with plain "
+                                 f"attention: {err_scaled}, {err32} (rounding {rounding}), "
+                                 f"row sums {row_sum}")
+        out[f"layer_{layer}"] = {"max_abs_err_fp32": err32, "max_abs_err_scaled_q": err_scaled,
+                                 "scale_rounding": rounding, "row_sum_err": row_sum}
+    del captured
+    return out
+
+
+def analysis_attribution(torch, model) -> dict:
+    """context_attribution of the middle output frame of a 16,384-frame
+    input (9 K1 + 9 K3), held by `gradient_gate` against plain fp32
+    attention (yardstick: plain bf16 attention); the "loss" is the
+    attribution's total."""
+    import numpy as np
+
+    from lcasr_torch import kernels
+    from lcasr_torch.evaluation import analysis
+
+    audio = seeded_spec(6, ATTRIBUTION_FRAMES)
+    frame = ATTRIBUTION_FRAMES // 16  # the middle of T' = 2048
+
+    def one_step():
+        g = analysis.context_attribution(model, audio, frame)
+        return float(g.sum()), {"attribution": torch.from_numpy(g).to(DEVICE)}
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    total, g = one_step()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = expect_launches({"flash_attention_fwd": model.n_layers,
+                                "flash_attention_bwd_fused": model.n_layers},
+                               "context_attribution")
+    a = g["attribution"].cpu().numpy()
+    centre = float(a[ATTRIBUTION_FRAMES // 2 - 512: ATTRIBUTION_FRAMES // 2 + 512].sum() / a.sum())
+    log(f"  context_attribution of output frame {frame} over {ATTRIBUTION_FRAMES} frames: "
+        f"{seconds * 1e3:.1f} ms, launches {launches}, share of the attribution within "
+        f"512 frames of the centre {centre:.4f}")
+    if not (np.isfinite(a).all() and total > 0):
+        raise AssertionError("the attribution is not finite and positive")
+    gate = gradient_gate("context attribution", "plain fp32 attention", one_step,
+                         plain_attention(), {"plain bf16 attention": plain_attention(bf16=True)},
+                         shape=f"1x{ATTRIBUTION_FRAMES}")
+    return {"seconds": seconds, "launches": launches, "centre_share": centre, **gate}
+
+
+def analysis_probe(torch, model) -> dict:
+    """rotary_interpolation_probe over 20 minutes in one pass a factor."""
+    from lcasr_torch import kernels
+    from lcasr_torch.evaluation import analysis
+
+    spec = seeded_spec(7, LONG_FRAMES)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    probe = analysis.rotary_interpolation_probe(model, spec, PROBE_FACTORS)
+    seconds = time.perf_counter() - t0
+    launches = expect_launches({"flash_attention_fwd": len(PROBE_FACTORS) * model.n_layers},
+                               "rotary_interpolation_probe")
+    if model.rotary_interpolation_factor != 1.0:
+        raise AssertionError("the probe left the model's interpolation factor changed")
+    log(f"  rotary_interpolation_probe over {LONG_FRAMES} frames: {seconds:.2f} s, launches "
+        f"{launches}: " + ", ".join(f"x{f:g}: mean max log-prob {r['mean_max_logprob']:.4f}, "
+                                     f"blank {r['blank_fraction']:.4f}" for f, r in probe.items()))
+    return {"seconds": seconds, "launches": launches,
+            "factors": {str(f): r for f, r in probe.items()}}
+
+
+def phase_analysis(torch) -> dict:
+    """The paper's question at its scale on the flagship: attention
+    statistics over one hour, probability rows against plain attention,
+    attribution through K3, the rotary probe."""
+    model = flagship_model(torch)
+    spec = seeded_spec(5, HOUR_FRAMES)
+    out, seconds = {}, {}
+    for name, fn, args in (("summary", analysis_summary, (torch, model, spec)),
+                           ("prob_rows", analysis_prob_rows, (torch, model, spec)),
+                           ("attribution", analysis_attribution, (torch, model)),
+                           ("probe", analysis_probe, (torch, model))):
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        torch.cuda.empty_cache()
+    log(f"  phase analysis seconds: {seconds}")
+    out["seconds"] = seconds
+    return out
+
+
+def variants_w8a8_decode(torch, model) -> dict:
+    """The 20-minute decode under each W8A8 policy (36 K1 each): RTFx as the
+    median of 3 after a warm decode, and the share of frame ids equal to the
+    bf16 decode's."""
+    import numpy as np
+
+    from lcasr_torch import kernels
+    from lcasr_torch.evaluation.streaming import StreamingDecoder
+    from lcasr_torch.ops.qdense import apply_quant_policy
+
+    spec = seeded_spec(2, TOTAL_FRAMES)
+    decoder = StreamingDecoder(model, 4096, window_batch_size=WINDOW_BATCH,
+                               transfer_dtype=torch.bfloat16, device=DEVICE)
+    out, ids0 = {}, None
+    try:
+        for policy in W8A8_POLICIES:
+            apply_quant_policy(model, policy)
+            kernels.reset_launch_counts()
+            ids = decoder.greedy(spec, seq_len=SEQ_LEN, overlap=OVERLAP)
+            launches = expect_launches({"flash_attention_fwd": EXPECTED_LAUNCHES},
+                                       f"the decode under quant_w8a8={policy!r}")
+            _, times = timed_decodes(decoder, spec, warm=False)
+            ids0 = ids if ids0 is None else ids0
+            same = float((ids == ids0).mean())
+            rtfx = TOTAL_FRAMES / FRAMES_PER_SECOND / float(np.median(times))
+            n_quant = sum(1 for m in model.modules() if getattr(m, "quant", False))
+            out[str(policy)] = {"rtfx": rtfx, "decode_s": times, "ids_equal_share": same,
+                                "launches": launches, "quantised_projections": n_quant}
+            log(f"  20-minute decode, quant_w8a8={policy!r} ({n_quant} projections int8): "
+                f"RTFx {rtfx:.1f} (decode s {[round(t, 4) for t in times]}), ids equal to the "
+                f"bf16 decode's {same:.5f}, launches {launches}")
+    finally:
+        apply_quant_policy(model, False)
+    return out
+
+
+def variants_int8_gemm(torch) -> dict:
+    """The int8 product at fc1's shape on the card, bit-equal to the host's
+    product (float64 BLAS: every partial sum is an integer below 2^53, so
+    it is exact; the first 256 rows also in int64), timed beside the bf16
+    product and the whole W8A8 projection (quantisation included)."""
+    import torch.nn.functional as F
+
+    from lcasr_torch.ops import qdense
+
+    M, K, N = INT8_GEMM_SHAPE
+    gen = torch.Generator().manual_seed(7)
+    a = torch.randint(-127, 128, (M, K), dtype=torch.int8, generator=gen)
+    w = torch.randint(-127, 128, (N, K), dtype=torch.int8, generator=gen)
+    a_d, w_d = a.to(DEVICE), w.to(DEVICE)
+    y = qdense.int8_matmul(a_d, w_d).cpu()
+    host = (a.double() @ w.double().t()).long()
+    head = a[:256].long() @ w.long().t()
+    equal = bool(torch.equal(y.long(), host) and torch.equal(host[:256], head))
+    xb = torch.randn((M, K), generator=gen).to(DEVICE, torch.bfloat16)
+    wb = (torch.randn((N, K), generator=gen) * K ** -0.5).to(DEVICE, torch.bfloat16)
+    times = {"int8_ms": time_ms(torch, lambda: qdense.int8_matmul(a_d, w_d), n=20),
+             "bf16_ms": time_ms(torch, lambda: F.linear(xb, wb), n=20),
+             "w8a8_linear_ms": time_ms(torch, lambda: qdense.w8a8_linear(xb, wb), n=20)}
+    ops = 2 * M * K * N
+    log(f"  int8 product ({M} x {K}) @ ({K} x {N}) on the card: equal to the host's "
+        f"{equal}; int8 {times['int8_ms']:.3f} ms ({ops / times['int8_ms'] / 1e9:.0f} TOP/s), "
+        f"bf16 {times['bf16_ms']:.3f} ms, the W8A8 projection with its quantisation "
+        f"{times['w8a8_linear_ms']:.3f} ms")
+    if not equal:
+        raise AssertionError("the int8 product on the card differs from the host's")
+    return {"bit_equal": equal, **times}
+
+
+def _agreement(torch, lp, ref):
+    """(argmax agreement, mean |d|) of two outputs over every position."""
+    return (float((lp.argmax(-1) == ref.argmax(-1)).float().mean()),
+            float((lp.float() - ref.float()).abs().mean()))
+
+
+def variants_families(torch) -> dict:
+    """One forward each of the Mamba (K6), EncDecSconformer and
+    TransformerLM at their class defaults under quant_w8a8=True, beside the
+    same forward without; plus the encoder-decoder's cached greedy decode
+    and the LM's cached step with a few rows (the int8 product's padding)."""
+    import numpy as np
+
+    from lcasr_torch import kernels
+    from lcasr_torch.models.enc_dec_sconformer import generate_greedy_cached
+    from lcasr_torch.models.lm import TransformerLM
+    from lcasr_torch.models.sconformer_xl import init_weights_
+    from lcasr_torch.ops.qdense import apply_quant_policy
+
+    out = {}
+    audio, lengths = window_batch(torch)
+    audio, lengths = audio[:4], lengths[[0, 11, 12, 13]]
+    runs = {}
+
+    model = mamba_model(torch)
+    runs["Mamba"] = (model, lambda m: m(audio, length=lengths)["final_posteriors"],
+                     {"selective_scan_fwd": model.n_layers})
+    enc = enc_dec_model(torch, False, torch.bfloat16)
+    text = torch.from_numpy(np.random.default_rng(3).integers(0, 4095, (4, 384))).to(DEVICE)
+    runs["EncDecSconformer"] = (
+        enc, lambda m: m(audio, text, length=lengths)["final_posteriors_lm"],
+        {"flash_attention_fwd": enc.n_layers})
+    # LM_MODEL: the class defaults
+    lm = init_weights_(TransformerLM(vocab_size=4095, **LM_MODEL, dtype=torch.bfloat16,
+                                     device=DEVICE), seed=4)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 4095, (LM_W8A8_ROWS[0], 256))).to(DEVICE)
+    runs["TransformerLM"] = (lm, lambda m: m(tokens), {})
+    for name, (m, fwd, expected) in runs.items():
+        with torch.no_grad():
+            ref = fwd(m)
+            apply_quant_policy(m, True)
+            kernels.reset_launch_counts()
+            got = fwd(m)
+            torch.cuda.synchronize()
+            launches = expect_launches(expected, f"the {name} forward under W8A8")
+        if not torch.isfinite(got.float()).all():
+            raise AssertionError(f"the {name} forward under W8A8 is not finite")
+        agree, mean_d = _agreement(torch, got, ref)
+        n_quant = sum(1 for mod in m.modules() if getattr(mod, "quant", False))
+        out[name] = {"argmax_agreement": agree, "mean_abs_diff": mean_d, "launches": launches,
+                     "quantised_projections": n_quant}
+        log(f"  {name} at its class defaults under quant_w8a8=True ({n_quant} projections "
+            f"int8): argmax agreement with bf16 {agree:.5f}, mean |d| {mean_d:.3e}, "
+            f"launches {launches}")
+    with torch.no_grad():
+        ids = generate_greedy_cached(enc, audio[:1, :, :8_192], max_generate=32)
+        B = LM_W8A8_ROWS[1]
+        cache = torch.zeros((lm.n_layers, 2, B, lm.n_heads, 9, lm.head_dim), device=DEVICE,
+                            dtype=torch.bfloat16)
+        clen = torch.zeros((B,), dtype=torch.int32, device=DEVICE)
+        for t in range(8):
+            logits, cache, clen = lm(tokens[:B, t:t + 1], cache=cache, cache_lengths=clen)
+        if not torch.isfinite(logits.float()).all():
+            raise AssertionError("the LM's cached W8A8 step is not finite")
+    out["EncDecSconformer"]["greedy_ids"] = len(ids)
+    log(f"  under W8A8: the encoder-decoder's cached greedy decode gave {len(ids)} ids, the "
+        f"LM's cached step with {B} rows finite logits")
+    del runs, model, enc, lm
+    return out
+
+
+def longconv_initialised(torch, model, seed: int):
+    """`model` (weights from `init_weights_`) with every long convolution
+    drawn by its own initialisers from `seed`, as a fresh model has it:
+    `init_weights_` would give the position kernel's MLP N(0, 1 / fan_in)
+    weights, a kernel ~500 times the module's N(0, 0.002^2) one, whose
+    convolutions over 2,048 frames blow the activations up until bf16
+    rounding alone turns the gradient around."""
+    from lcasr_torch.ops.long_conv import ConformerLongConvolution
+
+    torch.manual_seed(seed)
+    for layer in model.layers:
+        conv = layer.conv
+        fresh = ConformerLongConvolution(
+            conv.long_conv.d_model, l_max=conv.long_conv.l_max,
+            position_kernel=conv.long_conv.position_kernel,
+            weight_init=conv.long_conv.weight_init)
+        conv.load_state_dict(fresh.state_dict())
+    return model
+
+
+def variants_longconv(torch, workdir: str) -> dict:
+    """The flagship's width with conv_type longconv: one 16384 x 4 forward
+    (9 K1) and one micro step through the Trainer (18 K1 + 9 K3: every
+    layer recomputed), its loss and gradient gated against plain fp32
+    attention as phase train gates the flagship's; then one forward with
+    the direct kernel and frequency smoothing."""
+    from lcasr_torch import kernels
+    from lcasr_torch.config import Config
+    from lcasr_torch.models.registry import load_model
+    from lcasr_torch.models.sconformer_xl import FLAGSHIP, SCConformerXL, init_weights_
+    from lcasr_torch.training.trainer import Trainer
+
+    cfg_d = merged(LADDER_CONFIG, {"model": {"conv_type": "longconv"}})
+    run = TrainRun(torch, workdir, cfg_d, None, {}, "longconv")
+    batch, chunk = run.chunk_16384x4()
+    model = longconv_initialised(torch, init_weights_(load_model(run.cfg, 4095, device=DEVICE),
+                                                      seed=5), seed=5)
+    trainer = Trainer(run.cfg, model, run.tok, device=DEVICE,
+                      checkpoint_dir=os.path.join(run.tmp, "ckpt_longconv"))
+    trainer.init_state()
+    audio = torch.from_numpy(chunk["audio"]).to(DEVICE)
+    lens = torch.from_numpy(chunk["audio_lengths"]).to(DEVICE)
+    out = {}
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        lp = model(audio, length=lens)["final_posteriors"]
+        out["forward_launches"] = expect_launches({"flash_attention_fwd": model.n_layers},
+                                                  "the longconv forward")
+    if not torch.isfinite(lp).all():
+        raise AssertionError("the longconv forward is not finite")
+    kernels.reset_launch_counts()
+    trainer.zero_pending()
+    loss, _ = trainer.micro_step(chunk)
+    torch.cuda.synchronize()
+    out["step_launches"] = expect_launches(
+        {"flash_attention_fwd": 2 * model.n_layers, "flash_attention_bwd_fused": model.n_layers},
+        "the longconv micro step")
+
+    def one_step():
+        trainer.zero_pending()
+        loss, _ = trainer.micro_step(chunk)
+        return float(loss), flat_grads(model)
+
+    out["gate"] = gradient_gate("longconv", "plain fp32 attention", one_step, plain_attention(),
+                                {"plain bf16 attention": plain_attention(bf16=True)},
+                                min_numel=LONGCONV_COS_MIN_NUMEL)
+    trainer.zero_pending()
+    del trainer, model
+    direct = longconv_initialised(torch, init_weights_(SCConformerXL(
+        **FLAGSHIP, conv_type="longconv", longconv_position_kernel=False,
+        longconv_ma_smoothing=True, longconv_smooth_freq=True, longconv_weight_init="double_exp",
+        dtype=torch.bfloat16, device=DEVICE), seed=6), seed=6)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        lp = direct(audio, length=lens)["final_posteriors"]
+        out["direct_launches"] = expect_launches({"flash_attention_fwd": direct.n_layers},
+                                                 "the direct-kernel longconv forward")
+    norm_err = (lp.exp().sum(-1) - 1).abs().max().item()
+    if not (torch.isfinite(lp).all() and norm_err <= 1e-3):
+        raise AssertionError("the direct-kernel longconv forward is not finite and normalised")
+    log(f"  longconv: forward launches {out['forward_launches']}, micro step loss "
+        f"{float(loss):.4f} launches {out['step_launches']}; the direct kernel with frequency "
+        f"smoothing: forward finite, normalisation error {norm_err:.1e}, launches "
+        f"{out['direct_launches']}")
+    del direct
+    return out
+
+
+def phase_variants(torch, workdir: str) -> dict:
+    out, seconds = {}, {}
+    model = flagship_model(torch)
+    for name, fn, args in (("w8a8_decode", variants_w8a8_decode, (torch, model)),
+                           ("int8_gemm", variants_int8_gemm, (torch,)),
+                           ("families", variants_families, (torch,)),
+                           ("longconv", variants_longconv, (torch, workdir))):
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        torch.cuda.empty_cache()
+    log(f"  phase variants seconds: {seconds}")
+    out["seconds"] = seconds
+    return out
+
+
+def adapt_meta(torch, workdir: str) -> dict:
+    """SCConformerMeta at its class defaults (vocab 4095, bf16):
+    MetaTrainer.train_utterances over META_UTTERANCES seeded utterances of
+    META_FRAMES frames (7 K1 + 1 K3 a step: the frozen encoder's 6, the
+    meta layer's forward and backward); only the meta branch moves; then
+    refine_at_inference for META_REFINE_ITERATIONS iterations."""
+    import numpy as np
+
+    from lcasr_torch import kernels
+    from lcasr_torch.config import Config
+    from lcasr_torch.data.tokenizer import load_tokenizer
+    from lcasr_torch.data.utterances import UtteranceDataloader, save_utterances
+    from lcasr_torch.models.sconformer_meta import (
+        META_PARAM_PREFIXES, SCConformerMeta, refine_at_inference)
+    from lcasr_torch.models.sconformer_xl import init_weights_
+    from lcasr_torch.training.meta import MetaTrainer
+
+    tok = load_tokenizer()
+    corpus = os.path.join(workdir, "meta_corpus")
+    os.makedirs(corpus, exist_ok=True)
+    # two recordings, cut into META_UTTERANCES utterances
+    pairs = make_corpus(corpus, [META_FRAMES * META_UTTERANCES // 2] * 2, seed=8)
+    utt_dir = os.path.join(workdir, "meta_utterances")
+    n_utt = len(save_utterances(pairs, utt_dir, tok, chunk_size=META_FRAMES))
+    if n_utt != META_UTTERANCES:
+        raise AssertionError(f"save_utterances wrote {n_utt} utterances")
+    model = init_weights_(SCConformerMeta(vocab_size=4095, dtype=torch.bfloat16,
+                                          device=DEVICE), seed=9)
+    cfg = Config({"training": {"loss": "l2", "batch_size": META_BATCH, "max_epochs": 1},
+                  "audio_chunking": {"size": META_FRAMES},
+                  "optimizer": {"name": "madgrad", "args": {"lr": 1e-3}},
+                  "scheduler": {"warmup_steps": 0}})
+    ckpt = os.path.join(workdir, "meta_ckpt")
+    trainer = MetaTrainer(cfg, model, tok, checkpoint_dir=ckpt, device=DEVICE).init_state()
+    frozen = [k for k, _ in model.named_parameters() if not k.startswith(META_PARAM_PREFIXES)]
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    loader = UtteranceDataloader(utt_dir, batch_size=META_BATCH, shuffle=True, random_seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    steps = trainer.train_utterances(loader)
+    torch.cuda.synchronize()
+    launches = expect_launches({"flash_attention_fwd": 7 * steps,
+                                "flash_attention_bwd_fused": steps}, "meta training")
+    peak = peak_gb(torch)
+    same_bits(torch, before, model, "meta training (a frozen parameter)", frozen)
+    moved = sum(1 for k, p in model.named_parameters()
+                if k.startswith(META_PARAM_PREFIXES) and not torch.equal(p, before[k]))
+    rows = [json.loads(line) for line in open(os.path.join(ckpt, "metrics.jsonl"))]
+    ms = [(b["ts"] - a["ts"]) * 1e3 for a, b in zip(rows, rows[1:])]
+    losses = {k: [r[k] for r in rows] for k in ("meta_loss_1", "meta_loss_2", "cosim")}
+    if not (moved and all(np.isfinite(v).all() for v in losses.values())):
+        raise AssertionError(f"meta training: {moved} meta tensors moved, losses {losses}")
+    log(f"  meta training, {n_utt} utterances of {META_FRAMES} frames, {steps} steps of "
+        f"{META_BATCH}: step ms (from the second) {[round(t, 1) for t in ms]}, meta_loss_1 "
+        f"{[round(v, 4) for v in losses['meta_loss_1']]}, meta_loss_2 (permuted rows) "
+        f"{[round(v, 4) for v in losses['meta_loss_2']]}, cosim "
+        f"{[round(v, 4) for v in losses['cosim']]}; peak memory {peak:.2f} GB, launches "
+        f"{launches}; {len(frozen)} frozen tensors the same bits, {moved} meta tensors moved")
+    batch = next(iter(loader))
+    audio = torch.from_numpy(batch["audio"]).to(DEVICE)
+    lens = torch.from_numpy(batch["audio_lengths"]).to(DEVICE)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    refined = refine_at_inference(model, audio, lens, iterations=META_REFINE_ITERATIONS)
+    torch.cuda.synchronize()
+    refine_ms = (time.perf_counter() - t0) * 1e3
+    refine_launches = expect_launches(
+        {"flash_attention_fwd": 6 + META_REFINE_ITERATIONS}, "refine_at_inference")
+    if not torch.isfinite(refined["final_posteriors"]).all():
+        raise AssertionError("refine_at_inference is not finite")
+    log(f"  refine_at_inference, {META_REFINE_ITERATIONS} iterations on ({audio.shape[0]}, 80, "
+        f"{audio.shape[-1]}): {refine_ms:.1f} ms, launches {refine_launches}")
+    del trainer, model
+    return {"steps": steps, "step_ms": ms, "losses": losses, "launches": launches,
+            "peak_gb": peak, "refine_ms": refine_ms, "refine_launches": refine_launches}
+
+
+def dyn_eval_chunks(frames: int) -> int:
+    """Chunks of `dynamic_eval_ctc_loss` over `frames` (the moving-window rule)."""
+    n, last = 0, None
+    for i in range(0, frames, SEQ_LEN - OVERLAP):
+        u = min(SEQ_LEN, frames - i)
+        n += 1
+        if last is not None and u < last:
+            break
+        last = u
+    return n
+
+
+def adapt_dynamic_eval(torch, model) -> dict:
+    """dynamic_eval_ctc_loss on the flagship over DYN_FRAMES frames: at lr 0
+    its log-probs agree with StreamingDecoder's averaged decode, at lr 8e-5
+    they differ; after either, the state_dict is the same bits as before."""
+    import numpy as np
+
+    from lcasr_torch import kernels
+    from lcasr_torch.data.tokenizer import load_tokenizer
+    from lcasr_torch.evaluation.dynamic_eval import dynamic_eval_ctc_loss
+    from lcasr_torch.evaluation.streaming import StreamingDecoder
+
+    tok = load_tokenizer()
+    spec = seeded_spec(10, DYN_FRAMES)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    n_chunks = dyn_eval_chunks(DYN_FRAMES)
+    L = model.n_layers
+    out = {}
+    for name, lr in (("lr0", 0.0), ("adapted", DYN_LR)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        lp = dynamic_eval_ctc_loss(model, spec, SEQ_LEN, OVERLAP, tok,
+                                   num_negatives=DYN_NEGATIVES, epochs=1, lr=lr)
+        seconds = time.perf_counter() - t0
+        launches = expect_launches({"flash_attention_fwd": 2 * L * n_chunks,
+                                    "flash_attention_bwd_fused": L * n_chunks},
+                                   f"dynamic evaluation at lr {lr}")
+        same_bits(torch, before, model, f"dynamic evaluation at lr {lr}")
+        out[name] = {"seconds": seconds, "launches": launches, "peak_gb": peak_gb(torch),
+                     "lp": lp}
+        log(f"  dynamic evaluation of {DYN_FRAMES} frames at lr {lr:g} ({n_chunks} chunks of "
+            f"{SEQ_LEN}, overlap {OVERLAP}, {DYN_NEGATIVES} negatives): {seconds:.2f} s, "
+            f"peak memory {out[name]['peak_gb']:.2f} GB, launches {launches}; the state_dict "
+            f"the same bits after")
+    plain = StreamingDecoder(model, 4096, window_batch_size=WINDOW_BATCH,
+                             transfer_dtype=torch.float32, device=DEVICE).logits(
+        spec, seq_len=SEQ_LEN, overlap=OVERLAP)
+    lp0, lp1 = out["lr0"].pop("lp"), out["adapted"].pop("lp")
+    if lp0.shape != plain.shape:
+        raise AssertionError(f"dynamic evaluation gave {lp0.shape}, the decode {plain.shape}")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))[None].to(DEVICE)  # noqa: E731
+    n = torch.tensor([plain.shape[0]], device=DEVICE)
+    agree, max_d, mean_d = logprob_agreement(torch, t(lp0), t(plain), n,
+                                             "dynamic evaluation at lr 0 against the decode")
+    moved = float(np.abs(lp1 - lp0).max())
+    log(f"  at lr 0 against StreamingDecoder's averaged decode: argmax agreement {agree:.5f}, "
+        f"max|dlogp| {max_d:.3e}, mean|dlogp| {mean_d:.2e}; at lr {DYN_LR:g} the log-probs "
+        f"move by up to {moved:.3e}")
+    if not moved > max(10 * max_d, 1e-3):
+        raise AssertionError(f"dynamic evaluation at lr {DYN_LR} did not move the log-probs "
+                             f"({moved} against {max_d} at lr 0)")
+    out.update(agreement=agree, max_dlogp=max_d, mean_dlogp=mean_d, adapted_max_dlogp=moved)
+    return out
+
+
+def adapt_selftrain(torch, model) -> dict:
+    """SelfTrainWrapper on one SELFTRAIN_FRAMES-frame utterance for
+    SELFTRAIN_ITERATIONS iterations: 9 K1 a pseudo-label pass and a step
+    forward, 9 K3 a step, 9 K1 the final pass; the model the same bits
+    after."""
+    from lcasr_torch import kernels
+    from lcasr_torch.data.tokenizer import load_tokenizer
+    from lcasr_torch.evaluation.selftrain import SelfTrainWrapper
+
+    L, it = model.n_layers, SELFTRAIN_ITERATIONS
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    audio = seeded_spec(11, SELFTRAIN_FRAMES)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = SelfTrainWrapper(model, load_tokenizer(), n_iterations=it)(audio)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = expect_launches({"flash_attention_fwd": (2 * it + 1) * L,
+                                "flash_attention_bwd_fused": it * L}, "self-training")
+    same_bits(torch, before, model, "self-training")
+    if not torch.isfinite(out["final_posteriors"]).all():
+        raise AssertionError("self-training's output is not finite")
+    log(f"  SelfTrainWrapper, {it} iterations on {SELFTRAIN_FRAMES} frames: {seconds:.2f} s, "
+        f"launches {launches}; the state_dict the same bits after")
+    return {"seconds": seconds, "launches": launches}
+
+
+def phase_adapt(torch, workdir: str) -> dict:
+    out, seconds = {}, {}
+    t0 = time.perf_counter()
+    out["meta"] = adapt_meta(torch, workdir)
+    seconds["meta"] = round(time.perf_counter() - t0, 1)
+    torch.cuda.empty_cache()
+    model = flagship_model(torch)
+    for name, fn in (("dynamic_eval", adapt_dynamic_eval), ("selftrain", adapt_selftrain)):
+        t0 = time.perf_counter()
+        out[name] = fn(torch, model)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        torch.cuda.empty_cache()
+    log(f"  phase adapt seconds: {seconds}")
+    out["seconds"] = seconds
+    return out
+
+
+class PhaseClock:
+    """Seconds of each phase, logged as it ends."""
+
+    def __init__(self):
+        self.seconds, self._name, self._t0 = {}, None, None
+
+    def start(self, name: str) -> None:
+        self.stop()
+        self._name, self._t0 = name, time.perf_counter()
+
+    def stop(self) -> None:
+        if self._name is not None:
+            self.seconds[self._name] = round(time.perf_counter() - self._t0, 1)
+            log(f"  phase {self._name}: {self.seconds[self._name]} s")
+            self._name = None
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -4532,7 +5242,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gpu = gpu_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
-    log("[1/16] build")
+    clock = PhaseClock()
+    clock.start("build")
+    log("[1/19] build")
     build_s = kernels.build()
     log(f"  build {build_s:.2f} s into {kernels.BUILD_DIR}")
     for src, text in kernels.build_log.items():
@@ -4548,7 +5260,8 @@ def main() -> int:
     results = {}
     workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_train")
     if "kernels" in phases:
-        log("[2/16] kernels against their plain versions")
+        clock.start("kernels")
+        log("[2/19] kernels against their plain versions")
         results["flash_attention_fwd"] = phase_kernels(torch)
         results["flash_attention_fwd_db"] = phase_kernels_db(torch)
         fwd_registers = {**template_entries(kernels.build_log["flash_attn_fwd.cu"]),
@@ -4561,11 +5274,13 @@ def main() -> int:
         results["subsampling_fused"] = phase_kernels_sub(torch)
     model = None
     if "model" in phases:
-        log("[3/16] flagship model, one window batch")
+        clock.start("model")
+        log("[3/19] flagship model, one window batch")
         model = flagship_model(torch)
         phase_model(torch, model, plain_attention(), "flagship")
     if "decode" in phases:
-        log("[4/16] 20-minute streaming greedy decode (the serving path)")
+        clock.start("decode")
+        log("[4/19] 20-minute streaming greedy decode (the serving path)")
         model = model or flagship_model(torch)
         launches, _, rows = phase_decode(torch, model,
                                          {"flash_attention_fwd": EXPECTED_LAUNCHES},
@@ -4580,7 +5295,8 @@ def main() -> int:
             f"(kernel phase, launches back to back: {k1.get('ms')} ms)")
     del model
     if "train" in phases:
-        log("[5/16] training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1 "
+        clock.start("train")
+        log("[5/19] training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1 "
             "(the training path)")
         os.makedirs(workdir, exist_ok=True)
         try:
@@ -4599,7 +5315,8 @@ def main() -> int:
         results["flash_attention_bwd_fused"]["train_step_profile"] = k3_step
         results["flash_attention_fwd"]["train_host_side"] = host
     if "train_d256" in phases:
-        log("[6/16] lcasr_6l_768d_3h (head_dim 256) trains: K1 and K3 at D = 256")
+        clock.start("train_d256")
+        log("[6/19] lcasr_6l_768d_3h (head_dim 256) trains: K1 and K3 at D = 256")
         os.makedirs(workdir, exist_ok=True)
         try:
             d256 = phase_train_d256(torch, workdir)
@@ -4611,7 +5328,8 @@ def main() -> int:
         results["flash_attention_bwd_fused"]["train_d256"] = {
             k: v for k, v in d256.items() if k != "launches"}
     if "utterances" in phases:
-        log("[7/16] utterance training with debug hooks, and wild-card CTC on the card")
+        clock.start("utterances")
+        log("[7/19] utterance training with debug hooks, and wild-card CTC on the card")
         os.makedirs(workdir, exist_ok=True)
         try:
             utt = phase_utterances(torch, workdir)
@@ -4622,7 +5340,8 @@ def main() -> int:
         results["flash_attention_fwd"]["utterances_phase"] = {
             k: v for k, v in utt.items() if k != "launches"}
     if "mamba_decode" in phases:
-        log("[8/16] Mamba: one window batch, then the 20-minute streaming greedy decode")
+        clock.start("mamba_decode")
+        log("[8/19] Mamba: one window batch, then the 20-minute streaming greedy decode")
         model = mamba_model(torch)
         phase_model(torch, model, plain_scan(torch.float32), "Mamba")
         launches, rtfx, rows = phase_decode(
@@ -4634,7 +5353,8 @@ def main() -> int:
         k6["decode_profile"] = dict(profile_share(rows, SSM_KERNELS["selective_scan_fwd"][0],
                                                   "K6", "the Mamba decode"), rtfx=rtfx)
     if "mamba_train" in phases:
-        log("[9/16] Mamba training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1")
+        clock.start("mamba_train")
+        log("[9/19] Mamba training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1")
         os.makedirs(workdir, exist_ok=True)
         try:
             ladder, k6_step, k7_step, host = phase_mamba_train(torch, workdir)
@@ -4649,14 +5369,16 @@ def main() -> int:
         k6["train_step_profile"] = k6_step
         k6["train_host_side"] = host
     if "decode_opt" in phases:
-        log("[10/16] the opt-in decode configuration (K2, K8) and the decoder's options")
+        clock.start("decode_opt")
+        log("[10/19] the opt-in decode configuration (K2, K8) and the decoder's options")
         launches, mamba_launches, numbers = phase_decode_opt(torch)
         for key in ("flash_attention_fwd_db", "subsampling_fused"):
             results.setdefault(key, {"name": key})["launches"] = launches[key]
         results["subsampling_fused"]["launches_mamba_decode"] = mamba_launches["subsampling_fused"]
         results["subsampling_fused"].update(numbers)
     if "train_opt" in phases:
-        log("[11/16] one training step under both flags, and under each alone, against the "
+        clock.start("train_opt")
+        log("[11/19] one training step under both flags, and under each alone, against the "
             "same step without")
         os.makedirs(workdir, exist_ok=True)
         try:
@@ -4674,7 +5396,8 @@ def main() -> int:
         try:
             k1 = results.setdefault("flash_attention_fwd", {"name": "flash_attention_fwd"})
             if "audio" in phases:
-                log("[12/16] from a WAV file to a transcript and a WER: the frontend on the "
+                clock.start("audio")
+                log("[12/19] from a WAV file to a transcript and a WER: the frontend on the "
                     "card, evaluate in its three modes, the head_dim-256 model")
                 audio = phase_audio(torch, audio_dir, args.seed)
                 k1["audio_phase"] = audio
@@ -4682,12 +5405,14 @@ def main() -> int:
                 results.setdefault("flash_attention_fwd_db", {"name": "flash_attention_fwd_db"})[
                     "launches_d256_decode"] = audio["wav_d256_k2"]["launches"]
             if "serve" in phases:
-                log("[13/16] the streaming server: 4 sessions on the flagship, then the CLI")
+                clock.start("serve")
+                log("[13/19] the streaming server: 4 sessions on the flagship, then the CLI")
                 k1["serve_phase"] = phase_serve(torch, audio_dir, args.seed)
         finally:
             shutil.rmtree(audio_dir, ignore_errors=True)
     if "enc_dec" in phases:
-        log("[14/16] the encoder-decoder family: forwards, greedy decoding both ways, "
+        clock.start("enc_dec")
+        log("[14/19] the encoder-decoder family: forwards, greedy decoding both ways, "
             "enc_dec training, the internal-LM beam search")
         os.makedirs(workdir, exist_ok=True)
         try:
@@ -4703,7 +5428,8 @@ def main() -> int:
             entry["launches_enc_dec_ladder"] = enc_dec["train"]["launches_ladder"][key]
         k1["enc_dec_phase"] = enc_dec
     if "lm" in phases:
-        log("[15/16] decoding with a language model: train_lm, cached steps, create_logits, "
+        clock.start("lm")
+        log("[15/19] decoding with a language model: train_lm, cached steps, create_logits, "
             "the beam searches, beam serving")
         lm_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_lm")
         os.makedirs(lm_dir, exist_ok=True)
@@ -4716,7 +5442,8 @@ def main() -> int:
         k1["launches_lm_serve_beam"] = lm_out["serve"]["launches"]
         k1["lm_phase"] = lm_out
     if "parallel" in phases:
-        log("[16/16] parallelism: the ring schedule on the card, then a world of one over NCCL "
+        clock.start("parallel")
+        log("[16/19] parallelism: the ring schedule on the card, then a world of one over NCCL "
             "(the flagship step, the TP model's ZeRO step, the mesh decode)")
         par_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                                "smoke_parallel")
@@ -4740,6 +5467,57 @@ def main() -> int:
             entry["launches_ring"] = ring["launches_bwd"][key]
             entry["ring_phase"] = {"window": ring["window"], "rel_l2": ring["rel_l2"],
                                    "ms": ring["ms"]}
+    k1 = results.setdefault("flash_attention_fwd", {"name": "flash_attention_fwd"})
+    k3 = results.setdefault("flash_attention_bwd_fused", {"name": "flash_attention_bwd_fused"})
+    if "analysis" in phases:
+        clock.start("analysis")
+        log("[17/19] the paper's analysis on the flagship: attention statistics over one hour, "
+            "probability rows against plain attention, attribution, the rotary probe")
+        ana = phase_analysis(torch)
+        k1["launches_analysis_summary"] = ana["summary"]["launches"]["flash_attention_fwd"]
+        k1["launches_attribution"] = ana["attribution"]["launches"]["flash_attention_fwd"]
+        k3["launches_attribution"] = ana["attribution"]["launches"]["flash_attention_bwd_fused"]
+        k1["launches_rotary_probe"] = ana["probe"]["launches"]["flash_attention_fwd"]
+        k1["analysis_phase"] = ana
+    if "variants" in phases:
+        clock.start("variants")
+        log("[18/19] model variants: the W8A8 decode under three policies, the int8 product, "
+            "the other families under W8A8, long convolutions")
+        var_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                               "smoke_variants")
+        os.makedirs(var_dir, exist_ok=True)
+        try:
+            var = phase_variants(torch, var_dir)
+        finally:
+            shutil.rmtree(var_dir, ignore_errors=True)
+        k1["launches_w8a8_decode"] = {p: v["launches"]["flash_attention_fwd"]
+                                      for p, v in var["w8a8_decode"].items()}
+        k1["launches_longconv_step"] = var["longconv"]["step_launches"]["flash_attention_fwd"]
+        k3["launches_longconv_step"] = var["longconv"]["step_launches"][
+            "flash_attention_bwd_fused"]
+        results.setdefault("selective_scan_fwd", {"name": "selective_scan_fwd"})[
+            "launches_w8a8_mamba_forward"] = var["families"]["Mamba"]["launches"][
+            "selective_scan_fwd"]
+        k1["variants_phase"] = var
+    if "adapt" in phases:
+        clock.start("adapt")
+        log("[19/19] test-time adaptation: the meta-learning conformer and its trainer, "
+            "dynamic evaluation, self-training")
+        adapt_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                 "smoke_adapt")
+        os.makedirs(adapt_dir, exist_ok=True)
+        try:
+            adapt = phase_adapt(torch, adapt_dir)
+        finally:
+            shutil.rmtree(adapt_dir, ignore_errors=True)
+        for key, entry in (("flash_attention_fwd", k1), ("flash_attention_bwd_fused", k3)):
+            entry["launches_meta_train"] = adapt["meta"]["launches"][key]
+            entry["launches_dynamic_eval"] = adapt["dynamic_eval"]["adapted"]["launches"][key]
+            entry["launches_selftrain"] = adapt["selftrain"]["launches"][key]
+        k1["launches_meta_refine"] = adapt["meta"]["refine_launches"]["flash_attention_fwd"]
+        k1["adapt_phase"] = adapt
+    clock.stop()
+    log(f"  phase seconds: {clock.seconds}")
     name, power = [s.strip() for s in gpu.split(",", 1)]
     for entry in results.values():
         entry.update(gpu=name, power_limit=power)

@@ -102,13 +102,10 @@ def evaluate(
     pipeline_upload: bool = False,  # stripe uploads to overlap with compute
     data_parallel: bool = False,  # shard decode windows over the world's ranks
     context_parallel: bool = False,  # windowed_attention: shard the time axis
-    quant_w8a8: Any = False,  # not ported (ROADMAP queue A6)
+    quant_w8a8: Any = False,  # W8A8 policy: True | "all" | "auto" | "ff,decoder" | sites
     cache_upload: bool = False,  # keep a recording's upload for a second decode
     device=None,
 ) -> Dict[str, Any]:
-    if quant_w8a8:
-        raise NotImplementedError("quant_w8a8 (W8A8 projections) is not ported yet "
-                                  "(ROADMAP queue A6)")
     device = resolve_device(device)
     cfg, state_dict = load_any_checkpoint(checkpoint)
     tokenizer = load_tokenizer()
@@ -147,7 +144,20 @@ def evaluate(
         world = world_size()
         verbose = verbose and rank() == 0
 
+    if quant_w8a8:
+        # any checkpoint serves W8A8: the parameters are unchanged, the policy
+        # only sends the projections of its sites through int8 (ops/qdense.py)
+        if isinstance(quant_w8a8, str) and "," in quant_w8a8:
+            quant_w8a8 = tuple(t for t in quant_w8a8.split(",") if t)
+        if quant_w8a8 == "all":
+            quant_w8a8 = True
+        model_cfg["quant_w8a8"] = quant_w8a8
     model = build_model(cfg, state_dict, tokenizer.vocab_size(), device, model_cfg)
+    if quant_w8a8 and not getattr(model, "quant_sites", None):
+        import warnings
+
+        warnings.warn(f"{type(model).__name__} has no quant_w8a8 path: serving unquantised",
+                      stacklevel=2)
     mesh = cp_model_fn = None
     if evaluation_mode == "buffered":
         model_fn = make_windowed_model_fn(model)
@@ -288,6 +298,11 @@ def main():
                         help="windowed_attention mode under torchrun: shard the single "
                              "pass's time axis over every rank (for recordings whose "
                              "forward exceeds one card's memory)")
+    parser.add_argument(
+        "--w8a8", nargs="?", const="auto", default=False,
+        help="run the projections W8A8 through int8 (ops/qdense.py); the value is the "
+             "policy: 'auto' (the default: feed-forward, decoder and LM heads), 'all', or "
+             "site names joined by commas (e.g. 'ff,decoder,conv')")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the default) or cpu (the kernels' plain versions)")
     parser.add_argument("--dataset_base_path", default=None)
@@ -313,6 +328,7 @@ def main():
         cache_upload=args.cache_upload,
         data_parallel=args.data_parallel,
         context_parallel=args.context_parallel,
+        quant_w8a8=args.w8a8,
         device=args.device,
     )
 

@@ -22,8 +22,9 @@ class ASRLinearSCDecoder(nn.Module):
         super().__init__()
         self.num_classes = vocab_size + 1
         self.norm = get_norm(norm_type)(d_model) if norm else None
-        self.ff = Dense(d_model, self.num_classes, dtype=dtype)
-        self.reprojection = Dense(self.num_classes, d_model, dtype=dtype) if reproject else None
+        self.ff = Dense(d_model, self.num_classes, dtype=dtype, site="decoder")
+        self.reprojection = (Dense(self.num_classes, d_model, dtype=dtype, site="decoder")
+                             if reproject else None)
 
     def apply_norm(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(x) if self.norm is not None else x

@@ -50,6 +50,7 @@ from lcasr_torch.ops.ctc import ctc_loss
 from lcasr_torch.ops.dense import Dense
 from lcasr_torch.ops.mlp import ConformerFeedForward
 from lcasr_torch.ops.norms import get_norm
+from lcasr_torch.ops.qdense import TRAIN_REFUSAL, apply_quant_policy
 from lcasr_torch.ops.rotary import RotaryEmbedding, apply_rotary, rotate_half
 
 Cache = Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
@@ -100,8 +101,9 @@ class DecoderSelfAttention(nn.Module):
                  cosine: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_heads, self.head_dim, self.cosine = n_heads, head_dim, cosine
-        self.qkv_proj = Dense(d_model, 3 * n_heads * head_dim, bias=False, dtype=dtype)
-        self.out_proj = Dense(n_heads * head_dim, d_model, bias=bias, dtype=dtype)
+        self.qkv_proj = Dense(d_model, 3 * n_heads * head_dim, bias=False, dtype=dtype,
+                              site="proj")
+        self.out_proj = Dense(n_heads * head_dim, d_model, bias=bias, dtype=dtype, site="proj")
         if cosine:
             self.temperature = nn.Parameter(torch.tensor(15.5))
 
@@ -161,9 +163,10 @@ class CrossAttention(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_heads, self.head_dim = n_heads, head_dim
-        self.kv_proj = Dense(d_model, 2 * n_heads * head_dim, bias=False, dtype=dtype)
-        self.q_proj = Dense(d_model, n_heads * head_dim, bias=False, dtype=dtype)
-        self.out_proj = Dense(n_heads * head_dim, d_model, bias=bias, dtype=dtype)
+        self.kv_proj = Dense(d_model, 2 * n_heads * head_dim, bias=False, dtype=dtype,
+                             site="proj")
+        self.q_proj = Dense(d_model, n_heads * head_dim, bias=False, dtype=dtype, site="proj")
+        self.out_proj = Dense(n_heads * head_dim, d_model, bias=bias, dtype=dtype, site="proj")
 
     def project_kv(self, xkv: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         B, Tk, _ = xkv.shape
@@ -217,9 +220,9 @@ class CrossAttnDecoder(nn.Module):
                 d_model, n_heads, head_dim, bias=bias_in_ff, dtype=dtype))
             self.add_module(f"ff_norm_{i}", Norm(d_model))
             self.add_module(f"ff_{i}", ConformerFeedForward(
-                d_model, bias1=bias_in_ff, bias2=bias_in_ff, dtype=dtype))
+                d_model, bias1=bias_in_ff, bias2=bias_in_ff, dtype=dtype, site="ff"))
         self.out_norm = Norm(d_model)
-        self.out_proj = Dense(d_model, vocab_size, dtype=dtype)
+        self.out_proj = Dense(d_model, vocab_size, dtype=dtype, site="lm_head")
 
     def _layer(self, name: str, i: int) -> nn.Module:
         return getattr(self, f"{name}_{i}")
@@ -272,7 +275,6 @@ class CrossAttnDecoder(nn.Module):
 # options of the JAX model that are not ported: name -> (accepted default, what)
 _NOT_PORTED = {
     "use_pallas": (True, "a TPU switch; the port always runs its own kernel"),
-    "quant_w8a8": (False, "W8A8 quantisation (ROADMAP queue A6)"),
 }
 
 
@@ -312,6 +314,7 @@ class EncDecSconformer(nn.Module):
         bias_in_ff: bool = False,
         cosine_attention: Optional[bool] = None,
         use_dynamic_pos_bias: Optional[bool] = None,
+        quant_w8a8=False,  # False | True | "auto" | site names (ops/qdense.py)
         dtype: torch.dtype = torch.float32,
         device=None,
         **not_ported,
@@ -351,12 +354,15 @@ class EncDecSconformer(nn.Module):
         if use_rotary:
             self.rotary_pos_emb = RotaryEmbedding(head_dim, base=rotary_base_freq)
         self.encoder_pos_enc = LearnableFourierPosEnc(d_model, hidden_dim=64, dtype=dtype)
+        apply_quant_policy(self, quant_w8a8)
         self.to(device)
         self.eval()
 
     def encode(self, audio_signal: torch.Tensor, length: Optional[torch.Tensor] = None,
                train: bool = False):
         """-> (acoustic states (B, T', d_model), CTC log-probs or None, length)."""
+        if train and self.quant_sites:
+            raise ValueError(TRAIN_REFUSAL)
         x = audio_signal.transpose(1, 2).to(self.dtype)
         have_lengths = length is not None
         if not have_lengths:

@@ -4,9 +4,11 @@ models and TransformerLM <-> the port's state_dict.
 The inverse direction of lcasr_tpu/models/import_torch.py, for the port's
 own module tree (whose names follow the flax tree one to one):
 
-  * `layers_3` -> `layers.3`; every other module name is kept;
+  * `layers_3` -> `layers.3` (`meta_layers_0` -> `meta_layers.0`); every
+    other module name is kept;
   * Dense kernel (in, out) -> weight (out, in);
-  * Conv kernel HWIO -> OIHW;
+  * Conv kernel HWIO -> OIHW; the long convolution's direct kernel
+    (channels, H, l_max) and its `base_rates` are kept;
   * depthwise conv kernel (K, C) -> (C, 1, K);
   * norm `scale` / `bias`, BatchRenorm and BatchNorm `weight` / `bias` and
     their `batch_stats` (`running_mean`, `running_std` or `running_var`,
@@ -41,13 +43,14 @@ _MODULE = re.compile(
     r"pre_norm|proj_out|mixer|in_proj|x_proj|y_out|"
     r"language_model_decoder|(self|cross)_attn_\d+|(self|cross|ff)_norm_\d+|ff_\d+|"
     r"q_proj|kv_proj|embed|pos_enc|encoder_pos_enc|dynamic_pos_bias|proj|out_norm|"
-    r"acoustic_norm|qkv_\d+|out_\d+|attn_norm_\d+|lm_head)$"
+    r"acoustic_norm|qkv_\d+|out_\d+|attn_norm_\d+|lm_head|"
+    r"long_conv|kernel|mlp_in|mlp_out|output_linear|meta_layers_\d+|meta_decoder|combiner)$"
 )
 _PARAM_LEAVES = {"kernel", "bias", "scale", "weight", "depthwise_kernel",
                  "depthwise_bias", "inv_freq", "w_r",
                  "conv1d_fwd_kernel", "conv1d_fwd_bias", "conv1d_rvse_kernel",
                  "conv1d_rvse_bias", "dt_proj_kernel", "dt_proj_bias", "A_log", "D",
-                 "embedding", "temperature"}
+                 "embedding", "temperature", "base_rates"}
 _STAT_LEAVES = {"running_mean", "running_std", "running_var", "num_batches_tracked"}
 
 
@@ -65,8 +68,10 @@ def _convert(path: Tuple[str, ...], leaf: np.ndarray) -> Tuple[str, np.ndarray]:
     for m in mods:
         if not _MODULE.match(m):
             raise ValueError(f"unknown module {m!r} in flax path {'/'.join(path)}")
-    mods = [re.sub(r"^layers_(\d+)$", r"layers.\1", m) for m in mods]
-    if name == "kernel":
+    mods = [re.sub(r"^(meta_)?layers_(\d+)$", r"\1layers.\2", m) for m in mods]
+    if name == "kernel" and leaf.ndim == 3:
+        pass  # the long convolution's direct (channels, H, l_max) kernel, as it is
+    elif name == "kernel":
         name = "weight"
         if leaf.ndim == 2:  # Dense (in, out) -> (out, in)
             leaf = leaf.T
@@ -104,8 +109,8 @@ def flax_path(key: str, tensor: torch.Tensor) -> Tuple[str, Tuple[str, ...]]:
     mods, name = [], parts[-1]
     i = 0
     while i < len(parts) - 1:
-        if parts[i] == "layers":
-            mods.append(f"layers_{parts[i + 1]}")
+        if parts[i] in ("layers", "meta_layers"):
+            mods.append(f"{parts[i]}_{parts[i + 1]}")
             i += 2
         else:
             mods.append(parts[i])
@@ -124,7 +129,7 @@ def flax_from_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     for key, t in sd.items():
         collection, path = flax_path(key, t)
         arr = t.detach().cpu().numpy()
-        if path[-1] == "kernel":
+        if path[-1] == "kernel" and arr.ndim in (2, 4):
             arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
         elif path[-1] == "depthwise_kernel":  # (C, 1, K) -> (K, C)
             arr = arr[:, 0, :].T

@@ -32,6 +32,7 @@ from lcasr_torch.ops.attention import NEG_INF
 from lcasr_torch.ops.dense import Dense
 from lcasr_torch.ops.mlp import ConformerFeedForward
 from lcasr_torch.ops.norms import get_norm
+from lcasr_torch.ops.qdense import TRAIN_REFUSAL, apply_quant_policy
 from lcasr_torch.ops.rotary import _inv_freq, apply_rotary, rotary_tables, rotate_half
 
 
@@ -41,8 +42,7 @@ class TransformerLM(nn.Module):
 
     `device=None` means the GPU and raises without one."""
 
-    # options of the JAX model that are not ported: name -> (accepted default, what)
-    NOT_PORTED = {"quant_w8a8": (False, "W8A8 int8 projections (ROADMAP queue A6)")}
+    NOT_PORTED: dict = {}  # every option of the JAX model is taken
 
     def __init__(
         self,
@@ -53,17 +53,11 @@ class TransformerLM(nn.Module):
         head_dim: int = 64,
         rotary_base_freq: float = 10000.0,
         default_norm: str = "rms_norm",
+        quant_w8a8=False,  # False | True | "auto" | site names (ops/qdense.py)
         dtype: torch.dtype = torch.float32,
         device=None,
-        **not_ported,
     ):
         super().__init__()
-        for name, value in not_ported.items():
-            if name not in self.NOT_PORTED:
-                raise TypeError(f"TransformerLM got an unexpected argument {name!r}")
-            default, what = self.NOT_PORTED[name]
-            if value != default:
-                raise NotImplementedError(f"{name}={value!r}: {what} is not ported yet")
         device = resolve_device(device)
         self.vocab_size, self.d_model = vocab_size, d_model
         self.n_layers, self.n_heads, self.head_dim = n_layers, n_heads, head_dim
@@ -74,12 +68,15 @@ class TransformerLM(nn.Module):
         self.embed = Embed(vocab_size, d_model, dtype=dtype)
         for i in range(n_layers):
             self.add_module(f"attn_norm_{i}", Norm(d_model))
-            self.add_module(f"qkv_{i}", Dense(d_model, 3 * hd, bias=False, dtype=dtype))
-            self.add_module(f"out_{i}", Dense(hd, d_model, bias=False, dtype=dtype))
+            self.add_module(f"qkv_{i}", Dense(d_model, 3 * hd, bias=False, dtype=dtype,
+                                              site="qkv"))
+            self.add_module(f"out_{i}", Dense(hd, d_model, bias=False, dtype=dtype,
+                                              site="attn_out"))
             self.add_module(f"ff_norm_{i}", Norm(d_model))
-            self.add_module(f"ff_{i}", ConformerFeedForward(d_model, dtype=dtype))
+            self.add_module(f"ff_{i}", ConformerFeedForward(d_model, dtype=dtype, site="ff"))
         self.norm_out = Norm(d_model)
-        self.lm_head = Dense(d_model, vocab_size, dtype=dtype)
+        self.lm_head = Dense(d_model, vocab_size, dtype=dtype, site="lm_head")
+        apply_quant_policy(self, quant_w8a8)
         self.to(device)
 
     def forward(
@@ -90,8 +87,11 @@ class TransformerLM(nn.Module):
         write_mask: Optional[torch.Tensor] = None,  # (B,) bool
         pos_row: Optional[torch.Tensor] = None,  # (B, Nmax) int
         write_rows: Optional[torch.Tensor] = None,  # (B,) int
+        train: bool = False,
     ):
-        """tokens (B, U) -> logits (B, U, vocab).
+        """tokens (B, U) -> logits (B, U, vocab).  `train` only guards the
+        W8A8 policy (a quantised model refuses to train); the model has no
+        dropout or batch statistics.
 
         Cached decoding (the reference beam search's per-beam KV caches):
         pass `cache` / `cache_lengths` and one token a row (U == 1); returns
@@ -122,6 +122,8 @@ class TransformerLM(nn.Module):
         cell, the same value: duplicate writes of equal bits), or, where no
         row writes, writes back the value its cell already holds.  Only the
         selected rows' cells change, with no host synchronisation."""
+        if train and self.quant_sites:
+            raise ValueError(TRAIN_REFUSAL)
         B, U = tokens.shape
         H, D = self.n_heads, self.head_dim
         x = self.embed(tokens)
@@ -200,7 +202,7 @@ class TransformerLM(nn.Module):
 def lm_loss(model: TransformerLM, tokens: torch.Tensor,
             lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Next-token cross-entropy over the valid positions; tokens include bos."""
-    logits = model(tokens)
+    logits = model(tokens, train=True)
     targets = tokens[:, 1:].long()
     logp = torch.log_softmax(logits[:, :-1].float(), -1)
     ce = -logp.gather(-1, targets[..., None])[..., 0]

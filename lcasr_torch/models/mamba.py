@@ -40,6 +40,7 @@ from lcasr_torch.models.decoder import ASRLinearSCDecoder
 from lcasr_torch.ops.conv import ConvSubsampling, StackingSubsampling
 from lcasr_torch.ops.dense import Dense
 from lcasr_torch.ops.norms import RMSNorm
+from lcasr_torch.ops.qdense import TRAIN_REFUSAL, apply_quant_policy
 from lcasr_torch.ops.ssm import causal_conv1d, flip_with_lengths, selective_scan
 
 
@@ -63,7 +64,7 @@ class BiMambaMixer(nn.Module):
         self.d_state = d_state
 
         def dense(n_in, n_out, bound):  # torch Linear's default, no bias
-            layer = Dense(n_in, n_out, bias=False, dtype=dtype)
+            layer = Dense(n_in, n_out, bias=False, dtype=dtype, site="proj")
             with torch.no_grad():
                 layer.weight.copy_(_uniform((n_out, n_in), bound, gen))
             return layer
@@ -133,8 +134,7 @@ class Mamba(nn.Module):
     `device=None` means the GPU and raises without one.  `init_seed` seeds
     the generator the initial parameters of the mixers are drawn from."""
 
-    # options of the JAX model that are not ported: name -> (accepted default, what)
-    NOT_PORTED = {"quant_w8a8": (False, "W8A8 quantisation (ops/qdense.py)")}
+    NOT_PORTED: dict = {}  # every option of the JAX model is taken
 
     def __init__(
         self,
@@ -149,18 +149,12 @@ class Mamba(nn.Module):
         n_layers: int = 6,
         d_model: int = 768,
         checkpoint_every_n_layers: int = 0,
+        quant_w8a8=False,  # False | True | "auto" | site names (ops/qdense.py)
         dtype: torch.dtype = torch.float32,
         init_seed: int = 0,
         device=None,
-        **not_ported,
     ):
         super().__init__()
-        for name, value in not_ported.items():
-            if name not in self.NOT_PORTED:
-                raise TypeError(f"Mamba got an unexpected argument {name!r}")
-            default, what = self.NOT_PORTED[name]
-            if value != default:
-                raise NotImplementedError(f"{name}={value!r}: {what} is not ported yet")
         device = resolve_device(device)
         self.dtype = dtype
         self.n_layers = n_layers
@@ -188,11 +182,14 @@ class Mamba(nn.Module):
         self.decoder = ASRLinearSCDecoder(d_model, vocab_size, norm=True,
                                           norm_type="rms_norm", dtype=dtype,
                                           reproject=self_conditioning and n_layers > 1)
+        apply_quant_policy(self, quant_w8a8)
         self.to(device)
         self.eval()
 
     def forward(self, audio_signal: torch.Tensor, length: Optional[torch.Tensor] = None,
                 train: bool = False, return_logits: bool = False):
+        if train and self.quant_sites:
+            raise ValueError(TRAIN_REFUSAL)
         x = audio_signal.transpose(1, 2).to(self.dtype)  # (B, T, feat)
         have_lengths = length is not None
         if not have_lengths:

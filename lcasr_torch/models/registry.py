@@ -11,11 +11,12 @@ from lcasr_torch.config import Config
 from lcasr_torch.models.enc_dec_sconformer import EncDecSconformer, EncDecSconformerV2
 from lcasr_torch.models.lm import TransformerLM
 from lcasr_torch.models.mamba import Mamba
+from lcasr_torch.models.sconformer_meta import SCConformerMeta
 from lcasr_torch.models.sconformer_xl import SCConformerXL
 
 _REGISTRY = {"SCConformerXL": SCConformerXL, "Mamba": Mamba,
              "EncDecSconformer": EncDecSconformer, "EncDecSconformerV2": EncDecSconformerV2,
-             "TransformerLM": TransformerLM}
+             "TransformerLM": TransformerLM, "SCConformerMeta": SCConformerMeta}
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
 
@@ -27,16 +28,17 @@ def get_model_class(config: Config | Dict[str, Any] | None = None):
     return _REGISTRY[name]
 
 
-def load_model(config: Config, vocab_size: int, device=None
-               ) -> Union[SCConformerXL, Mamba, EncDecSconformer, TransformerLM]:
+def load_model(config: Config, vocab_size: int, device=None, model_class=None
+               ) -> Union[SCConformerXL, Mamba, EncDecSconformer, TransformerLM, SCConformerMeta]:
     """Build the model `config.model_class` names (SCConformerXL by default,
-    Mamba, EncDecSconformer, EncDecSconformerV2 or TransformerLM) from
-    config.model plus the tokenizer's vocab size.
+    Mamba, EncDecSconformer, EncDecSconformerV2, TransformerLM or
+    SCConformerMeta), or `model_class` when given (the JAX function's third
+    argument), from config.model plus the tokenizer's vocab size.
     `training.dtype` sets the compute dtype when `model.dtype` does not;
     parameters stay fp32 (an fp32 master with bf16 compute).  Keys the JAX
     model does not know are ignored, as the JAX registry ignores them.
     `device=None` means the GPU and raises without one."""
-    cls = get_model_class(config)
+    cls = model_class if model_class is not None else get_model_class(config)
     cfg = config["model"].to_dict() if hasattr(config["model"], "to_dict") else dict(config["model"])
     cfg["vocab_size"] = vocab_size
     if "dtype" not in cfg:

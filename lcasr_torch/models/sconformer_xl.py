@@ -34,6 +34,11 @@ run at global positions, and the attention either gathers K / V
 `stat_axes` names the axes over which batch-norm statistics are summed.
 Tensor parallelism (`parallel.tensor_parallel.parallelize`) splits each
 attention by heads and each feed-forward by its hidden units.
+
+The JAX model's other options: `capture_qkv` / `return_attention_weights`
+(the analysis captures, returned under "intermediates"; see `Attention`),
+`quant_w8a8` (W8A8 projections by site, ops/qdense.py; inference only) and
+`conv_type="longconv"` with its `longconv_*` options (ops/long_conv.py).
 """
 from __future__ import annotations
 
@@ -47,15 +52,18 @@ from torch.utils.checkpoint import checkpoint
 
 from lcasr_torch.device import resolve_device
 from lcasr_torch.models.decoder import ASRLinearSCDecoder
-from lcasr_torch.ops.attention import length_mask
+from lcasr_torch.ops.attention import length_mask, reference_attention
 from lcasr_torch.models.positional import LearnableFourierPosEnc
 from lcasr_torch.ops.conv import (
     ConformerConvolution, ConvSubsampling, StackingSubsampling, recomputing)
 from lcasr_torch.ops.dense import Dense
 from lcasr_torch.ops.flash_attention import flash_attention
+from lcasr_torch.ops.long_conv import ConformerLongConvolution
 from lcasr_torch.ops.mlp import ConformerFeedForward
 from lcasr_torch.ops.norms import get_norm
+from lcasr_torch.ops.qdense import TRAIN_REFUSAL, apply_quant_policy
 from lcasr_torch.ops.rotary import RotaryEmbedding, apply_rotary
+from lcasr_torch.parallel.collectives import all_gather_seq
 from lcasr_torch.parallel.context_parallel import context_parallel_attention
 from lcasr_torch.parallel.mesh import NO_PARALLEL, ParallelState, bind
 from lcasr_torch.parallel.ring_attention import ring_attention
@@ -73,19 +81,10 @@ FLAGSHIP = dict(
     rotary_base_freq=1.5e6,
 )
 
-# Options of the JAX model that this slice does not port: name -> (the
-# default, which is accepted, and what the option belongs to)
+# Options of the JAX model that the port does not take: name -> (the
+# default, which is accepted, and why)
 _NOT_PORTED = {
     "use_pallas": (True, "a TPU switch; the port always runs its own kernel"),
-    "conv_type": ("standard", "longconv"),
-    "longconv_weight_init": ("random", "longconv"),
-    "longconv_position_kernel": (True, "longconv"),
-    "longconv_ma_smoothing": (False, "longconv"),
-    "longconv_ma_window_len": (7, "longconv"),
-    "longconv_smooth_freq": (False, "longconv"),
-    "return_attention_weights": (False, "attention capture (analysis)"),
-    "capture_qkv": (False, "attention capture (analysis)"),
-    "quant_w8a8": (False, "W8A8 quantisation"),
 }
 
 
@@ -149,7 +148,14 @@ def _remat_contexts_dots():
 class Attention(nn.Module):
     """Fused-qkv multi-head attention with rotary and an optional band.
     Padded positions are zeroed before the qkv projection and on the
-    attention output."""
+    attention output.
+
+    Analysis (the JAX module's `sow`s into `intermediates`): with
+    `capture_qkv` set, the post-rotary (q, k, v, lengths) go into the
+    `capture` dict the caller passes, under "attention_qkv", while the
+    attention still runs the kernel; with `return_attention_weights` set,
+    the attention runs the exact plain version instead and its fp32
+    probabilities (B, H, T, T) go under "attention_probs"."""
 
     def __init__(self, n_feats: int, head_dim: int, n_heads: int,
                  window: Tuple[int, int] = (-1, -1), bias: bool = False,
@@ -159,11 +165,15 @@ class Attention(nn.Module):
         # n_heads is this rank's share under tensor parallelism
         self.n_heads, self.head_dim, self.window = n_heads, head_dim, window
         self.dropout = dropout
-        self.qkv_proj = Dense(n_feats, 3 * n_heads * head_dim, bias=qkv_bias, dtype=dtype)
-        self.out_proj = Dense(n_heads * head_dim, n_feats, bias=bias, dtype=dtype)
+        self.qkv_proj = Dense(n_feats, 3 * n_heads * head_dim, bias=qkv_bias, dtype=dtype,
+                              site="qkv")
+        self.out_proj = Dense(n_heads * head_dim, n_feats, bias=bias, dtype=dtype,
+                              site="attn_out")
+        self.capture_qkv = self.return_attention_weights = False
         self.parallel = NO_PARALLEL
 
-    def forward(self, x, lengths=None, rotary=None, drop: Dropout = NO_DROPOUT):
+    def forward(self, x, lengths=None, rotary=None, drop: Dropout = NO_DROPOUT,
+                capture: Optional[dict] = None):
         B, N, _ = x.shape
         H, D = self.n_heads, self.head_dim
         seq = self.parallel.seq()
@@ -177,7 +187,22 @@ class Attention(nn.Module):
             # under context parallelism the tables are at the shard's
             # global positions, for q and the still-local k alike
             q, k = apply_rotary(q, k, *rotary)
-        if seq is None:
+        if self.capture_qkv and capture is not None:
+            capture["attention_qkv"] = (q, k, v, lengths)
+        if self.return_attention_weights:
+            if seq is not None and self.parallel.cp_impl == "ring":
+                # ring attention never forms the scores
+                raise NotImplementedError(
+                    "return_attention_weights is unavailable under ring context "
+                    "parallelism (use attention_cp_impl='gather')")
+            if seq is not None:
+                k, v = all_gather_seq(k, seq, dim=1), all_gather_seq(v, seq, dim=1)
+            out, probs = reference_attention(q, k, v, q_lengths=lengths, kv_lengths=lengths,
+                                             window=self.window, q_offset=q_off,
+                                             return_weights=True)
+            if capture is not None:
+                capture["attention_probs"] = probs
+        elif seq is None:
             out = flash_attention(q, k, v, lengths=lengths, window=self.window)
         elif self.parallel.cp_impl == "ring":
             out = ring_attention(q, k, v, seq, lengths=lengths, window=self.window)
@@ -192,7 +217,9 @@ class Attention(nn.Module):
 
 
 class ConformerLayer(nn.Module):
-    """1/2 FF1 -> MHSA -> Conv -> 1/2 FF2 -> norm_out, pre-norm residual."""
+    """1/2 FF1 -> MHSA -> Conv -> 1/2 FF2 -> norm_out, pre-norm residual.
+    `conv_type` "longconv" puts the safari long convolution
+    (ops/long_conv.py) in the conv slot, with the `longconv_*` options."""
 
     def __init__(self, d_model: int, n_heads: int, head_dim: int,
                  conv_kernel_size: int = 9, conv_expansion_factor: float = 1.0,
@@ -200,15 +227,21 @@ class ConformerLayer(nn.Module):
                  sandwich_norm: bool = False, bias_in_ff: bool = False,
                  transformer: bool = False, window: Tuple[int, int] = (-1, -1),
                  dropout_ff: float = 0.0, dropout_conv: float = 0.0,
-                 dropout_attn: float = 0.0, dtype: torch.dtype = torch.float32):
+                 dropout_attn: float = 0.0, conv_type: str = "standard",
+                 longconv_weight_init: str = "random", longconv_position_kernel: bool = True,
+                 longconv_ma_smoothing: bool = False, longconv_ma_window_len: int = 7,
+                 longconv_smooth_freq: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
+        if conv_type not in ("standard", "longconv"):
+            raise ValueError(f"conv_type must be standard|longconv, got {conv_type!r}")
         Norm = get_norm(default_norm)
         self.sandwich_norm, self.transformer = sandwich_norm, transformer
         self.dropout_ff, self.dropout_conv = dropout_ff, dropout_conv
+        self.conv_type = conv_type
 
         def ff():  # hidden is always 4 x d_model, as in the JAX model
             return ConformerFeedForward(d_model, d_model * 4, bias1=bias_in_ff,
-                                        bias2=bias_in_ff, dtype=dtype)
+                                        bias2=bias_in_ff, dtype=dtype, site="ff")
 
         if not transformer:
             self.ff1_norm, self.ff1 = Norm(d_model), ff()
@@ -221,22 +254,35 @@ class ConformerLayer(nn.Module):
             self.attn_norm_out = Norm(d_model)
         if not transformer:
             self.conv_norm = Norm(d_model)
-            self.conv = ConformerConvolution(d_model, conv_kernel_size, conv_norm,
-                                             conv_expansion_factor, dtype=dtype)
+            if conv_type == "longconv":
+                self.conv = ConformerLongConvolution(
+                    d_model, norm_type=conv_norm, exp_factor=conv_expansion_factor,
+                    weight_init=longconv_weight_init,
+                    position_kernel=longconv_position_kernel,
+                    use_ma_smoothing=longconv_ma_smoothing,
+                    ma_window_len=longconv_ma_window_len, smooth_freq=longconv_smooth_freq)
+            else:
+                self.conv = ConformerConvolution(d_model, conv_kernel_size, conv_norm,
+                                                 conv_expansion_factor, dtype=dtype)
         self.ff2_norm, self.ff2 = Norm(d_model), ff()
         if sandwich_norm:
             self.ff2_norm_out = Norm(d_model)
         self.norm_out = Norm(d_model)
+        self.parallel = NO_PARALLEL
 
     def forward(self, x, lengths=None, pad_mask=None, rotary=None, train: bool = False,
-                dropout_seed: Optional[int] = None):
+                dropout_seed: Optional[int] = None, capture: Optional[dict] = None):
+        if self.conv_type == "longconv" and self.parallel.seq() is not None:
+            raise NotImplementedError(
+                "context parallel needs position-local convs (conv_type=standard)")
         drop = Dropout(dropout_seed, x.device) if train else NO_DROPOUT
         if not self.transformer:
             h = self.ff1(self.ff1_norm(x))
             if self.sandwich_norm:
                 h = self.ff1_norm_out(h)
             x = drop(h, self.dropout_ff) * 0.5 + x
-        h = self.attend(self.attn_norm(x), lengths=lengths, rotary=rotary, drop=drop)
+        h = self.attend(self.attn_norm(x), lengths=lengths, rotary=rotary, drop=drop,
+                        capture=capture)
         h = drop(h, min(self.dropout_ff, 0.1))
         if self.sandwich_norm:
             h = self.attn_norm_out(h)
@@ -300,6 +346,15 @@ class SCConformerXL(nn.Module):
         seq_axis_name: Optional[str] = None,
         attention_cp_impl: str = "gather",
         stat_axes: Tuple[str, ...] = (),
+        conv_type: str = "standard",
+        longconv_weight_init: str = "random",
+        longconv_position_kernel: bool = True,
+        longconv_ma_smoothing: bool = False,
+        longconv_ma_window_len: int = 7,
+        longconv_smooth_freq: bool = False,
+        return_attention_weights: bool = False,
+        capture_qkv: bool = False,
+        quant_w8a8=False,  # False | True | "auto" | site names (ops/qdense.py)
         dtype: torch.dtype = torch.float32,
         dropout_seed: int = 0,
         device=None,
@@ -360,7 +415,12 @@ class SCConformerXL(nn.Module):
                 default_norm=default_norm, sandwich_norm=sandwich_norm,
                 bias_in_ff=bias_in_ff, transformer=transformer, window=self.window,
                 dropout_ff=dropout_ff, dropout_conv=dropout_conv,
-                dropout_attn=dropout_attn, dtype=dtype,
+                dropout_attn=dropout_attn, conv_type=conv_type,
+                longconv_weight_init=longconv_weight_init,
+                longconv_position_kernel=longconv_position_kernel,
+                longconv_ma_smoothing=longconv_ma_smoothing,
+                longconv_ma_window_len=longconv_ma_window_len,
+                longconv_smooth_freq=longconv_smooth_freq, dtype=dtype,
             )
             for _ in range(n_layers)
         )
@@ -370,11 +430,48 @@ class SCConformerXL(nn.Module):
         self.parallel = ParallelState(seq_axis=seq_axis_name, cp_impl=attention_cp_impl,
                                       stat_axes=tuple(stat_axes))
         bind(self, self.parallel)
+        self.capture_qkv = capture_qkv
+        self.return_attention_weights = return_attention_weights
+        apply_quant_policy(self, quant_w8a8)
         self.to(device)
         self.eval()
 
+    # the analysis switches live on every Attention; the model's are views
+    @property
+    def capture_qkv(self) -> bool:
+        return self.layers[0].attend.capture_qkv if len(self.layers) else False
+
+    @capture_qkv.setter
+    def capture_qkv(self, on: bool) -> None:
+        for layer in self.layers:
+            layer.attend.capture_qkv = bool(on)
+
+    @property
+    def return_attention_weights(self) -> bool:
+        return self.layers[0].attend.return_attention_weights if len(self.layers) else False
+
+    @return_attention_weights.setter
+    def return_attention_weights(self, on: bool) -> None:
+        for layer in self.layers:
+            layer.attend.return_attention_weights = bool(on)
+
+    @property
+    def rotary_interpolation_factor(self) -> float:
+        return self.rotary_pos_emb.interpolation_factor if self.use_rotary else 1.0
+
+    @rotary_interpolation_factor.setter
+    def rotary_interpolation_factor(self, factor: float) -> None:
+        if self.use_rotary:
+            self.rotary_pos_emb.interpolation_factor = float(factor)
+
     def forward(self, audio_signal: torch.Tensor, length: Optional[torch.Tensor] = None,
                 train: bool = False, return_logits: bool = False):
+        """With `capture_qkv` or `return_attention_weights` set, the result
+        also holds "intermediates": one dict a layer with its
+        "attention_qkv" (post-rotary q, k, v and the lengths) and / or
+        "attention_probs" (B, H, T', T'), the JAX model's sown values."""
+        if train and self.quant_sites:
+            raise ValueError(TRAIN_REFUSAL)
         x = audio_signal.transpose(1, 2).to(self.dtype)  # (B, T, feat)
         B = x.shape[0]
         # context parallel: x is this rank's time shard; lengths are global
@@ -405,21 +502,27 @@ class SCConformerXL(nn.Module):
 
         dec = self.decoder
         draw = train and max(self.dropout_rates) > 0.0
+        captures = ([{} for _ in self.layers]
+                    if self.capture_qkv or self.return_attention_weights else None)
         for i, layer in enumerate(self.layers):
+            capture = captures[i] if captures is not None else None
             seed = (int(torch.randint(2 ** 62, (1,), generator=self.dropout_generator))
                     if draw else None)
             n = self.checkpoint_every_n_layers
             if train and n > 0 and i % n == 0:
-                x = checkpoint(layer, x, lengths_arg, pad_mask, rotary, train, seed,
+                x = checkpoint(layer, x, lengths_arg, pad_mask, rotary, train, seed, capture,
                                use_reentrant=False, context_fn=self.remat_contexts)
             else:
-                x = layer(x, lengths_arg, pad_mask, rotary, train, seed)
+                x = layer(x, lengths_arg, pad_mask, rotary, train, seed, capture)
             if i != self.n_layers - 1 and self.self_conditioning:
                 posts = torch.softmax(dec(x, logits=True).float(), dim=-1).to(x.dtype)
                 x = x + dec.project_back(posts)
         if self.legasee_double_norm:
             x = dec.apply_norm(x)
-        return {"final_posteriors": dec(x, logits=return_logits), "length": length}
+        out = {"final_posteriors": dec(x, logits=return_logits), "length": length}
+        if captures is not None:
+            out["intermediates"] = captures
+        return out
 
 
 @torch.no_grad()
@@ -444,7 +547,7 @@ def init_weights_(model: nn.Module, seed: int = 0) -> nn.Module:
             arr = 1.0 + rng.normal(0.0, 0.1, shape)
         elif leaf in ("bias", "depthwise_bias"):
             arr = rng.normal(0.0, 0.02, shape)
-        elif leaf in ("inv_freq", "temperature"):
+        elif leaf in ("inv_freq", "temperature", "base_rates"):
             continue
         else:
             fan_in = int(np.prod(shape[1:])) if len(shape) > 1 else shape[0]

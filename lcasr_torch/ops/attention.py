@@ -40,8 +40,11 @@ def window_mask(seqlen_q: int, seqlen_k: int, window: Tuple[int, int],
 
 def reference_attention(q, k, v, q_lengths=None, kv_lengths=None,
                         window: Tuple[int, int] = (-1, -1),
-                        softmax_scale: Optional[float] = None, q_offset: int = 0):
-    """q: (B, Tq, H, D); k, v: (B, Tk, H, D) -> (B, Tq, H, D) in q's dtype."""
+                        softmax_scale: Optional[float] = None, q_offset: int = 0,
+                        return_weights: bool = False):
+    """q: (B, Tq, H, D); k, v: (B, Tk, H, D) -> (B, Tq, H, D) in q's dtype;
+    with `return_weights`, also the fp32 probabilities (B, H, Tq, Tk)
+    (padded query rows keep theirs; only the output is zeroed there)."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     scale = softmax_scale if softmax_scale is not None else D ** -0.5
@@ -60,4 +63,6 @@ def reference_attention(q, k, v, q_lengths=None, kv_lengths=None,
     if q_lengths is not None:
         qmask = length_mask(q_lengths, Tq, offset=q_offset)
         out = torch.where(qmask[:, :, None, None], out, 0.0)
+    if return_weights:
+        return out.to(q.dtype), probs
     return out.to(q.dtype)

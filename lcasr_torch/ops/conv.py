@@ -211,7 +211,7 @@ class ConformerConvolution(nn.Module):
         inner = int(d_model * exp_factor)
         self.dtype = dtype
         self.norm_type = norm_type
-        self.pointwise_conv1 = Dense(d_model, inner * 2, dtype=dtype)
+        self.pointwise_conv1 = Dense(d_model, inner * 2, dtype=dtype, site="conv")
         self.depthwise_kernel = nn.Parameter(
             torch.randn(inner, 1, kernel_size) * kernel_size ** -0.5
         )
@@ -219,7 +219,7 @@ class ConformerConvolution(nn.Module):
         if norm_type != "none":
             self.norm = {"batch_renorm": BatchRenorm, "batch_norm": BatchNorm,
                          "layer_norm": LayerNorm, "group_norm": GroupNorm}[norm_type](inner)
-        self.pointwise_conv2 = Dense(inner, d_model, dtype=dtype)
+        self.pointwise_conv2 = Dense(inner, d_model, dtype=dtype, site="conv")
         self.parallel = NO_PARALLEL
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,

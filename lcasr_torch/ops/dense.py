@@ -12,30 +12,42 @@ shard: "col" ("col_heads": the qkv cut by heads) keeps a slice of the outputs (t
 outputs back whole, "row" takes a slice of the inputs and all-reduces the
 partial products (`reduce_from`) before the bias is added once,
 "row_split" first cuts that slice from a whole input.
+
+`site` names the GEMM family the layer belongs to (ops/qdense.py's
+ALL_SITES; None: never quantised); with `quant` set (by
+`qdense.apply_quant_policy`) the product runs W8A8 through int8.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lcasr_torch.ops.qdense import w8a8_linear
 from lcasr_torch.parallel.collectives import copy_to, gather_from, reduce_from
 
 
 class Dense(nn.Module):
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, site: Optional[str] = None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
         self.dtype = dtype
         self.tp = None  # (mode, collectives.Axis) under tensor parallelism
+        self.site, self.quant = site, False
         nn.init.normal_(self.weight, std=in_features ** -0.5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         b = self.bias.to(dt) if self.bias is not None else None
         x, w = x.to(dt), self.weight.to(dt)
+        if self.quant:
+            if self.tp is not None:
+                raise NotImplementedError("W8A8 under tensor parallelism is not supported")
+            return w8a8_linear(x, w, b)
         if self.tp is None:
             return F.linear(x, w, b)
         mode, axis = self.tp

@@ -1,7 +1,8 @@
 """Flash attention: the CUDA kernels' wrappers, their plain versions and the
 autograd Function (counterpart of lcasr_tpu/ops/flash_attention.py
 `flash_attention`, `flash_attention_with_lse`, `flash_attention_bwd` and
-the custom VJP `_fwd_rule` / `_bwd_rule`).
+the custom VJP `_fwd_rule` / `_bwd_rule`), and `flash_attention_probs`,
+which normalises row blocks of probabilities by K1's lse.
 
 Public layout (B, T, H, D), as in the JAX package.  The softmax scale is
 folded into q in q's dtype before the kernel (the JAX `_fwd` does the same,
@@ -203,6 +204,56 @@ def _launch_fwd(qs, k, v, o, lse, lens, window, q_offset, kv_offset, db: bool) -
         )
     kernels.check(lib, err, name)
     return name
+
+
+def flash_attention_probs(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lengths: Optional[torch.Tensor] = None,
+    window: Tuple[int, int] = (-1, -1),
+    softmax_scale: Optional[float] = None,
+    rows: Optional[Tuple[int, int]] = None,
+    q_offset: int = 0,
+    kv_offset: int = 0,
+    lse: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Exact attention probabilities of the query rows `rows` = (start, n)
+    (None: all), (B, H, n, Tk) fp32, normalised by the forward kernel's
+    own lse (counterpart of the JAX `flash_attention_probs`).
+
+    The lse comes from K1 (`flash_attention_with_lse`; pass `lse` back in to
+    reuse it across row blocks).  The scores of the requested rows are
+    recomputed as the kernel computes them: the scale folded into q in q's
+    dtype, the product accumulated in fp32 (bf16 values are exact in fp32,
+    so the fp32 product of the upcast operands is that accumulation), the
+    masks in global coordinates.  Rows whose every key is masked (lse
+    -1e30: past the length, or an empty band) are all zero.  Memory is
+    O(n Tk): stream row blocks to go through any length."""
+    B, T, H, D = q.shape
+    Tk = k.shape[1]
+    lens = _lengths(lengths, B, Tk, q.device)
+    if lse is None:
+        _, lse = flash_attention_with_lse(q, k, v, lens, window, softmax_scale,
+                                          q_offset, kv_offset)
+    start, n = rows if rows is not None else (0, T)
+    qs = _scaled(q[:, start:start + n], softmax_scale)
+    s = torch.einsum("bnhd,bmhd->bhnm", qs.float(), k.float())
+    g_rows = q_offset + start + torch.arange(n, device=q.device)
+    g_cols = kv_offset + torch.arange(Tk, device=q.device)
+    valid = ((g_cols[None, None, None, :] < lens[:, None, None, None])
+             & (g_rows[None, None, :, None] < lens[:, None, None, None]))
+    rel = g_rows[:, None] - g_cols[None, :]
+    left, right = window
+    if right >= 0:
+        valid = valid & (rel >= -right)
+    if left >= 0:
+        valid = valid & (rel <= left)
+    lse_r = lse[:, :, start:start + n].float()
+    live = lse_r > NEG_INF / 2
+    valid = valid & live[..., None]
+    p = torch.exp(s - torch.where(live, lse_r, torch.zeros_like(lse_r))[..., None])
+    return torch.where(valid, p, torch.zeros_like(p))
 
 
 def flash_attention_bwd_ref(

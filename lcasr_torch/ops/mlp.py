@@ -1,5 +1,6 @@
 """Conformer feed-forward (counterpart of lcasr_tpu/ops/mlp.py):
-Dense -> tanh-approximate GELU -> Dense."""
+Dense -> tanh-approximate GELU -> Dense; `site` tags both for W8A8
+(ops/qdense.py)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -14,11 +15,12 @@ from lcasr_torch.ops.dense import Dense
 class ConformerFeedForward(nn.Module):
     def __init__(self, d_model: int, hidden_dim: Optional[int] = None,
                  out_dim: Optional[int] = None, bias1: bool = False,
-                 bias2: bool = False, dtype: torch.dtype = torch.float32):
+                 bias2: bool = False, dtype: torch.dtype = torch.float32,
+                 site: Optional[str] = None):
         super().__init__()
         hidden = hidden_dim or d_model * 4
-        self.fc1 = Dense(d_model, hidden, bias=bias1, dtype=dtype)
-        self.fc2 = Dense(hidden, out_dim or d_model, bias=bias2, dtype=dtype)
+        self.fc1 = Dense(d_model, hidden, bias=bias1, dtype=dtype, site=site)
+        self.fc2 = Dense(hidden, out_dim or d_model, bias=bias2, dtype=dtype, site=site)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))

@@ -473,8 +473,12 @@ def test_load_model_builds_both_classes_and_refuses_quant():
         attn = model.language_model_decoder.self_attn_0
         assert attn.cosine == v2 and hasattr(attn, "temperature") == v2
         assert (model.language_model_decoder.dynamic_pos_bias is not None) == v2
+        # W8A8 is taken (tests/test_torch_port_qdense.py): every site of the
+        # policy is switched, and training refuses it
         cfg["model"]["quant_w8a8"] = True
-        with pytest.raises(NotImplementedError, match="A6"):
-            load_model(Config(cfg), VOCAB, device="cpu")
+        quant = load_model(Config(cfg), VOCAB, device="cpu")
+        assert quant.quant_sites and quant.language_model_decoder.out_proj.quant
+        with pytest.raises(ValueError, match="inference-only"):
+            quant.encode(torch.zeros(1, 80, 64), train=True)
     with pytest.raises(TypeError):
         EncDecSconformer(**PORT_TINY, device="cpu", conv_type="longconv")

@@ -487,8 +487,10 @@ def test_evaluate_refusals(reference_checkpoint, tmp_path):
                              data_parallel=mode == "averaged_moving_window",
                              context_parallel=mode == "windowed_attention")
         assert _rows(both) == _rows(plain)
-    with pytest.raises(NotImplementedError, match="A6"):
-        trun.evaluate(**kw, quant_w8a8=True)
+    # W8A8 is taken (tests/test_torch_port_qdense.py); a site it does not
+    # know is refused
+    with pytest.raises(ValueError, match="unknown quant_w8a8 site"):
+        trun.evaluate(**kw, quant_w8a8="fp8")
     orbax = tmp_path / "orbax_ckpt"
     (orbax / "arrays").mkdir(parents=True)
     (orbax / "meta.json").write_text("{}")

@@ -237,8 +237,12 @@ def test_registry_and_refusals():
     model = load_model(Config({"model_class": "TransformerLM", "model": dict(
         d_model=32, n_layers=1, n_heads=2, head_dim=16)}), 50, device="cpu")
     assert isinstance(model, TransformerLM) and model.vocab_size == 50
-    with pytest.raises(NotImplementedError, match="A6"):
-        TransformerLM(**CFG, quant_w8a8=True, device="cpu")
+    # W8A8 is taken (tests/test_torch_port_qdense.py); training refuses it
+    quant = TransformerLM(**CFG, quant_w8a8=True, device="cpu")
+    with pytest.raises(ValueError, match="inference-only"):
+        lm_loss(quant, torch.zeros(1, 4, dtype=torch.long))
+    with pytest.raises(TypeError):
+        TransformerLM(**CFG, no_such_option=1, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TransformerLM(**CFG)

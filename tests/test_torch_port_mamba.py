@@ -181,7 +181,7 @@ def test_registry_builds_mamba_and_keeps_each_class_its_own_options():
     assert get_model_class({"model_class": "Mamba"}) is Mamba
     assert get_model_class({}) is SCConformerXL
     with pytest.raises(NotImplementedError, match="Mamba.*SCConformerXL"):
-        get_model_class({"model_class": "SCConformerMeta"})
+        get_model_class({"model_class": "NoSuchModel"})
     cfg = {"model_class": "Mamba", "training": {"dtype": "bfloat16"},
            # keys of another class are ignored, as the JAX registry ignores them
            "model": dict(TINY, checkpoint_every_n_layers=1, conv_type="longconv", n_heads=2)}
@@ -189,10 +189,13 @@ def test_registry_builds_mamba_and_keeps_each_class_its_own_options():
     assert isinstance(model, Mamba) and model.dtype == torch.bfloat16
     assert model.checkpoint_every_n_layers == 1
     assert model.layers[0].mixer.in_proj.weight.dtype == torch.float32
-    for value in (True, "auto", ["proj"]):
+    # W8A8 is taken (tests/test_torch_port_qdense.py): the mixers' projections
+    # are site "proj", the decoder's "decoder"
+    for value, proj in ((True, True), ("auto", False), (["proj"], True)):
         cfg["model"]["quant_w8a8"] = value
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            load_model(Config(cfg), 16, device="cpu")
+        quant = load_model(Config(cfg), 16, device="cpu")
+        assert quant.layers[0].mixer.in_proj.quant == proj
+        assert quant.decoder.ff.quant == (value != ["proj"])
     cfg["model"]["quant_w8a8"] = False
     load_model(Config(cfg), 16, device="cpu")
     with pytest.raises(TypeError):

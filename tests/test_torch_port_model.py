@@ -161,8 +161,17 @@ def test_unported_options_raise():
 
     small = dict(vocab_size=8, d_model=32, n_layers=1, n_heads=1, head_dim=32,
                  subsampling_conv_channels=8, device="cpu")
-    for kw in (dict(quant_w8a8=True), dict(conv_type="longconv"), dict(capture_qkv=True)):
-        with pytest.raises(NotImplementedError):
+    # every option of the JAX model is taken but its TPU switch, which
+    # is accepted at its default only
+    assert set(SCConformerXL.NOT_PORTED) == {"use_pallas"}
+    SCConformerXL(**small, use_pallas=True)
+    with pytest.raises(NotImplementedError):
+        SCConformerXL(**small, use_pallas=False)
+    for kw in (dict(quant_w8a8=True), dict(conv_type="longconv"), dict(capture_qkv=True),
+               dict(return_attention_weights=True)):
+        SCConformerXL(**small, **kw)
+    for kw in (dict(quant_w8a8="fp8"), dict(conv_type="fft")):
+        with pytest.raises(ValueError):
             SCConformerXL(**small, **kw)
     with pytest.raises(TypeError):
         SCConformerXL(**small, no_such_option=1)
@@ -265,7 +274,13 @@ def test_port_imports_no_jax_and_no_lcasr_tpu():
         "             'lcasr_torch.parallel.collectives', 'lcasr_torch.parallel.partition',\n"
         "             'lcasr_torch.parallel.context_parallel',\n"
         "             'lcasr_torch.parallel.ring_attention', 'lcasr_torch.parallel.cp_model',\n"
-        "             'lcasr_torch.parallel.tensor_parallel', 'lcasr_torch.optim.zero'):\n"
+        "             'lcasr_torch.parallel.tensor_parallel', 'lcasr_torch.optim.zero',\n"
+        "             'lcasr_torch.evaluation.analysis', 'lcasr_torch.ops.qdense',\n"
+        "             'lcasr_torch.ops.long_conv', 'lcasr_torch.models.sconformer_meta',\n"
+        "             'lcasr_torch.training.meta', 'lcasr_torch.cli.train_meta',\n"
+        "             'lcasr_torch.evaluation.dynamic_eval', 'lcasr_torch.evaluation.selftrain',\n"
+        "             'lcasr_torch.evaluation.eval_manager', 'lcasr_torch.evaluation.compare',\n"
+        "             'lcasr_torch.utils.resources'):\n"
         "    assert name in sys.modules, name\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('lcasr_torch')]))\n"
