@@ -12,6 +12,8 @@
     python3 chip_smoke.py --phases lm            # decoding with a language model only
     python3 chip_smoke.py --phases parallel      # the ring schedule and a world of one
     python3 chip_smoke.py --phases analysis,variants,adapt  # analysis, W8A8, long conv, adaptation
+    python3 chip_smoke.py --phases tooling       # preprocessing, tokenizer, averaging, profiling
+    python3 chip_smoke.py --phases kernels --scan_source OLD.cu  # K6/K7 bits against OLD.cu's
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -41,7 +43,13 @@ Phases, in order; any failure raises and exits non-zero:
               SDPA); K3 and K4 + K5 at head_dim 256 on their own cases
               (bf16 and fp32, ragged, T off the tiles, bands with tile skip,
               offsets; the same bits in two runs) and timed at
-              (4, 2048, 3, 256) beside the bound and cuDNN;
+              (4, 2048, 3, 256) beside the bound and cuDNN; K6 and K7 at
+              d_state 8 (padded to 16), 32 and 64 on edge cases and at the
+              decode and training shapes (the same gates; device ms, bound,
+              plain ms, registers and spills per instantiation); the
+              class-default Mamba, its mixers at d_state 32: the 20-minute (24
+              K6) and a 16384 x 4 micro step (12 K6, 6 K7) gated against the
+              plain scan in fp64;
   3. model    the flagship SCConformerXL (9L-768D-6H, bf16, random weights
               from a numpy seed) on one (16, 80, 16384) window batch: finite,
               normalised log-probs, compared with the same model whose
@@ -181,6 +189,19 @@ Phases, in order; any failure raises and exits non-zero:
               flagship over 36,864 frames at lr 0 (equal to the averaged
               decode) and 8e-5 (moved), the model the same bits after each;
               SelfTrainWrapper on 16,384 frames.
+ 20. tooling  the host tooling on one path: four seeded 180 s 44.1 kHz WAVs
+              preprocessed in two shards on the card (each fp16 .spec.npy
+              against the CPU frontend), paired with seeded speaker-tagged
+              transcripts, a tokenizer of at most 512 pieces trained on
+              them (native and Python encodes equal); the flagship trained two steps in each
+              of two seed repeats (18 K1 and 9 K3 a micro step), their
+              average equal to the float64 mean bit for bit and loaded
+              strictly; one recording decoded under `profiling.trace` (K1's
+              rows in the trace), `time_fn` of that decode and
+              `time_fn_chain` of K1; the spare components at width 768 on
+              (4, 16384, .) against the CPU.  The launcher and `restart`
+              (pyyaml) and the download (the network) are left to the CPU
+              tests.
 
 Each phase's seconds are printed as it ends.
 
@@ -202,7 +223,7 @@ import time
 
 PHASES = ("kernels", "model", "decode", "train", "train_d256", "utterances", "mamba_decode",
           "mamba_train", "decode_opt", "train_opt", "audio", "serve", "enc_dec", "lm",
-          "parallel", "analysis", "variants", "adapt")
+          "parallel", "analysis", "variants", "adapt", "tooling")
 
 # configs/ladder_9l_768d_6h.yaml, written out: the machine with the card is
 # not promised pyyaml (tests/test_torch_port_train.py holds the two equal)
@@ -1198,6 +1219,13 @@ SSM_MAIN_SHAPES = {"decode": SSM_DECODE_SHAPE, "16384x4": SSM_TRAIN_SHAPE,
 # inputs; they differ in exp2 against exp, fused multiply-adds and the order of
 # the sums over channels and time: 2e-4 of the largest reference value
 SSM_TOL = 2e-4
+# the scan at d_state other than 16: N = 8 runs the N = 16 kernels on
+# inputs padded to 16 states, 32 and 64 their own instantiations; each N gets
+# these edge cases and the decode and training shapes, at the gates above
+SSM_OTHER_D_STATES = (8, 32, 64)
+SSM_D_STATE_CASES = ("fp32_L1", "fp32_L15", "fp32_L77_strided", "bf16_L77_D100",
+                     "mixed_L2049_D160", "fp32_L33_2seg_Bt1", "mixed_L100_D37_odd",
+                     "decode_shape_full", "train_shape_full")
 
 
 def ssm_cases(torch):
@@ -1286,11 +1314,11 @@ def ssm_bound(torch, kind, shape, x_bytes, bc_bytes, states: bool):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def ssm_case(torch, case, gen):
-    """One case of K6 and K7 against their plain versions at SSM_TOL of the
-    largest reference value; the forward with and without its states the same
-    bits, K6's y and states and K7's five gradients the same bits in two
-    runs.  Returns (the forward's worst error, the backward's)."""
+def ssm_case(torch, case, gen, N: int = 16):
+    """One case of K6 and K7 at d_state N against their plain versions at
+    SSM_TOL of the largest reference value; the forward with and without its
+    states the same bits, K6's y and states and K7's five gradients the same
+    bits in two runs.  Returns (the forward's worst error, the backward's)."""
     from lcasr_torch.ops import ssm
 
     name, Bt, L, D, xd, bcd, strided, wide = case
@@ -1305,7 +1333,7 @@ def ssm_case(torch, case, gen):
                                  f"(tolerance {SSM_TOL:g})")
         return err
 
-    x, delta, A, Bm, Cm, g = ssm_inputs(torch, gen, Bt, L, D, 16, xd, bcd, strided, wide)
+    x, delta, A, Bm, Cm, g = ssm_inputs(torch, gen, Bt, L, D, N, xd, bcd, strided, wide)
     y = ssm.selective_scan_fwd(x, delta, A, Bm, Cm)
     y_s, states = ssm.selective_scan_fwd(x, delta, A, Bm, Cm, return_states=True)
     y_again, states_again = ssm.selective_scan_fwd(x, delta, A, Bm, Cm, return_states=True)
@@ -1322,10 +1350,14 @@ def ssm_case(torch, case, gen):
             raise AssertionError(f"{name}: K7's {what} differs between two runs")
     y_ref, states_ref = ssm.selective_scan_ref(x, delta, A, Bm, Cm, return_states=True)
     grads_ref = ssm.selective_scan_bwd_ref(x, delta, A, Bm, Cm, g)
+    if states.shape[2] != N:  # a padded d_state: its states stay exactly 0
+        if states[:, :, N:].abs().max().item() != 0:
+            raise AssertionError(f"{name}: a padded state of N = {N} is not 0")
+        states = states[:, :, :N]
     e_fwd = [rel_err("y", y, y_ref), rel_err("states", states, states_ref)]
     e_bwd = [rel_err(what, got, want) for what, got, want in
              zip(("dx", "ddelta", "dA", "dB", "dC"), grads, grads_ref)]
-    log(f"  {name:24s} K6 ({ssm.fwd_segments(Bt, L, D)} seg): y {e_fwd[0]:.2e} states "
+    log(f"  {name:24s} N {N:2d} K6 ({ssm.fwd_segments(Bt, L, D)} seg): y {e_fwd[0]:.2e} states "
         f"{e_fwd[1]:.2e}   K7: dx {e_bwd[0]:.2e} ddelta {e_bwd[1]:.2e} dA {e_bwd[2]:.2e} "
         f"dB {e_bwd[3]:.2e} dC {e_bwd[4]:.2e} (of the largest value; tolerance {SSM_TOL:g}; "
         f"K6 and K7 the same bits in two runs)")
@@ -1340,6 +1372,59 @@ def kernel_group_ms(torch, fn, prefix: str, n: int = 5) -> float:
     if not us:
         raise AssertionError(f"profiler recorded no device time for {prefix}*")
     return us / n / 1e3
+
+
+# K6's split of the time axis (ops/ssm.py fwd_segments) swept: the wrapper's
+# own choice, and cuts for 2, 4 and 8 blocks an SM of the 132 that
+# ops/ssm.py assumes (its FWD_SPLIT_BLOCKS, 8, and its FWD_FILL_BLOCKS were
+# chosen at d_state 16's 128-thread blocks; at 32 and 64 a block has 256
+# and 512 threads), at the decode shape too, which the wrapper leaves unsplit
+SSM_SPLIT_SWEEP = (2, 4, 8)
+SSM_SPLIT_SHAPES = {"decode": SSM_DECODE_SHAPE, "16384x4": SSM_TRAIN_SHAPE,
+                    "long": SSM_LONG_SHAPE}
+
+
+def ssm_split_sweep(torch, gen) -> dict:
+    """K6 at the decode shape (no states) and the 16384x4 and 120,000-frame
+    shapes (with states, as the training forward) for each built d_state,
+    under each split of SSM_SPLIT_SWEEP and the wrapper's own: ms a wrapper
+    call by CUDA events over 20 calls back to back (`device_ms`; the
+    wrapper enqueues only K6's launches), the best of two rounds taken in
+    turn.  Returns {N: {shape: {"ms": {choice:
+    ms}, "segments": {choice: S}}}}."""
+    from lcasr_torch.ops import ssm
+
+    kept = ssm.FWD_FILL_BLOCKS, ssm.FWD_SPLIT_BLOCKS
+    choices = {"wrapper": kept,
+               **{f"{k}_an_sm": (sys.maxsize, k * 132) for k in SSM_SPLIT_SWEEP}}
+    out = {}
+    t0 = time.perf_counter()
+    try:
+        for N in ssm.KERNEL_D_STATES:
+            out[N] = {}
+            for label, shape in SSM_SPLIT_SHAPES.items():
+                Bt, L, D, _ = shape
+                states = label != "decode"
+                x, delta, A, Bm, Cm, _g = ssm_inputs(torch, gen, Bt, L, D, N, torch.float32,
+                                                     torch.bfloat16, True, False)
+                best, segs = {}, {}
+                for _round in range(2):
+                    for c, (fill, split) in choices.items():
+                        ssm.FWD_FILL_BLOCKS, ssm.FWD_SPLIT_BLOCKS = fill, split
+                        segs[c] = ssm.fwd_segments(Bt, L, D)
+                        ms = device_ms(torch, lambda: ssm.selective_scan_fwd(
+                            x, delta, A, Bm, Cm, return_states=states), n=20)
+                        best[c] = min(best.get(c, ms), ms)
+                ssm.FWD_FILL_BLOCKS, ssm.FWD_SPLIT_BLOCKS = kept
+                out[N][label] = {"ms": best, "segments": segs}
+                log(f"  K6 split sweep N {N:2d} at {label} {(Bt, L, D)}"
+                    f"{' with states' if states else ''}: " + ", ".join(
+                        f"{c} ({segs[c]} seg) {best[c]:.4f} ms" for c in choices))
+                del x, delta, A, Bm, Cm, _g
+    finally:
+        ssm.FWD_FILL_BLOCKS, ssm.FWD_SPLIT_BLOCKS = kept
+    log(f"  K6 split sweep: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def check_fwd_grids(torch) -> dict:
@@ -1431,6 +1516,8 @@ def phase_kernels_ssm(torch):
             f"of its bound), bound {t['bwd_bound'][0]:.4f} ms by {t['bwd_bound'][1]}; {plain}; "
             f"no library call computes either")
         del x, delta, A, Bm, Cm, g, states
+    d_states = ssm_d_state_cases(torch, gen, timed)
+    split_sweep = ssm_split_sweep(torch, gen)
     # K6's row is the decode's launch (no states), K7's the training step's;
     # both by the device time of their launches
     for key, (ms, plain, bound, extra) in {
@@ -1445,7 +1532,7 @@ def phase_kernels_ssm(torch):
                                 "ms_long_shape": timed["long"]["fwd_device"],
                                 "ms_long_shape_with_states": timed["long"]["fwd_states_device"],
                                 "bound_ms_long_shape": timed["long"]["fwd_bound"][0],
-                                "grids": grids}),
+                                "grids": grids, "split_sweep": split_sweep}),
         "selective_scan_bwd": (timed["train"]["bwd_kernel_only"], timed["train"]["bwd_plain"],
                                timed["train"]["bwd_bound"],
                                {"wrapper_ms": timed["train"]["bwd"],
@@ -1464,7 +1551,152 @@ def phase_kernels_ssm(torch):
             "replaces_fn": f"lcasr_tpu/ops/ssm.py:{body}",
             "launches": None, "max_abs_err": worst[key], "ms": ms, "plain_ms": plain,
             "library_ms": None, "bound_ms": bound[0], "bound_by": bound[1], **extra,
+            "d_state_cases": d_states[key],
         }
+    return out
+
+
+def scan_bits_against(torch, src: str) -> dict:
+    """K6 and K7 at d_state 16 from this checkout against the same wrappers
+    launching the kernels built from `src`, the selective_scan.cu of another
+    commit whose two launch functions take the same arguments (the workspace
+    sizes stay this build's): y without and with the states, the states and
+    the five gradients must be the same bits, at the decode, training and
+    120,000-frame shapes and on the cases of SSM_D_STATE_CASES."""
+    import ctypes
+
+    from lcasr_torch import kernels
+    from lcasr_torch.ops import ssm
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "scan_source")
+    os.makedirs(out_dir, exist_ok=True)
+    so = os.path.join(out_dir, "selective_scan_source.so")
+    subprocess.run([kernels._find_nvcc(), *kernels.NVCC_FLAGS, "-o", so, src], check=True,
+                   capture_output=True, timeout=600)
+    new = kernels.library("selective_scan.cu")
+    other = kernels._bind("selective_scan.cu", ctypes.CDLL(so))
+    launches = ("lcasr_selective_scan_fwd", "lcasr_selective_scan_bwd")
+
+    class Mixed:  # the other build's launches, this build's sizes and messages
+        def __getattr__(self, name):
+            return getattr(other if name in launches else new, name)
+
+    def run(inputs):
+        x, delta, A, Bm, Cm, g = inputs
+        y = ssm.selective_scan_fwd(x, delta, A, Bm, Cm)
+        y_s, states = ssm.selective_scan_fwd(x, delta, A, Bm, Cm, return_states=True)
+        return (y, y_s, states, *ssm.selective_scan_bwd(x, delta, A, Bm, Cm, states, g))
+
+    cases = {c[0]: c for c in ssm_cases(torch)}
+    shapes = [(name, cases[name][1:]) for name in SSM_D_STATE_CASES] + [
+        (label, shape[:3] + (torch.float32, torch.bfloat16, True, False))
+        for label, shape in (("decode", SSM_DECODE_SHAPE), ("train", SSM_TRAIN_SHAPE),
+                             ("long", SSM_LONG_SHAPE))]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for name, (Bt, L, D, xd, bcd, strided, wide) in shapes:
+        inputs = ssm_inputs(torch, gen, Bt, L, D, 16, xd, bcd, strided, wide)
+        mine = run(inputs)
+        kernels._libs["selective_scan.cu"] = Mixed()
+        try:
+            theirs = run(inputs)
+        finally:
+            kernels._libs["selective_scan.cu"] = new
+        torch.cuda.synchronize()
+        for what, a, b in zip(("y", "y with states", "states", "dx", "ddelta", "dA", "dB", "dC"),
+                              mine, theirs):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name}: {what} differs from {src}'s bits at d_state 16")
+    log(f"  K6 and K7 at d_state 16: y, states and the five gradients the same bits as {src} "
+        f"on {len(shapes)} cases ({', '.join(n for n, _ in shapes)})")
+    return {"source": src, "cases": [n for n, _ in shapes], "equal": True}
+
+
+def scan_registers(build_log: dict) -> dict:
+    """{N: {"kernel<B and C's type, states>": ptxas entry}} of the scan's
+    template instantiations in nvcc's output."""
+    import re
+
+    out = {}
+    for fn, e in ptxas_entries(build_log["selective_scan.cu"]).items():
+        m = re.search(r"\d(selective_scan_[a-z_]+)ILi(\d+)E(13__nv_bfloat16|f)?(?:Lb([01])E)?E", fn)
+        if m:
+            tags = [{"13__nv_bfloat16": "bf16", "f": "fp32"}.get(m.group(3), ""),
+                    {"1": "states", "0": "no states"}.get(m.group(4), "")]
+            name = m.group(1) + (f"<{', '.join(t for t in tags if t)}>" if any(tags) else "")
+            out.setdefault(int(m.group(2)), {})[name] = e
+    return out
+
+
+def ssm_d_state_cases(torch, gen, timed16: dict) -> dict:
+    """K6 and K7 at each of SSM_OTHER_D_STATES: the cases of SSM_D_STATE_CASES
+    against the plain versions at SSM_TOL, then device ms at the decode
+    shape (K6, no states) and the training shape (K6 with states, K7),
+    the plain versions' ms at those shapes, each bound at the true N, and
+    ptxas's registers and spills of each instantiation; N = 16's numbers
+    from `timed16` beside them.  Returns {kernel: {N: numbers}}."""
+    from lcasr_torch import kernels
+    from lcasr_torch.ops import ssm
+
+    registers = scan_registers(kernels.build_log)
+    for N in sorted(registers):
+        for name, e in sorted(registers[N].items()):
+            log(f"  scan N = {N}: {name}: {e}")
+    cases = {c[0]: c for c in ssm_cases(torch)}
+    fwd_prefix = SSM_KERNELS["selective_scan_fwd"][0]
+    bwd_prefix = SSM_KERNELS["selective_scan_bwd"][0]
+    out = {"selective_scan_fwd": {}, "selective_scan_bwd": {}}
+    for N in (16,) + SSM_OTHER_D_STATES:
+        built = ssm.kernel_d_state(N)
+        regs = {k: v for k, v in registers.get(built, {}).items()}
+        if N == 16:
+            d, tr = timed16["decode"], timed16["train"]
+            fwd = {"ms": d["fwd_device"], "plain_ms": d["fwd_plain"], "bound_ms": d["fwd_bound"][0],
+                   "bound_by": d["fwd_bound"][1], "ms_train_shape_with_states":
+                   tr["fwd_states_device"]}
+            bwd = {"ms": tr["bwd_kernel_only"], "plain_ms": tr["bwd_plain"],
+                   "bound_ms": tr["bwd_bound"][0], "bound_by": tr["bwd_bound"][1]}
+        else:
+            worst_f = worst_b = 0.0
+            for name in SSM_D_STATE_CASES:
+                e_f, e_b = ssm_case(torch, cases[name], gen, N)
+                worst_f, worst_b = max(worst_f, e_f), max(worst_b, e_b)
+            t = {}
+            for label, shape in (("decode", SSM_DECODE_SHAPE[:3] + (N,)),
+                                 ("train", SSM_TRAIN_SHAPE[:3] + (N,))):
+                x, delta, A, Bm, Cm, g = ssm_inputs(torch, gen, *shape, torch.float32,
+                                                    torch.bfloat16, True, False)
+                _, states = ssm.selective_scan_fwd(x, delta, A, Bm, Cm, return_states=True)
+                if label == "decode":
+                    t["fwd"] = kernel_group_ms(
+                        torch, lambda: ssm.selective_scan_fwd(x, delta, A, Bm, Cm), fwd_prefix)
+                    t["fwd_plain"] = time_ms(torch, lambda: ssm.selective_scan_ref(
+                        x, delta, A, Bm, Cm), n=1, warmup=1)
+                    t["fwd_bound"] = ssm_bound(torch, "fwd", shape, 4, 2, False)
+                else:
+                    t["fwd_states"] = kernel_group_ms(torch, lambda: ssm.selective_scan_fwd(
+                        x, delta, A, Bm, Cm, return_states=True), fwd_prefix)
+                    t["bwd"] = kernel_group_ms(torch, lambda: ssm.selective_scan_bwd(
+                        x, delta, A, Bm, Cm, states, g), bwd_prefix)
+                    t["bwd_plain"] = time_ms(torch, lambda: ssm.selective_scan_bwd_ref(
+                        x, delta, A, Bm, Cm, g), n=1, warmup=1)
+                    t["bwd_bound"] = ssm_bound(torch, "bwd", shape, 4, 2, True)
+                del x, delta, A, Bm, Cm, g, states
+            fwd = {"ms": t["fwd"], "plain_ms": t["fwd_plain"], "bound_ms": t["fwd_bound"][0],
+                   "bound_by": t["fwd_bound"][1], "ms_train_shape_with_states": t["fwd_states"],
+                   "max_abs_err": worst_f}
+            bwd = {"ms": t["bwd"], "plain_ms": t["bwd_plain"], "bound_ms": t["bwd_bound"][0],
+                   "bound_by": t["bwd_bound"][1], "max_abs_err": worst_b}
+        for key, numbers in (("selective_scan_fwd", fwd), ("selective_scan_bwd", bwd)):
+            prefix = SSM_KERNELS[key][0]
+            numbers["kernel_d_state"] = built
+            numbers["registers"] = {k: v for k, v in regs.items() if k.startswith(prefix)}
+            out[key][N] = numbers
+        log(f"  d_state {N} (kernels built for {built}): K6 decode shape {fwd['ms']:.4f} ms "
+            f"(bound {fwd['bound_ms']:.4f} by {fwd['bound_by']}, "
+            f"{100 * fwd['bound_ms'] / fwd['ms']:.1f}%; plain {fwd['plain_ms']:.2f}), with "
+            f"states at the training shape {fwd['ms_train_shape_with_states']:.4f}; K7 training "
+            f"shape {bwd['ms']:.4f} ms (bound {bwd['bound_ms']:.4f} by {bwd['bound_by']}, "
+            f"{100 * bwd['bound_ms'] / bwd['ms']:.1f}%; plain {bwd['plain_ms']:.2f})")
     return out
 
 
@@ -5199,6 +5431,354 @@ def phase_adapt(torch, workdir: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 2 (end): the Mamba at d_state 32 on its main paths (K6, K7 at N = 32)
+# ---------------------------------------------------------------------------
+MAMBA_D_STATE = 32
+
+
+def phase_mamba_d_state(torch, workdir: str) -> dict:
+    """The class-default Mamba with its mixers at `d_state` 32 (the mixer's
+    option; the model builds its mixers at the mixer's default, which is
+    made 32 while the model is built, as the CPU parity test does on both
+    sides): the 20-minute decode (24 K6 launches) and one 16384 x 4 micro
+    step (12 K6 and 6 K7 under full remat) gated against the plain scan in
+    fp64, each with its launch counts zeroed just before and read just
+    after."""
+    from lcasr_torch import kernels
+    from lcasr_torch.config import Config
+    from lcasr_torch.models import mamba
+    from lcasr_torch.models.registry import load_model
+    from lcasr_torch.training.trainer import Trainer
+
+    base = mamba.BiMambaMixer
+
+    class Mixer(base):
+        def __init__(self, d_model, d_state=MAMBA_D_STATE, **kw):
+            super().__init__(d_model, d_state=d_state, **kw)
+
+    def make(seed, config=None):
+        torch.manual_seed(seed)
+        cfg = Config(merged(MAMBA_CONFIG, {"model": {"init_seed": seed}}))
+        mamba.BiMambaMixer = Mixer
+        try:
+            return load_model(cfg, 4095, device=DEVICE)
+        finally:
+            mamba.BiMambaMixer = base
+
+    model = make(0)
+    n_state = model.layers[0].mixer.A_log.shape[-1]
+    if n_state != MAMBA_D_STATE:
+        raise AssertionError(f"the d_state {MAMBA_D_STATE} Mamba has {n_state} states")
+    launches, rtfx, _ = phase_decode(torch, model,
+                                     {"selective_scan_fwd": MAMBA_EXPECTED_DECODE_LAUNCHES},
+                                     f"Mamba d_state {MAMBA_D_STATE}",
+                                     "mamba_d_state_decode_profile.txt")
+    del model
+    n_layers = MAMBA_CONFIG["model"]["n_layers"]
+    per_micro = {"selective_scan_fwd": 2 * n_layers, "selective_scan_bwd": n_layers}
+    run = TrainRun(torch, workdir, MAMBA_CONFIG, make, per_micro,
+                   f"Mamba d_state {MAMBA_D_STATE}")
+    model = make(0)
+    trainer = Trainer(run.cfg, model, run.tok, device=DEVICE)
+    trainer.init_state()
+    _, chunk = run.chunk_16384x4()
+
+    def one_step():
+        trainer.zero_pending()
+        loss, _ = trainer.micro_step(chunk)
+        return float(loss), flat_grads(model)
+
+    kernels.reset_launch_counts()
+    one_step()
+    step_launches = expect_launches(per_micro, f"the d_state {MAMBA_D_STATE} micro step")
+    gate = gradient_gate(f"Mamba d_state {MAMBA_D_STATE}", "the plain scan in fp64", one_step,
+                         plain_scan(torch.float64),
+                         {"the plain scan in fp32": plain_scan(torch.float32)},
+                         floors=(MAMBA_REL_L2_FLOOR, MAMBA_COS_FLOOR))
+    return {"decode_launches": launches["selective_scan_fwd"], "decode_rtfx": rtfx,
+            "step_launches": {k: step_launches[k] for k in per_micro}, "step_gate": gate}
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the host tooling on one path: WAVs -> preprocessing in two shards
+# -> pairs -> a trained tokenizer; the flagship trained in two seed repeats
+# -> their average -> a profiled, timed decode; the spare components
+# ---------------------------------------------------------------------------
+TOOLING_WAVS, TOOLING_SECONDS = 4, 180  # seeded 44.1 kHz stereo recordings
+TOOLING_VOCAB = 512
+TOOLING_WORD_S = 0.6  # seconds from one word to the next
+TOOLING_CHUNK = 9216  # two chunks of each 18,001-frame recording: two steps a repeat
+TOOLING_REPEATS = (1, 2)
+TOOLING_STEP = f"step_{TOOLING_WAVS}"  # the checkpoint each repeat saves at its end
+CHAIN_SHAPE = (16, 2048, 6, 128)  # K1 in time_fn_chain: the decode's shape
+SPARE_SHAPE = (4, 16_384)  # (B, T) of the spare components at width 768
+SPARE_TOL = 1e-4  # of the largest |value|: fp32 sums in another order
+
+
+def tooling_words(seed: int, n_words: int) -> list:
+    """A seeded word-aligned transcript: Zipf-drawn pseudo-words of one to
+    three syllables, TOOLING_WORD_S apart (few enough tokens for CTC over a
+    chunk), the speaker changing now and then."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    syllables = ["ka", "lo", "mi", "ren", "tas", "vo", "du", "shen", "pri", "gal", "nor", "e",
+                 "qua", "zi", "bel", "tor"]
+    vocab_rng = np.random.default_rng(1234)  # the same vocabulary in every recording
+    vocab = ["".join(vocab_rng.choice(syllables, size=int(vocab_rng.integers(1, 4))))
+             for _ in range(600)]
+    ranks = np.minimum(rng.zipf(1.3, size=n_words), len(vocab)) - 1
+    words, speaker = [], 1
+    for i, r in enumerate(ranks):
+        if rng.uniform() < 0.05:
+            speaker = int(rng.integers(1, 4))
+        t = 0.15 + TOOLING_WORD_S * i
+        words.append({"word": vocab[r], "startTime": f"{t:.2f}s", "endTime": f"{t + 0.25:.2f}s",
+                      "speakerTag": speaker})
+    return words
+
+
+def tooling_spare(torch) -> dict:
+    """The four spare components at width 768 on (4, 16384, .) on the card
+    against the same modules on the CPU in fp32 (TF32 off): the largest
+    |difference| over the largest |value|, at most SPARE_TOL."""
+    import copy
+
+    from lcasr_torch.models.positional import ScaledSinuEmbedding
+    from lcasr_torch.ops.conv import Conv1DSubsampling, TimeReductionModule
+    from lcasr_torch.ops.mlp import SwiGLU
+
+    B, T = SPARE_SHAPE
+    gen = torch.Generator().manual_seed(5)
+    x768 = torch.randn(B, T, 768, generator=gen)
+    x80 = torch.randn(B, T, 80, generator=gen)
+    lengths = torch.tensor([T - i * (T // B) for i in range(B)], dtype=torch.int32)
+    torch.manual_seed(6)
+    cases = {
+        "SwiGLU": (SwiGLU(768), lambda m, d: m(x768.to(d))),
+        "Conv1DSubsampling_train": (Conv1DSubsampling(8, 80, 768, 256, batch_norm=True),
+                                    lambda m, d: m(x80.to(d), lengths.to(d), train=True)[0]),
+        "Conv1DSubsampling_eval": (Conv1DSubsampling(8, 80, 768, 256, batch_norm=True),
+                                   lambda m, d: m(x80.to(d), lengths.to(d))[0]),
+        "TimeReductionModule": (TimeReductionModule(768, 768),
+                                lambda m, d: m(x768[:, :T - 1].to(d), (lengths - 1).to(d))[0]),
+        "ScaledSinuEmbedding": (ScaledSinuEmbedding(768), lambda m, d: m(x768.to(d))),
+    }
+    out = {}
+    for name, (module, run) in cases.items():
+        with torch.no_grad():
+            for p in module.parameters():  # off the initial values, which are symmetric
+                p.add_(0.05 * torch.randn(p.shape, generator=gen))
+        card = copy.deepcopy(module).to(DEVICE)
+        with torch.no_grad():
+            want = run(module, "cpu")
+            got = run(card, DEVICE).cpu()
+        err = (got - want).abs().max().item() / max(want.abs().max().item(), 1e-6)
+        if not (got.shape == want.shape and torch.isfinite(got).all() and err <= SPARE_TOL):
+            raise AssertionError(f"{name} on the card: {tuple(got.shape)}, error {err:.3e} of "
+                                 f"the largest value (tolerance {SPARE_TOL:g})")
+        if name == "Conv1DSubsampling_train":
+            for (key, a), b in zip(module.state_dict().items(), card.state_dict().values()):
+                if (a.float() - b.cpu().float()).abs().max().item() > 1e-5:
+                    raise AssertionError(f"{name}: {key} moved otherwise on the card")
+        out[name] = {"shape": list(got.shape), "rel_err": err, "tolerance": SPARE_TOL}
+        log(f"  {name} on (4, 16384, .) at width 768: {tuple(got.shape)}, error {err:.2e} of "
+            f"the largest value (tolerance {SPARE_TOL:g})")
+    return out
+
+
+def phase_tooling(torch, workdir: str, seed: int) -> dict:
+    import numpy as np
+
+    from lcasr_torch import kernels
+    from lcasr_torch.config import Config
+    from lcasr_torch.data import preprocess
+    from lcasr_torch.data.audio import processing_chain
+    from lcasr_torch.data.dataloading import (VariableBatchSimpleDataloader,
+                                              chunk_text_and_speakers_json, load_json)
+    from lcasr_torch.data.tokenizer import SentencePieceBPE, load_tokenizer
+    from lcasr_torch.data.train_tokenizer import retrieve_all_text, train_tokenizer
+    from lcasr_torch.evaluation.streaming import StreamingDecoder
+    from lcasr_torch.models.registry import load_model
+    from lcasr_torch.models.sconformer_xl import init_weights_
+    from lcasr_torch.ops.flash_attention import flash_attention
+    from lcasr_torch.training.checkpointing import (avg_all_models_in_dir, load_checkpoint,
+                                                    parameter_names)
+    from lcasr_torch.training.trainer import Trainer
+    from lcasr_torch.utils import profiling
+
+    out, t_phase = {}, time.perf_counter()
+    n_layers = LADDER_CONFIG["model"]["n_layers"]
+    log("  left out here: the launcher and `restart` (they need pyyaml) and "
+        "`download_pretrained` (it needs the network); the CPU tests run them")
+    # 1-2. WAVs, preprocessed in two shards on the card
+    audio_dir, txt_dir = os.path.join(workdir, "audio"), os.path.join(workdir, "txt")
+    wavs = []
+    for i in range(TOOLING_WAVS):
+        d = os.path.join(audio_dir, "podcasts", f"show{i % 2}", f"ep{i}")
+        os.makedirs(d)
+        wavs.append(os.path.join(d, "rec.wav"))
+        write_wav(wavs[-1], TOOLING_SECONDS, WAV_RATE, seed + 100 + i)
+    t0 = time.perf_counter()
+    for shard in range(2):
+        preprocess.main(["-audio", audio_dir, "--shard_index", str(shard), "--num_shards", "2",
+                         "--device", DEVICE])
+    torch.cuda.synchronize()
+    out["preprocess_s"] = time.perf_counter() - t0
+    worst = 0.0
+    for wav in wavs:
+        got = np.load(wav.replace(".wav", ".spec.npy"))
+        want = processing_chain(wav, device="cpu").numpy()
+        step = np.spacing(np.abs(got)).astype(np.float32)
+        diff = np.abs(got.astype(np.float32) - want)
+        scale = np.abs(want).max()
+        if got.dtype != np.float16 or got.shape != want.shape or not (
+                diff <= MEL_TOL * scale + step).all():
+            raise AssertionError(f"{wav}: the fp16 spectrogram {got.shape} is off the CPU's "
+                                 f"{want.shape} by {diff.max():.3e} (tolerance {MEL_TOL:g} of "
+                                 f"{scale:.3f} + one fp16 step)")
+        worst = max(worst, float((diff / scale).max()))
+    out["preprocess_worst_rel"] = worst
+    log(f"  preprocessed {TOOLING_WAVS} x {TOOLING_SECONDS} s WAVs in two shards on the card: "
+        f"{out['preprocess_s']:.2f} s; each fp16 .spec.npy within {worst:.2e} of the largest "
+        f"value of the CPU frontend's (tolerance {MEL_TOL:g} + one fp16 step)")
+
+    # 3. seeded speaker-tagged transcripts, paired
+    for i, wav in enumerate(wavs):
+        rel = os.path.relpath(os.path.dirname(wav), audio_dir)
+        os.makedirs(os.path.join(txt_dir, rel))
+        words = tooling_words(seed + 200 + i, int((TOOLING_SECONDS - 1) / TOOLING_WORD_S))
+        with open(os.path.join(txt_dir, rel, "rec.json"), "w") as f:
+            json.dump({"results": [{"alternatives": [{"words": words}]}]}, f)
+    pairs_path = os.path.join(workdir, "pairs.json")
+    pairs = preprocess.add_durations(preprocess.pair_audio_txt(audio_dir, txt_dir,
+                                                               save_path=pairs_path))
+    with open(pairs_path, "w") as f:
+        json.dump(pairs, f)
+    frames = np.load(wavs[0].replace(".wav", ".spec.npy"), mmap_mode="r").shape[-1]
+    if len(pairs) != TOOLING_WAVS or {p["duration"] for p in pairs.values()} != {frames / 100}:
+        raise AssertionError(f"pairs {pairs}")
+    first = load_json(next(iter(pairs.values()))["txt"])["results"][0]["alternatives"][0]["words"]
+    _, speakers = chunk_text_and_speakers_json(first, TOOLING_CHUNK, 0, frames)
+    log(f"  {len(pairs)} pairs of {frames / 100:.2f} s; speakers per {TOOLING_CHUNK}-frame "
+        f"chunk of the first: {speakers}")
+
+    # 4. a tokenizer trained on the transcripts
+    texts = retrieve_all_text(pairs)
+    t0 = time.perf_counter()
+    tok_path = train_tokenizer(texts, os.path.join(workdir, "tok.model"), vocab_size=TOOLING_VOCAB)
+    out["tokenizer_s"] = time.perf_counter() - t0
+    native, plain = SentencePieceBPE(tok_path), SentencePieceBPE(tok_path, use_native=False)
+    for text in texts:
+        ids = plain.encode(text)
+        if native.encode(text) != ids or plain.decode(ids) != text:
+            raise AssertionError("the trained tokenizer's native and Python encodes differ, "
+                                 "or its text does not round-trip")
+    out["tokenizer_pieces"] = plain.vocab_size()
+    log(f"  tokenizer: {plain.vocab_size()} pieces (asked {TOOLING_VOCAB}) from "
+        f"{sum(len(t.split()) for t in texts)} words in {out['tokenizer_s']:.2f} s; native and "
+        f"Python encodes equal, the text round-trips")
+
+    # 5. the flagship trained for two steps in each of two seed repeats
+    tok = load_tokenizer()
+    root = os.path.join(workdir, "repeats")
+    # a recomputed layer launches K1 in the forward and again in the backward
+    per_micro = {"flash_attention_fwd": 2 * n_layers, "flash_attention_bwd_fused": n_layers}
+    train_s = {}
+    for repeat in TOOLING_REPEATS:
+        cfg = Config(merged(merged(LADDER_CONFIG, SMOKE_OVERRIDES), {
+            "data": {"path": pairs_path}, "audio_chunking": {"size": TOOLING_CHUNK},
+            "training": {"batch_size": TOOLING_WAVS, "random_seed": repeat},
+            "checkpointing": {"dir": os.path.join(root, f"repeat_{repeat}")}}))
+        model = init_weights_(load_model(cfg, tok.vocab_size(), device=DEVICE), seed=repeat)
+        trainer = Trainer(cfg, model, tok, device=DEVICE)
+        trainer.init_state()
+        loader = VariableBatchSimpleDataloader(
+            pairs=load_json(pairs_path), tokenizer=tok, batch_size=TOOLING_WAVS,
+            chunk_size=TOOLING_CHUNK, chunk_overlap=0, random_seed=repeat)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.train(loader)
+        torch.cuda.synchronize()
+        train_s[repeat] = time.perf_counter() - t0
+        launches = dict(kernels.launch_counts)
+        rows = [json.loads(line) for line in open(os.path.join(trainer.checkpoint_dir,
+                                                               "metrics.jsonl"))]
+        losses = [r["loss"] for r in rows if "loss" in r]
+        # a loss of 0 is a chunk whose every row's CTC path was impossible
+        if len(losses) != 2 or not all(np.isfinite(x) and x > 0 for x in losses):
+            raise AssertionError(f"repeat {repeat}: optimizer steps with losses {losses}, "
+                                 f"expected two finite and positive")
+        expect_launches({k: 2 * v for k, v in per_micro.items()}, f"repeat {repeat}'s two steps")
+        out.setdefault("train_launches", {})[repeat] = launches
+        log(f"  repeat {repeat}: two steps of the flagship at {TOOLING_WAVS} x {TOOLING_CHUNK}, "
+            f"losses {[round(x, 4) for x in losses]}, launches {launches}, "
+            f"{train_s[repeat]:.2f} s with the final checkpoint")
+        del trainer, model
+    out["train_s"] = train_s
+
+    # 6. their average, against this phase's own float64 mean
+    t0 = time.perf_counter()
+    avg = avg_all_models_in_dir(root, TOOLING_STEP)
+    out["average_s"] = time.perf_counter() - t0
+    states = [load_checkpoint(os.path.join(root, f"repeat_{r}", TOOLING_STEP),
+                              map_location="cpu") for r in TOOLING_REPEATS]
+    names = parameter_names(states[0][1]["config"])
+    mean = {n: ((states[0][0]["model"][n].double() + states[1][0]["model"][n].double())
+                / len(TOOLING_REPEATS)).float() for n in names}
+    if avg.keys() != mean.keys() or not all(torch.equal(avg[n], mean[n]) for n in names):
+        raise AssertionError("avg_all_models_in_dir differs from the float64 mean")
+    model = load_model(Config(states[0][1]["config"]), tok.vocab_size(), device=DEVICE)
+    model.load_state_dict(dict(states[0][0]["model"], **avg), strict=True)
+    model.eval()
+    del states
+    log(f"  average of {len(TOOLING_REPEATS)} repeats at {TOOLING_STEP}: {len(avg)} parameters "
+        f"(buffers left out), bit-equal to the float64 mean, loaded strictly; "
+        f"{out['average_s']:.2f} s")
+
+    # 7-8. one recording decoded under the profiler's trace, then timed
+    spec = np.load(wavs[0].replace(".wav", ".spec.npy")).astype(np.float32)
+    decoder = StreamingDecoder(model, 4096, window_batch_size=WINDOW_BATCH,
+                               transfer_dtype=torch.bfloat16, device=DEVICE)
+    kernels.reset_launch_counts()
+    ids = decoder.greedy(spec, seq_len=SEQ_LEN, overlap=OVERLAP)
+    k1 = kernels.launch_counts["flash_attention_fwd"]
+    expect_launches({"flash_attention_fwd": k1}, "the averaged model's decode")
+    if k1 == 0 or k1 % n_layers:
+        raise AssertionError(f"the decode launched K1 {k1} times, not {n_layers} a window batch")
+    trace_dir = os.path.join(workdir, "trace")
+    with profiling.trace(trace_dir) as prof:
+        again = decoder.greedy(spec, seq_len=SEQ_LEN, overlap=OVERLAP)
+    traced = sum(e.count for e in prof.key_averages()
+                 if HOPPER_FWD_SYMBOL in e.key and e.device_type == torch.autograd.DeviceType.CUDA)
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    if not np.array_equal(ids, again) or traced != k1 or not files:
+        raise AssertionError(f"the traced decode: ids equal {np.array_equal(ids, again)}, "
+                             f"{traced} {HOPPER_FWD_SYMBOL} rows against {k1} launches, "
+                             f"trace files {files}")
+    timed = profiling.time_fn(decoder.greedy, spec, seq_len=SEQ_LEN, overlap=OVERLAP,
+                              warmup=1, iters=3)
+    B, T, H, D = CHAIN_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn(B, T, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    chain = profiling.time_fn_chain(lambda x: flash_attention(x, k, v), q, n=20)
+    out.update(decode_k1_launches=k1, traced_k1_rows=traced, decode_time=timed,
+               k1_chain=chain)
+    log(f"  the averaged model's decode of one {frames / 100:.2f} s recording: {k1} K1 launches, "
+        f"the profiler's trace ({files[0]}) has {traced} {HOPPER_FWD_SYMBOL} rows; time_fn "
+        f"{timed['mean_s'] * 1e3:.2f} ms a decode (mean of {timed['iters']}); time_fn_chain of "
+        f"K1 at {CHAIN_SHAPE} {chain['ms']:.4f} ms a call (20 calls queued, with the chain's "
+        f"multiply and add)")
+    del model, decoder
+
+    # 9. the spare components
+    out["spare"] = tooling_spare(torch)
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 class PhaseClock:
     """Seconds of each phase, logged as it ends."""
 
@@ -5222,6 +5802,9 @@ def main() -> int:
                         help="comma-separated subset of " + ",".join(PHASES))
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the WAV files and weights of phases audio and serve")
+    parser.add_argument("--scan_source", default=None,
+                        help="with phase kernels: hold K6 and K7 at d_state 16 to the bits of "
+                             "this selective_scan.cu (another commit's)")
     args = parser.parse_args()
     phases = args.phases.split(",")
     unknown = sorted(set(phases) - set(PHASES))
@@ -5244,7 +5827,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     clock = PhaseClock()
     clock.start("build")
-    log("[1/19] build")
+    log("[1/20] build")
     build_s = kernels.build()
     log(f"  build {build_s:.2f} s into {kernels.BUILD_DIR}")
     for src, text in kernels.build_log.items():
@@ -5261,7 +5844,7 @@ def main() -> int:
     workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_train")
     if "kernels" in phases:
         clock.start("kernels")
-        log("[2/19] kernels against their plain versions")
+        log("[2/20] kernels against their plain versions")
         results["flash_attention_fwd"] = phase_kernels(torch)
         results["flash_attention_fwd_db"] = phase_kernels_db(torch)
         fwd_registers = {**template_entries(kernels.build_log["flash_attn_fwd.cu"]),
@@ -5271,16 +5854,32 @@ def main() -> int:
         results.update(phase_kernels_bwd(
             torch, template_entries(kernels.build_log["flash_attn_bwd.cu"])))
         results.update(phase_kernels_ssm(torch))
+        if args.scan_source:
+            results["selective_scan_fwd"]["bits_against"] = scan_bits_against(
+                torch, args.scan_source)
         results["subsampling_fused"] = phase_kernels_sub(torch)
+        log(f"  the class-default Mamba at d_state {MAMBA_D_STATE}: the 20-minute decode and a "
+            f"16384 x 4 micro step")
+        os.makedirs(workdir, exist_ok=True)
+        try:
+            mamba_n = phase_mamba_d_state(torch, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        results["selective_scan_fwd"]["d_state_cases"][MAMBA_D_STATE]["launches"] = {
+            "decode": mamba_n["decode_launches"],
+            "micro_step": mamba_n["step_launches"]["selective_scan_fwd"]}
+        results["selective_scan_bwd"]["d_state_cases"][MAMBA_D_STATE]["launches"] = {
+            "micro_step": mamba_n["step_launches"]["selective_scan_bwd"]}
+        results["selective_scan_fwd"]["mamba_d_state_32"] = mamba_n
     model = None
     if "model" in phases:
         clock.start("model")
-        log("[3/19] flagship model, one window batch")
+        log("[3/20] flagship model, one window batch")
         model = flagship_model(torch)
         phase_model(torch, model, plain_attention(), "flagship")
     if "decode" in phases:
         clock.start("decode")
-        log("[4/19] 20-minute streaming greedy decode (the serving path)")
+        log("[4/20] 20-minute streaming greedy decode (the serving path)")
         model = model or flagship_model(torch)
         launches, _, rows = phase_decode(torch, model,
                                          {"flash_attention_fwd": EXPECTED_LAUNCHES},
@@ -5296,7 +5895,7 @@ def main() -> int:
     del model
     if "train" in phases:
         clock.start("train")
-        log("[5/19] training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1 "
+        log("[5/20] training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1 "
             "(the training path)")
         os.makedirs(workdir, exist_ok=True)
         try:
@@ -5316,7 +5915,7 @@ def main() -> int:
         results["flash_attention_fwd"]["train_host_side"] = host
     if "train_d256" in phases:
         clock.start("train_d256")
-        log("[6/19] lcasr_6l_768d_3h (head_dim 256) trains: K1 and K3 at D = 256")
+        log("[6/20] lcasr_6l_768d_3h (head_dim 256) trains: K1 and K3 at D = 256")
         os.makedirs(workdir, exist_ok=True)
         try:
             d256 = phase_train_d256(torch, workdir)
@@ -5329,7 +5928,7 @@ def main() -> int:
             k: v for k, v in d256.items() if k != "launches"}
     if "utterances" in phases:
         clock.start("utterances")
-        log("[7/19] utterance training with debug hooks, and wild-card CTC on the card")
+        log("[7/20] utterance training with debug hooks, and wild-card CTC on the card")
         os.makedirs(workdir, exist_ok=True)
         try:
             utt = phase_utterances(torch, workdir)
@@ -5341,7 +5940,7 @@ def main() -> int:
             k: v for k, v in utt.items() if k != "launches"}
     if "mamba_decode" in phases:
         clock.start("mamba_decode")
-        log("[8/19] Mamba: one window batch, then the 20-minute streaming greedy decode")
+        log("[8/20] Mamba: one window batch, then the 20-minute streaming greedy decode")
         model = mamba_model(torch)
         phase_model(torch, model, plain_scan(torch.float32), "Mamba")
         launches, rtfx, rows = phase_decode(
@@ -5354,7 +5953,7 @@ def main() -> int:
                                                   "K6", "the Mamba decode"), rtfx=rtfx)
     if "mamba_train" in phases:
         clock.start("mamba_train")
-        log("[9/19] Mamba training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1")
+        log("[9/20] Mamba training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1")
         os.makedirs(workdir, exist_ok=True)
         try:
             ladder, k6_step, k7_step, host = phase_mamba_train(torch, workdir)
@@ -5370,7 +5969,7 @@ def main() -> int:
         k6["train_host_side"] = host
     if "decode_opt" in phases:
         clock.start("decode_opt")
-        log("[10/19] the opt-in decode configuration (K2, K8) and the decoder's options")
+        log("[10/20] the opt-in decode configuration (K2, K8) and the decoder's options")
         launches, mamba_launches, numbers = phase_decode_opt(torch)
         for key in ("flash_attention_fwd_db", "subsampling_fused"):
             results.setdefault(key, {"name": key})["launches"] = launches[key]
@@ -5378,7 +5977,7 @@ def main() -> int:
         results["subsampling_fused"].update(numbers)
     if "train_opt" in phases:
         clock.start("train_opt")
-        log("[11/19] one training step under both flags, and under each alone, against the "
+        log("[11/20] one training step under both flags, and under each alone, against the "
             "same step without")
         os.makedirs(workdir, exist_ok=True)
         try:
@@ -5397,7 +5996,7 @@ def main() -> int:
             k1 = results.setdefault("flash_attention_fwd", {"name": "flash_attention_fwd"})
             if "audio" in phases:
                 clock.start("audio")
-                log("[12/19] from a WAV file to a transcript and a WER: the frontend on the "
+                log("[12/20] from a WAV file to a transcript and a WER: the frontend on the "
                     "card, evaluate in its three modes, the head_dim-256 model")
                 audio = phase_audio(torch, audio_dir, args.seed)
                 k1["audio_phase"] = audio
@@ -5406,13 +6005,13 @@ def main() -> int:
                     "launches_d256_decode"] = audio["wav_d256_k2"]["launches"]
             if "serve" in phases:
                 clock.start("serve")
-                log("[13/19] the streaming server: 4 sessions on the flagship, then the CLI")
+                log("[13/20] the streaming server: 4 sessions on the flagship, then the CLI")
                 k1["serve_phase"] = phase_serve(torch, audio_dir, args.seed)
         finally:
             shutil.rmtree(audio_dir, ignore_errors=True)
     if "enc_dec" in phases:
         clock.start("enc_dec")
-        log("[14/19] the encoder-decoder family: forwards, greedy decoding both ways, "
+        log("[14/20] the encoder-decoder family: forwards, greedy decoding both ways, "
             "enc_dec training, the internal-LM beam search")
         os.makedirs(workdir, exist_ok=True)
         try:
@@ -5429,7 +6028,7 @@ def main() -> int:
         k1["enc_dec_phase"] = enc_dec
     if "lm" in phases:
         clock.start("lm")
-        log("[15/19] decoding with a language model: train_lm, cached steps, create_logits, "
+        log("[15/20] decoding with a language model: train_lm, cached steps, create_logits, "
             "the beam searches, beam serving")
         lm_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_lm")
         os.makedirs(lm_dir, exist_ok=True)
@@ -5443,7 +6042,7 @@ def main() -> int:
         k1["lm_phase"] = lm_out
     if "parallel" in phases:
         clock.start("parallel")
-        log("[16/19] parallelism: the ring schedule on the card, then a world of one over NCCL "
+        log("[16/20] parallelism: the ring schedule on the card, then a world of one over NCCL "
             "(the flagship step, the TP model's ZeRO step, the mesh decode)")
         par_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                                "smoke_parallel")
@@ -5471,7 +6070,7 @@ def main() -> int:
     k3 = results.setdefault("flash_attention_bwd_fused", {"name": "flash_attention_bwd_fused"})
     if "analysis" in phases:
         clock.start("analysis")
-        log("[17/19] the paper's analysis on the flagship: attention statistics over one hour, "
+        log("[17/20] the paper's analysis on the flagship: attention statistics over one hour, "
             "probability rows against plain attention, attribution, the rotary probe")
         ana = phase_analysis(torch)
         k1["launches_analysis_summary"] = ana["summary"]["launches"]["flash_attention_fwd"]
@@ -5481,7 +6080,7 @@ def main() -> int:
         k1["analysis_phase"] = ana
     if "variants" in phases:
         clock.start("variants")
-        log("[18/19] model variants: the W8A8 decode under three policies, the int8 product, "
+        log("[18/20] model variants: the W8A8 decode under three policies, the int8 product, "
             "the other families under W8A8, long convolutions")
         var_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                                "smoke_variants")
@@ -5501,7 +6100,7 @@ def main() -> int:
         k1["variants_phase"] = var
     if "adapt" in phases:
         clock.start("adapt")
-        log("[19/19] test-time adaptation: the meta-learning conformer and its trainer, "
+        log("[19/20] test-time adaptation: the meta-learning conformer and its trainer, "
             "dynamic evaluation, self-training")
         adapt_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                                  "smoke_adapt")
@@ -5516,6 +6115,25 @@ def main() -> int:
             entry["launches_selftrain"] = adapt["selftrain"]["launches"][key]
         k1["launches_meta_refine"] = adapt["meta"]["refine_launches"]["flash_attention_fwd"]
         k1["adapt_phase"] = adapt
+    if "tooling" in phases:
+        clock.start("tooling")
+        log("[20/20] the host tooling: preprocessing, pairs, a tokenizer, two seed repeats "
+            "averaged, a profiled decode, the spare components")
+        tool_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                "smoke_tooling")
+        shutil.rmtree(tool_dir, ignore_errors=True)
+        os.makedirs(tool_dir)
+        try:
+            tooling = phase_tooling(torch, tool_dir, args.seed)
+        finally:
+            shutil.rmtree(tool_dir, ignore_errors=True)
+        k1 = results.setdefault("flash_attention_fwd", {"name": "flash_attention_fwd"})
+        k3 = results.setdefault("flash_attention_bwd_fused", {"name": "flash_attention_bwd_fused"})
+        k1["launches_tooling_decode"] = tooling["decode_k1_launches"]
+        for key, entry in (("flash_attention_fwd", k1), ("flash_attention_bwd_fused", k3)):
+            entry["launches_tooling_micro_step"] = tooling["train_launches"][1][key] // 2
+        k1["time_fn_chain_ms"] = tooling["k1_chain"]["ms"]
+        k1["tooling_phase"] = tooling
     clock.stop()
     log(f"  phase seconds: {clock.seconds}")
     name, power = [s.strip() for s in gpu.split(",", 1)]

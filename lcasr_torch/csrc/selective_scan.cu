@@ -2,7 +2,12 @@
 // reverse-recurrence backward (K7).
 //
 //     h_t = exp(delta_t * A) h_{t-1} + delta_t * B_t * x_t      (per channel d,
-//     y_t = C_t . h_t                                            state n < 16)
+//     y_t = C_t . h_t                                            state n < N)
+//
+// N (d_state) is a template parameter of every kernel, built for 16, 32 and
+// 64; the wrapper (ops/ssm.py) pads any other N <= 64 up to the next of these
+// with zero columns of B and C (a padded state stays 0 and adds 0 to y and to
+// every gradient).  The comments below give the sizes at N = 16.
 //
 // Replaces the Pallas kernels `_scan_kernel` and `_scan_bwd_kernel` of
 // lcasr_tpu/ops/ssm.py.  What is kept is the function: the same y, the same
@@ -96,7 +101,6 @@
 
 namespace {
 
-constexpr int N = 16;             // d_state the kernels are built for
 constexpr int TC = 32;            // steps per chunk = interval of saved states
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -136,7 +140,7 @@ struct ScanParams {
 // Stage B and C of steps [t0, t0 + len) of batch row b into shared memory as
 // fp32; rows past len are zero.  Every load comes before the first store,
 // so one round trip to memory covers them all.
-template <typename BT, int THREADS>
+template <int N, typename BT, int THREADS>
 __device__ __forceinline__ void stage_bc(const ScanParams& p, int b, int t0,
                                          int len, float (*Bs)[N],
                                          float (*Cs)[N]) {
@@ -162,8 +166,10 @@ __device__ __forceinline__ void stage_bc(const ScanParams& p, int b, int t0,
 
 // ---------------------------------------------------------------------------
 // K6: forward, parallel over rows, channels and segments of time.  Two
-// launches (one when S is 1), grid (ceil(D / 64), S - 1 or 1, Bt) each, 128
-// threads: threads 2j and 2j + 1 hold states 0-7 and 8-15 of channel j.
+// launches (one when S is 1), grid (ceil(D / 64), S - 1 or 1, Bt) each, 8N
+// threads (128 at N = 16): threads 2j and 2j + 1 hold states 0-7 and 8-15 of
+// channel j; at any N, N / 8 threads a channel hold 8 states each, so a
+// thread's registers are the same at every N and a block grows with N.
 // Bound: one exp per (t, d, n) on the special-function units (16 per clock
 // per SM): 0.193 ms at (32, 2048, 768, 16), where the bytes take 0.18 ms.
 // Registers decide how many blocks share an SM.  A first build staged with
@@ -174,10 +180,16 @@ __device__ __forceinline__ void stage_bc(const ScanParams& p, int b, int t0,
 // and C: 112-124 registers, no spill, all 384 decode blocks resident
 // (PERF.md, scripts/scan_fwd_experiments.py).
 // ---------------------------------------------------------------------------
-constexpr int FWD_CH = 64;                       // channels a block
-constexpr int FWD_LANES = 2;                     // threads a channel
-constexpr int FWD_THREADS = FWD_CH * FWD_LANES;  // 128
-constexpr int FWD_NS = N / FWD_LANES;            // states a thread
+constexpr int FWD_CH = 64;  // channels a block
+constexpr int FWD_NS = 8;   // states a thread
+
+template <int N>
+struct Fwd {
+  static_assert(N % FWD_NS == 0 && N <= 64, "N / 8 threads a channel");
+  static constexpr int LANES = N / FWD_NS;         // threads a channel
+  static constexpr int THREADS = FWD_CH * LANES;   // 128 at N = 16
+  static constexpr int BC_PER = TC * N / THREADS;  // 4: B, C values a thread
+};
 
 struct FwdBuffers {
   float* y;       // (Bt, L, D)
@@ -187,7 +199,9 @@ struct FwdBuffers {
   int segments, seg_chunks;
 };
 
-// Two chunk buffers: x, delta as [t][channel], B, C as [t][n], all fp32.
+// Two chunk buffers: x, delta as [t][channel], B, C as [t][n], all fp32.  In
+// dynamic shared memory: 40 KB at N = 16, 64 KB at N = 64.
+template <int N>
 struct FwdSmem {
   __align__(16) float xs[2][TC][FWD_CH];
   __align__(16) float ds[2][TC][FWD_CH];
@@ -211,13 +225,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // Steps [t0, t0 + TC) of channels [d0, d0 + FWD_CH) of one row of an
 // (L, D)-strided fp32 tensor into dst[TC][FWD_CH]; zeros past len steps and
 // past D.  `vec`: the rows are 16-byte aligned, so 16-byte cp.async copies,
-// 4 a thread (rows r, r + 8, r + 16, r + 24 of the chunk, columns 4q ..
-// 4q + 3); else one plain load and store at a time, a loop the compiler keeps
-// rolled, so that the rare path holds no registers of its own across the
-// chunk loop.
+// TC / R a thread (rows r, r + R, ... of the chunk, columns 4q .. 4q + 3);
+// else one plain load and store at a time, a loop the compiler keeps rolled,
+// so that the rare path holds no registers of its own across the chunk loop.
+template <int THREADS>
 __device__ __forceinline__ void stage_rows(const float* row0, long long sl, bool vec, int t0,
                                            int len, int d0, int D, float (*dst)[FWD_CH]) {
-  constexpr int Q = FWD_CH / 4, R = FWD_THREADS / Q;
+  constexpr int Q = FWD_CH / 4, R = THREADS / Q;
+  static_assert(TC % R == 0, "whole copies a thread");
   const float* base = row0 + t0 * sl + d0;
   if (vec) {
     const int r = threadIdx.x / Q, q = threadIdx.x % Q;
@@ -231,38 +246,39 @@ __device__ __forceinline__ void stage_rows(const float* row0, long long sl, bool
     return;
   }
 #pragma unroll 1
-  for (int i = threadIdx.x; i < TC * FWD_CH; i += FWD_THREADS) {
+  for (int i = threadIdx.x; i < TC * FWD_CH; i += THREADS) {
     const int t = i / FWD_CH, j = i % FWD_CH;
     dst[t][j] = t < len && d0 + j < D ? base[t * sl + j] : 0.f;
   }
 }
 
-// B and C of chunk c of row b as fp32 in registers, zeros past L: 4 values
-// of each a thread, loads only; `store_bc` puts them in shared memory once
-// the chunk before has been computed.
-constexpr int BC_PER = TC * N / FWD_THREADS;
-
-template <typename BT>
-__device__ __forceinline__ void load_bc(const ScanParams& p, int b, int c, float (&bv)[BC_PER],
-                                        float (&cv)[BC_PER]) {
-  constexpr int R = FWD_THREADS / N;  // steps a pass: thread i loads steps r + R k
+// B and C of chunk c of row b as fp32 in registers, zeros past L: BC_PER (4)
+// values of each a thread, loads only; `store_bc` puts them in shared memory
+// once the chunk before has been computed.
+template <int N, typename BT>
+__device__ __forceinline__ void load_bc(const ScanParams& p, int b, int c,
+                                        float (&bv)[Fwd<N>::BC_PER],
+                                        float (&cv)[Fwd<N>::BC_PER]) {
+  constexpr int R = Fwd<N>::THREADS / N;  // steps a pass: thread i loads steps r + R k
   const int t0 = c * TC, len = min(TC, p.L - t0), r = threadIdx.x / N, n = threadIdx.x % N;
   const BT* Bp = static_cast<const BT*>(p.B) + b * p.sB_b + (t0 + r) * p.sB_l + n;
   const BT* Cp = static_cast<const BT*>(p.C) + b * p.sC_b + (t0 + r) * p.sC_l + n;
 #pragma unroll
-  for (int k = 0; k < BC_PER; ++k) {
+  for (int k = 0; k < Fwd<N>::BC_PER; ++k) {
     const bool ok = r + k * R < len;
     bv[k] = ok ? ldf(Bp + k * R * p.sB_l) : 0.f;
     cv[k] = ok ? ldf(Cp + k * R * p.sC_l) : 0.f;
   }
 }
 
-__device__ __forceinline__ void store_bc(const float (&bv)[BC_PER], const float (&cv)[BC_PER],
-                                         float (*Bs)[N], float (*Cs)[N]) {
-  constexpr int R = FWD_THREADS / N;
+template <int N>
+__device__ __forceinline__ void store_bc(const float (&bv)[Fwd<N>::BC_PER],
+                                         const float (&cv)[Fwd<N>::BC_PER], float (*Bs)[N],
+                                         float (*Cs)[N]) {
+  constexpr int R = Fwd<N>::THREADS / N;
   const int r = threadIdx.x / N, n = threadIdx.x % N;
 #pragma unroll
-  for (int k = 0; k < BC_PER; ++k) {
+  for (int k = 0; k < Fwd<N>::BC_PER; ++k) {
     Bs[r + k * R][n] = bv[k];
     Cs[r + k * R][n] = cv[k];
   }
@@ -270,25 +286,27 @@ __device__ __forceinline__ void store_bc(const float (&bv)[BC_PER], const float 
 
 // Start the copies of x and delta of chunk c of row b, channel block d0, into
 // buffer buf.
+template <int N>
 __device__ __forceinline__ void stage_xd(const ScanParams& p, int b, int d0, int c, int buf,
-                                         FwdSmem& s) {
+                                         FwdSmem<N>& s) {
   const int t0 = c * TC, len = min(TC, p.L - t0);
-  stage_rows(p.x + b * p.sx_b, p.sx_l, p.vec_x, t0, len, d0, p.D, s.xs[buf]);
-  stage_rows(p.delta + b * p.sd_b, p.sd_l, p.vec_delta, t0, len, d0, p.D, s.ds[buf]);
+  stage_rows<Fwd<N>::THREADS>(p.x + b * p.sx_b, p.sx_l, p.vec_x, t0, len, d0, p.D, s.xs[buf]);
+  stage_rows<Fwd<N>::THREADS>(p.delta + b * p.sd_b, p.sd_l, p.vec_delta, t0, len, d0, p.D,
+                              s.ds[buf]);
   cp_async_commit();
 }
 
 // Chunk c0 into buffer 0: x and delta in flight, B and C stored.
-template <typename BT>
+template <int N, typename BT>
 __device__ __forceinline__ void stage_first(const ScanParams& p, int b, int d0, int c0,
-                                            FwdSmem& s) {
-  stage_xd(p, b, d0, c0, 0, s);
-  float bv[BC_PER], cv[BC_PER];
-  load_bc<BT>(p, b, c0, bv, cv);
-  store_bc(bv, cv, s.Bs[0], s.Cs[0]);
+                                            FwdSmem<N>& s) {
+  stage_xd<N>(p, b, d0, c0, 0, s);
+  float bv[Fwd<N>::BC_PER], cv[Fwd<N>::BC_PER];
+  load_bc<N, BT>(p, b, c0, bv, cv);
+  store_bc<N>(bv, cv, s.Bs[0], s.Cs[0]);
 }
 
-// This thread's 8 of a step's 16 values of B or C, from shared memory.
+// This thread's 8 of a step's N values of B or C, from shared memory.
 __device__ __forceinline__ void lds_half(const float* row, float (&o)[FWD_NS]) {
   const float4 a = reinterpret_cast<const float4*>(row)[0];
   const float4 c = reinterpret_cast<const float4*>(row)[1];
@@ -299,11 +317,12 @@ __device__ __forceinline__ void lds_half(const float* row, float (&o)[FWD_NS]) {
 // in h; h leaves as the exit.  Chunk c0 must be staged (`stage_first`).  OUT:
 // write y and (STATES) the state at each chunk's entry.  Returns this
 // thread's sum of delta over the segment.
-template <typename BT, bool OUT, bool STATES>
+template <int N, typename BT, bool OUT, bool STATES>
 __device__ __forceinline__ float run_segment(const ScanParams& p, const FwdBuffers& w, int b,
                                              int d0, int c0, int c1, const float (&A2)[FWD_NS],
-                                             float (&h)[FWD_NS], FwdSmem& s) {
-  const int j = threadIdx.x / FWD_LANES, half = threadIdx.x % FWD_LANES;
+                                             float (&h)[FWD_NS], FwdSmem<N>& s) {
+  constexpr int LANES = Fwd<N>::LANES;
+  const int j = threadIdx.x / LANES, half = threadIdx.x % LANES;
   const int d = d0 + j;
   const bool live = d < p.D;
   float dsum = 0.f;
@@ -313,10 +332,10 @@ __device__ __forceinline__ float run_segment(const ScanParams& p, const FwdBuffe
     __syncthreads();  // chunk c has landed everywhere, and chunk c - 1 is read
     // the next chunk's loads are in flight while this one computes: x and
     // delta by cp.async, B and C into registers
-    float bv[BC_PER], cv[BC_PER];
+    float bv[Fwd<N>::BC_PER], cv[Fwd<N>::BC_PER];
     if (c + 1 < c1) {
-      stage_xd(p, b, d0, c + 1, buf ^ 1, s);
-      load_bc<BT>(p, b, c + 1, bv, cv);
+      stage_xd<N>(p, b, d0, c + 1, buf ^ 1, s);
+      load_bc<N, BT>(p, b, c + 1, bv, cv);
     }
     if (STATES && live) {
       float* sp = w.states + (((long long)b * p.n_chunks + c) * N + half * FWD_NS) * p.D + d;
@@ -341,39 +360,44 @@ __device__ __forceinline__ float run_segment(const ScanParams& p, const FwdBuffe
         if (OUT) acc += h[k] * Cv[k];
       }
       if (OUT) {
-        acc += __shfl_xor_sync(FULL, acc, 1);  // the channel's other 8 states
+        // the channel's other states, from its other N / 8 - 1 threads
+#pragma unroll
+        for (int o = 1; o < LANES; o <<= 1) acc += __shfl_xor_sync(FULL, acc, o);
         if (half == 0 && live && t < len) yp[(long long)t * p.D] = acc;
       }
     }
     // every thread is past this chunk's barrier, so done with buffer buf ^ 1
-    if (c + 1 < c1) store_bc(bv, cv, s.Bs[buf ^ 1], s.Cs[buf ^ 1]);
+    if (c + 1 < c1) store_bc<N>(bv, cv, s.Bs[buf ^ 1], s.Cs[buf ^ 1]);
   }
   return dsum;
 }
 
+template <int N>
 __device__ __forceinline__ void load_a2(const ScanParams& p, int d0, float (&A2)[FWD_NS]) {
-  const int d = d0 + threadIdx.x / FWD_LANES, half = threadIdx.x % FWD_LANES;
+  const int d = d0 + threadIdx.x / Fwd<N>::LANES, half = threadIdx.x % Fwd<N>::LANES;
 #pragma unroll
   for (int k = 0; k < FWD_NS; ++k)
     A2[k] = d < p.D ? p.A[(long long)d * N + half * FWD_NS + k] * LOG2E : 0.f;
 }
 
 // Pass 1: segments 0 .. S - 2 from a zero entry; grid (channel blocks, S - 1, Bt).
-template <typename BT, bool STATES>
-__global__ void __launch_bounds__(FWD_THREADS)
+template <int N, typename BT, bool STATES>
+__global__ void __launch_bounds__(Fwd<N>::THREADS)
 selective_scan_fwd_local(ScanParams p, FwdBuffers w) {
-  __shared__ FwdSmem s;
+  extern __shared__ __align__(16) float fwd_smem[];
+  FwdSmem<N>& s = *reinterpret_cast<FwdSmem<N>*>(fwd_smem);
   const int d0 = blockIdx.x * FWD_CH, seg = blockIdx.y, b = blockIdx.z;
   const int c0 = seg * w.seg_chunks, c1 = min(p.n_chunks, c0 + w.seg_chunks);
-  stage_first<BT>(p, b, d0, c0, s);
+  stage_first<N, BT>(p, b, d0, c0, s);
   float A2[FWD_NS], h[FWD_NS];
-  load_a2(p, d0, A2);
+  load_a2<N>(p, d0, A2);
 #pragma unroll
   for (int k = 0; k < FWD_NS; ++k) h[k] = 0.f;
   // segment 0's zero entry is its true entry: its outputs are final
-  const float dsum = seg == 0 ? run_segment<BT, true, STATES>(p, w, b, d0, c0, c1, A2, h, s)
-                              : run_segment<BT, false, false>(p, w, b, d0, c0, c1, A2, h, s);
-  const int d = d0 + threadIdx.x / FWD_LANES, half = threadIdx.x % FWD_LANES;
+  const float dsum = seg == 0
+                         ? run_segment<N, BT, true, STATES>(p, w, b, d0, c0, c1, A2, h, s)
+                         : run_segment<N, BT, false, false>(p, w, b, d0, c0, c1, A2, h, s);
+  const int d = d0 + threadIdx.x / Fwd<N>::LANES, half = threadIdx.x % Fwd<N>::LANES;
   if (d < p.D) {
     const long long bs = (long long)b * (w.segments - 1) + seg;
     float* ep = w.exits + (bs * N + half * FWD_NS) * p.D + d;
@@ -385,19 +409,20 @@ selective_scan_fwd_local(ScanParams p, FwdBuffers w) {
 
 // Pass 2: segments 1 .. S - 1 (segment 0 when S is 1) from their true
 // entries; grid (channel blocks, max(S - 1, 1), Bt).
-template <typename BT, bool STATES>
-__global__ void __launch_bounds__(FWD_THREADS)
+template <int N, typename BT, bool STATES>
+__global__ void __launch_bounds__(Fwd<N>::THREADS)
 selective_scan_fwd_body(ScanParams p, FwdBuffers w) {
-  __shared__ FwdSmem s;
+  extern __shared__ __align__(16) float fwd_smem[];
+  FwdSmem<N>& s = *reinterpret_cast<FwdSmem<N>*>(fwd_smem);
   const int d0 = blockIdx.x * FWD_CH, seg = blockIdx.y + (w.segments > 1), b = blockIdx.z;
   const int c0 = seg * w.seg_chunks, c1 = min(p.n_chunks, c0 + w.seg_chunks);
-  stage_first<BT>(p, b, d0, c0, s);  // x and delta in flight during the fold
+  stage_first<N, BT>(p, b, d0, c0, s);  // x and delta in flight during the fold
   float A2[FWD_NS], h[FWD_NS];
-  load_a2(p, d0, A2);
+  load_a2<N>(p, d0, A2);
 #pragma unroll
   for (int k = 0; k < FWD_NS; ++k) h[k] = 0.f;
   // the true entry: entry(i + 1) = exit0(i) + exp(A sum delta(i)) entry(i)
-  const int d = d0 + threadIdx.x / FWD_LANES, half = threadIdx.x % FWD_LANES;
+  const int d = d0 + threadIdx.x / Fwd<N>::LANES, half = threadIdx.x % Fwd<N>::LANES;
   if (d < p.D) {
     for (int i = 0; i < seg; ++i) {
       const long long bs = (long long)b * (w.segments - 1) + i;
@@ -407,7 +432,7 @@ selective_scan_fwd_body(ScanParams p, FwdBuffers w) {
       for (int k = 0; k < FWD_NS; ++k) h[k] = ep[(long long)k * p.D] + ex2(A2[k] * g) * h[k];
     }
   }
-  run_segment<BT, true, STATES>(p, w, b, d0, c0, c1, A2, h, s);
+  run_segment<N, BT, true, STATES>(p, w, b, d0, c0, c1, A2, h, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -417,20 +442,26 @@ selective_scan_fwd_body(ScanParams p, FwdBuffers w) {
 //   selective_scan_bwd_chunk  each chunk's gradients from its true carry;
 //   selective_scan_bwd_reduce_bc / _reduce_da  the sums over channel groups
 //                             and over (row, chunk) of dB, dC and dA.
-// The chunk kernels take one (channel, state) pair a thread: BWD_CH channels
-// x 16 states = 512 threads, and walk a block's BWD_GROUP channels in
-// BWD_GROUP / BWD_CH passes.  Lanes 0-15 of a warp are the 16 states of one
-// channel, lanes 16-31 those of the next.
+// The chunk kernels take one (channel, state) pair a thread: 512 threads over
+// Bwd<N>::CH = 512 / N channels (32 at N = 16, 8 at N = 64), and walk a
+// block's BWD_GROUP channels in BWD_GROUP / CH passes.  Thread i holds state
+// i % N of channel i / N: at N = 16, lanes 0-15 of a warp are the 16 states
+// of one channel, lanes 16-31 those of the next.
 // ---------------------------------------------------------------------------
-constexpr int BWD_CH = 32;      // channels a pass of a block
-constexpr int BWD_GROUP = 128;  // channels a block: one partial of dB, dC
-constexpr int BWD_THREADS = BWD_CH * N;
+constexpr int BWD_THREADS = 512;
 constexpr int BWD_WARPS = BWD_THREADS / 32;
-constexpr int BWD_PASSES = BWD_GROUP / BWD_CH;
+constexpr int BWD_GROUP = 128;  // channels a block: one partial of dB, dC
 // a chunk's per-channel (and per-state) inputs lie in shared memory as
 // [channel][t] rows of TCP floats, so a thread reads four steps with one
 // 16-byte load; the 4 floats of padding spread the rows over the banks
 constexpr int TCP = TC + 4;
+
+template <int N>
+struct Bwd {
+  static_assert(N >= 16 && N <= 64 && BWD_THREADS % N == 0, "N in {16, 32, 64}");
+  static constexpr int CH = BWD_THREADS / N;        // channels a pass of a block
+  static constexpr int PASSES = BWD_GROUP / CH;
+};
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -456,18 +487,20 @@ struct BwdBuffers {
 // This pass's x (X), delta and g of the chunk, as [channel][t] with zeros
 // past the chunk's length and past D: all loads (coalesced over channels),
 // then all stores.
-template <bool X>
+template <int N, bool X>
 __device__ __forceinline__ void stage_chunk(const ScanParams& p, const float* g,
                                             int b, int t0, int len, int ch0,
                                             float (*xs)[TCP], float (*ds)[TCP],
                                             float (*gs)[TCP]) {
-  constexpr int PER = TC * BWD_CH / BWD_THREADS;
+  constexpr int CH = Bwd<N>::CH, ELEMS = TC * CH;
+  constexpr int PER = (ELEMS + BWD_THREADS - 1) / BWD_THREADS;
+  constexpr bool EVEN = ELEMS % BWD_THREADS == 0;  // every thread has PER elements
   float xr[PER], dr[PER], gr[PER];
 #pragma unroll
   for (int k = 0; k < PER; ++k) {
     const int i = threadIdx.x + k * BWD_THREADS;
-    const int t = i / BWD_CH, d = ch0 + i % BWD_CH;
-    const bool ok = t < len && d < p.D;
+    const int t = i / CH, d = ch0 + i % CH;
+    const bool ok = (EVEN || i < ELEMS) && t < len && d < p.D;
     const long long tt = t0 + t;
     xr[k] = (X && ok) ? p.x[(long long)b * p.sx_b + tt * p.sx_l + d] : 0.f;
     dr[k] = ok ? p.delta[(long long)b * p.sd_b + tt * p.sd_l + d] : 0.f;
@@ -476,17 +509,20 @@ __device__ __forceinline__ void stage_chunk(const ScanParams& p, const float* g,
 #pragma unroll
   for (int k = 0; k < PER; ++k) {
     const int i = threadIdx.x + k * BWD_THREADS;
-    if (X) xs[i % BWD_CH][i / BWD_CH] = xr[k];
-    ds[i % BWD_CH][i / BWD_CH] = dr[k];
-    gs[i % BWD_CH][i / BWD_CH] = gr[k];
+    if (!EVEN && i >= ELEMS) break;
+    if (X) xs[i % CH][i / CH] = xr[k];
+    ds[i % CH][i / CH] = dr[k];
+    gs[i % CH][i / CH] = gr[k];
   }
 }
 
-// A (N, BWD_CH + 1) slice [n][channel] of a (Bt, n_chunks, N, D) tensor at
+// A (N, CH + 1) slice [n][channel] of a (Bt, n_chunks, N, D) tensor at
 // chunk (b, c), zeros past D (one load a thread).
+template <int N>
 __device__ __forceinline__ float load_state_slice(const float* src, const ScanParams& p,
                                                   int b, int c, int ch0) {
-  const int n = threadIdx.x / BWD_CH, d = ch0 + threadIdx.x % BWD_CH;
+  constexpr int CH = Bwd<N>::CH;
+  const int n = threadIdx.x / CH, d = ch0 + threadIdx.x % CH;
   return d < p.D ? src[(((long long)b * p.n_chunks + c) * N + n) * p.D + d] : 0.f;
 }
 
@@ -494,24 +530,24 @@ __device__ __forceinline__ float load_state_slice(const float* src, const ScanPa
 // the chunk would hand to the one before it, a_{t0} lambda_{t0}, and the
 // chunk's sum of delta (its gain is exp(A sum delta)).  grid (groups,
 // n_chunks, Bt).  Needs delta, g and C only.
-template <typename BT>
+template <int N, typename BT>
 __global__ void __launch_bounds__(BWD_THREADS)
 selective_scan_bwd_local(ScanParams p, BwdBuffers w) {
-  __shared__ __align__(16) float ds[BWD_CH][TCP];
-  __shared__ __align__(16) float gs[BWD_CH][TCP];
+  constexpr int CH = Bwd<N>::CH;
+  __shared__ __align__(16) float ds[CH][TCP];
+  __shared__ __align__(16) float gs[CH][TCP];
   __shared__ __align__(16) float Bs[TC][N];  // unused here: stage_bc fills both
   __shared__ __align__(16) float Cs[TC][N];
-  __shared__ float out[N][BWD_CH + 1];
-  __shared__ float sums[BWD_CH];
+  __shared__ float out[N][CH + 1];
+  __shared__ float sums[CH];
   const int grp = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
   const int t0 = c * TC, len = min(TC, p.L - t0);
-  const int lane = threadIdx.x % 32, n = lane & 15;
-  const int dl = 2 * (threadIdx.x / 32) + (lane >> 4);
-  stage_bc<BT, BWD_THREADS>(p, b, t0, len, Bs, Cs);
-  for (int pass = 0; pass < BWD_PASSES; ++pass) {
-    const int ch0 = grp * BWD_GROUP + pass * BWD_CH;
+  const int n = threadIdx.x % N, dl = threadIdx.x / N;
+  stage_bc<N, BT, BWD_THREADS>(p, b, t0, len, Bs, Cs);
+  for (int pass = 0; pass < Bwd<N>::PASSES; ++pass) {
+    const int ch0 = grp * BWD_GROUP + pass * CH;
     if (ch0 >= p.D) break;  // the same for every thread of the block
-    stage_chunk<false>(p, w.g, b, t0, len, ch0, nullptr, ds, gs);
+    stage_chunk<N, false>(p, w.g, b, t0, len, ch0, nullptr, ds, gs);
     __syncthreads();
     const int d = ch0 + dl;
     const float A2 = d < p.D ? p.A[(long long)d * N + n] * LOG2E : 0.f;
@@ -522,14 +558,14 @@ selective_scan_bwd_local(ScanParams p, BwdBuffers w) {
       carry = ex2(ds[dl][t] * A2) * lam;
     }
     out[n][dl] = carry;
-    if (threadIdx.x < BWD_CH) {
+    if (threadIdx.x < CH) {
       float s = 0.f;
       for (int t = 0; t < TC; ++t) s += ds[threadIdx.x][t];
       sums[threadIdx.x] = s;
     }
     __syncthreads();
     {
-      const int nn = threadIdx.x / BWD_CH, j = threadIdx.x % BWD_CH, dd = ch0 + j;
+      const int nn = threadIdx.x / CH, j = threadIdx.x % CH, dd = ch0 + j;
       if (dd < p.D) {
         w.carry[(((long long)b * p.n_chunks + c) * N + nn) * p.D + dd] = out[nn][j];
         if (nn == 0) w.dsum[((long long)b * p.n_chunks + c) * p.D + dd] = sums[j];
@@ -542,6 +578,7 @@ selective_scan_bwd_local(ScanParams p, BwdBuffers w) {
 // the local carries into true ones, in place:
 //   carry_in(c) = local(c + 1) + gain(c + 1) carry_in(c + 1),  carry_in(last) = 0.
 // Loads come in batches of CB chunks ahead of the dependent chain.
+template <int N>
 __global__ void __launch_bounds__(256)
 selective_scan_bwd_carry(ScanParams p, BwdBuffers w, int Bt) {
   constexpr int CB = 8;
@@ -574,24 +611,33 @@ selective_scan_bwd_carry(ScanParams p, BwdBuffers w, int Bt) {
 
 // Pass 3: the chunk's gradients from its true carry: its states recomputed
 // forward from K6's entry state into registers (hist), then the reverse
-// sweep.  Sums over the 16 states (dx, ddelta) are shuffles inside the
-// 16 lanes of a channel; sums over channels (dB, dC) a shuffle between the
-// warp's two channels, then over the warps in shared memory in a fixed
-// order; dA per (row, chunk) partial.  grid (groups, n_chunks, Bt).
-// The reverse sweep hands its sums to shared memory every SEG steps: per
-// (step, channel) the 16 states' (lam B, lam a h_{t-1} A) pairs, rows of RED
-// floats (padded so that 16-byte reads of neighbouring rows miss each other's
-// banks), and per (step, warp) the dB / dC values of its two channels.
+// sweep.  grid (groups, n_chunks, Bt).  The reverse sweep hands its sums to
+// shared memory every SEG steps: per (step, channel) the N states' (lam B,
+// lam a h_{t-1} A) pairs, rows of RED floats (padded so that 16-byte reads of
+// neighbouring rows miss each other's banks), which the first SEG x CH
+// threads sum in a fixed order into dx and ddelta; and the dB / dC values,
+// which the last 256 threads sum over the pass's channels in a fixed order.
+// At N = 16 a warp holds two channels, whose dB / dC values are first added
+// by one shuffle, so `part` holds one value per (step, warp, lane); at
+// N >= 32 `part` holds every (step, dB or dC, channel, state) value.  dA is
+// one partial per (row, chunk).
 constexpr int SEG = 8;
-constexpr int RED = 2 * N + 4;
-static_assert(2 * SEG * BWD_CH == BWD_THREADS && BWD_CH == 32,
-              "half the threads reduce red, half part, one (step, channel / lane) each");
-constexpr int CHUNK_SMEM_FLOATS = 3 * BWD_CH * TCP + 2 * N * TCP + 2 * N * (BWD_CH + 1) +
-                                  SEG * BWD_CH * RED + SEG * BWD_WARPS * 32;
+constexpr int BWD_SUMMERS = BWD_THREADS / 2;  // threads that sum dB and dC
 
-// B and C of steps [t0, t0 + len) as [n][t] (zeros past len): one load each
-// a thread, then the stores.
-template <typename BT>
+template <int N>
+struct BwdChunk {
+  static constexpr int CH = Bwd<N>::CH;
+  static constexpr int RED = 2 * N + 4;
+  static constexpr int PART = N == 16 ? SEG * BWD_WARPS * 32 : SEG * 2 * BWD_THREADS;
+  static constexpr int OUT_PER = SEG * 2 * N / BWD_SUMMERS;  // dB / dC values a summer
+  static constexpr int SMEM_FLOATS =
+      3 * CH * TCP + 2 * N * TCP + 2 * N * (CH + 1) + SEG * CH * RED + PART;
+  static_assert(SEG * CH <= BWD_SUMMERS, "the dx summers and the dB summers are apart");
+};
+
+// B and C of steps [t0, t0 + len) as [n][t] (zeros past len): TC / CH loads
+// each a thread, then the stores.
+template <int N, typename BT>
 __device__ __forceinline__ void stage_bc_t(const ScanParams& p, int b, int t0, int len,
                                            float (*Bs)[TCP], float (*Cs)[TCP]) {
   constexpr int PER = TC * N / BWD_THREADS;
@@ -614,38 +660,40 @@ __device__ __forceinline__ void stage_bc_t(const ScanParams& p, int b, int t0, i
   }
 }
 
-template <typename BT>
+template <int N, typename BT>
 __global__ void __launch_bounds__(BWD_THREADS, 2)
 selective_scan_bwd_chunk(ScanParams p, BwdBuffers w) {
+  using K = BwdChunk<N>;
+  constexpr int CH = K::CH, RED = K::RED;
   extern __shared__ __align__(16) float smem[];
   float (*xs)[TCP] = reinterpret_cast<float (*)[TCP]>(smem);
-  float (*ds)[TCP] = xs + BWD_CH;
-  float (*gs)[TCP] = ds + BWD_CH;
-  float (*Bs)[TCP] = gs + BWD_CH;
+  float (*ds)[TCP] = xs + CH;
+  float (*gs)[TCP] = ds + CH;
+  float (*Bs)[TCP] = gs + CH;
   float (*Cs)[TCP] = Bs + N;
-  float (*hs)[BWD_CH + 1] = reinterpret_cast<float (*)[BWD_CH + 1]>(Cs + N);
-  float (*cs)[BWD_CH + 1] = hs + N;
-  float (*red)[BWD_CH][RED] = reinterpret_cast<float (*)[BWD_CH][RED]>(cs + N);
-  float (*part)[BWD_WARPS][32] = reinterpret_cast<float (*)[BWD_WARPS][32]>(red + SEG);
+  float (*hs)[CH + 1] = reinterpret_cast<float (*)[CH + 1]>(Cs + N);
+  float (*cs)[CH + 1] = hs + N;
+  float (*red)[CH][RED] = reinterpret_cast<float (*)[CH][RED]>(cs + N);
+  float* part = reinterpret_cast<float*>(red + SEG);
 
   const int grp = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
   const int t0 = c * TC, len = min(TC, p.L - t0);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, n = lane & 15;
-  const int dl = 2 * warp + (lane >> 4);
-  stage_bc_t<BT>(p, b, t0, len, Bs, Cs);
-  // threads SEG * BWD_CH .. sum the warps' dB / dC values of one (step in
-  // the segment, lane) pair; acc[sg] is that sum for segment sg
-  float acc[TC / SEG] = {};
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n = threadIdx.x % N, dl = threadIdx.x / N;
+  stage_bc_t<N, BT>(p, b, t0, len, Bs, Cs);
+  // threads BWD_SUMMERS .. sum the dB / dC values of OUT_PER (step in the
+  // segment, dB or dC, state) triples; acc[sg][k] is that sum for segment sg
+  float acc[TC / SEG][K::OUT_PER] = {};
 
-  for (int pass = 0; pass < BWD_PASSES; ++pass) {
-    const int ch0 = grp * BWD_GROUP + pass * BWD_CH;
+  for (int pass = 0; pass < Bwd<N>::PASSES; ++pass) {
+    const int ch0 = grp * BWD_GROUP + pass * CH;
     if (ch0 >= p.D) break;  // the same for every thread of the block
     {
-      const float hv = load_state_slice(w.states, p, b, c, ch0);
-      const float cv = load_state_slice(w.carry, p, b, c, ch0);
-      stage_chunk<true>(p, w.g, b, t0, len, ch0, xs, ds, gs);
-      hs[threadIdx.x / BWD_CH][threadIdx.x % BWD_CH] = hv;
-      cs[threadIdx.x / BWD_CH][threadIdx.x % BWD_CH] = cv;
+      const float hv = load_state_slice<N>(w.states, p, b, c, ch0);
+      const float cv = load_state_slice<N>(w.carry, p, b, c, ch0);
+      stage_chunk<N, true>(p, w.g, b, t0, len, ch0, xs, ds, gs);
+      hs[threadIdx.x / CH][threadIdx.x % CH] = hv;
+      cs[threadIdx.x / CH][threadIdx.x % CH] = cv;
     }
     __syncthreads();
     const int d = ch0 + dl;
@@ -686,17 +734,23 @@ selective_scan_bwd_chunk(ScanParams p, BwdBuffers w) {
           dA += gain * dv[e];
           carry = lam * a;
           *reinterpret_cast<float2*>(&red[tl][dl][2 * n]) = make_float2(lam * bv[e], gain * A2);
-          // the warp's two channels: lanes 0-15 keep the sum of lam delta x
-          // (dB), lanes 16-31 that of g h_t (dC)
-          const bool second = lane & 16;
           const float vb = lam * dv[e] * xv[e], vc = gv[e] * hist[t + 1];
-          part[tl][warp][lane] = (second ? vc : vb) + __shfl_xor_sync(FULL, second ? vb : vc, 16);
+          if constexpr (N == 16) {
+            // the warp's two channels: lanes 0-15 keep the sum of lam delta x
+            // (dB), lanes 16-31 that of g h_t (dC)
+            const bool second = lane & 16;
+            part[(tl * BWD_WARPS + warp) * 32 + lane] =
+                (second ? vc : vb) + __shfl_xor_sync(FULL, second ? vb : vc, 16);
+          } else {
+            part[((tl * 2 + 0) * CH + dl) * N + n] = vb;
+            part[((tl * 2 + 1) * CH + dl) * N + n] = vc;
+          }
         }
       }
       __syncthreads();
-      if (threadIdx.x < SEG * BWD_CH) {
-        // dx and ddelta of one (step, channel): the sums over its 16 states
-        const int tl = threadIdx.x / BWD_CH, j = threadIdx.x % BWD_CH, t = sg * SEG + tl;
+      if (threadIdx.x < SEG * CH) {
+        // dx and ddelta of one (step, channel): the sums over its N states
+        const int tl = threadIdx.x / CH, j = threadIdx.x % CH, t = sg * SEG + tl;
         float sum_lb = 0.f, sum_ga = 0.f;
 #pragma unroll
         for (int k = 0; k < N / 2; ++k) {
@@ -711,12 +765,26 @@ selective_scan_bwd_chunk(ScanParams p, BwdBuffers w) {
           w.dx[o] = ds[j][t] * sum_lb;
           w.ddelta[o] = xs[j][t] * sum_lb + sum_ga * LN2;  // A = A2 ln 2
         }
-      } else {
-        const int i = threadIdx.x - SEG * BWD_CH;
-        float sum = 0.f;
+      }
+      if (threadIdx.x >= BWD_SUMMERS) {
+        const int i = threadIdx.x - BWD_SUMMERS;
+        if constexpr (N == 16) {
+          float sum = 0.f;
 #pragma unroll
-        for (int wi = 0; wi < BWD_WARPS; ++wi) sum += part[i / 32][wi][i % 32];
-        acc[sg] += sum;
+          for (int wi = 0; wi < BWD_WARPS; ++wi) sum += part[((i / 32) * BWD_WARPS + wi) * 32 + i % 32];
+          acc[sg][0] += sum;
+        } else {
+          // o = (step, dB or dC, state): the channels' values in order
+#pragma unroll
+          for (int k = 0; k < K::OUT_PER; ++k) {
+            const int o = i + k * BWD_SUMMERS, tl = o / (2 * N), which = o / N % 2;
+            const float* col = part + (tl * 2 + which) * CH * N + o % N;
+            float sum = 0.f;
+#pragma unroll
+            for (int j = 0; j < CH; ++j) sum += col[j * N];
+            acc[sg][k] += sum;
+          }
+        }
       }
       // the next segment (or pass) writes red and part only after every
       // thread is past this point
@@ -724,20 +792,25 @@ selective_scan_bwd_chunk(ScanParams p, BwdBuffers w) {
     }
     if (live) w.dA_part[(((long long)b * p.n_chunks + c) * p.D + d) * N + n] = dA;
   }
-  if (threadIdx.x >= SEG * BWD_CH) {
-    const int i = threadIdx.x - SEG * BWD_CH, tl = i / 32, l = i % 32;
+  if (threadIdx.x >= BWD_SUMMERS) {
+    const int i = threadIdx.x - BWD_SUMMERS;
 #pragma unroll
-    for (int sg = 0; sg < TC / SEG; ++sg) {
-      const int t = sg * SEG + tl;
-      if (t < len) {
-        float* dst = l < N ? w.dB_part : w.dC_part;
-        dst[(((long long)b * w.groups + grp) * p.L + t0 + t) * N + (l % N)] = acc[sg];
+    for (int k = 0; k < K::OUT_PER; ++k) {
+      const int o = i + k * BWD_SUMMERS, tl = o / (2 * N), which = o / N % 2;
+#pragma unroll
+      for (int sg = 0; sg < TC / SEG; ++sg) {
+        const int t = sg * SEG + tl;
+        if (t < len) {
+          float* dst = which == 0 ? w.dB_part : w.dC_part;
+          dst[(((long long)b * w.groups + grp) * p.L + t0 + t) * N + o % N] = acc[sg][k];
+        }
       }
     }
   }
 }
 
 // dB, dC (Bt, L, N): the sum of the groups' partials, in group order.
+template <int N>
 __global__ void __launch_bounds__(256)
 selective_scan_bwd_reduce_bc(ScanParams p, BwdBuffers w, int Bt) {
   const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
@@ -756,6 +829,7 @@ selective_scan_bwd_reduce_bc(ScanParams p, BwdBuffers w, int Bt) {
 
 // dA (D, N): the sum over (row, chunk) of the chunks' partials; 32 columns a
 // block, 8 slices of rows summed in a fixed order.
+template <int N>
 __global__ void __launch_bounds__(256)
 selective_scan_bwd_reduce_da(ScanParams p, BwdBuffers w, int rows) {
   __shared__ float s8[8][32];
@@ -785,7 +859,7 @@ bool fwd_split(int L, int segments, int* seg_chunks) {
 }
 
 // The grid of K6's launch `pass` (0: selective_scan_fwd_local, none when S is
-// 1; 1: selective_scan_fwd_body).
+// 1; 1: selective_scan_fwd_body); the same at every N.
 dim3 fwd_grid(int Bt, int D, int segments, int pass) {
   const unsigned blocks = (D + FWD_CH - 1) / FWD_CH;
   if (pass == 0) return dim3(blocks, segments - 1, Bt);
@@ -794,7 +868,7 @@ dim3 fwd_grid(int Bt, int D, int segments, int pass) {
 
 // Floats of workspace K6 needs: the segments' exits (Bt, S - 1, N, D) and
 // sums of delta (Bt, S - 1, D).
-long long fwd_workspace_floats(int Bt, int D, int segments) {
+long long fwd_workspace_floats(int Bt, int D, int N, int segments) {
   return (long long)Bt * (segments - 1) * (N + 1) * D;
 }
 
@@ -802,24 +876,55 @@ bool rows_aligned(const float* ptr, long long s_b, long long s_l) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && s_b % 4 == 0 && s_l % 4 == 0;
 }
 
+// A K6 kernel at N (16, 32 or 64): its entry, threads and dynamic shared
+// memory.
+struct FwdLaunch {
+  void (*kernel)(ScanParams, FwdBuffers);
+  int threads, smem;
+};
+
+template <int N, typename BT>
+FwdLaunch fwd_launch_n(bool local, bool states) {
+  FwdLaunch l;
+  if (local)
+    l.kernel = states ? selective_scan_fwd_local<N, BT, true> : selective_scan_fwd_local<N, BT, false>;
+  else
+    l.kernel = states ? selective_scan_fwd_body<N, BT, true> : selective_scan_fwd_body<N, BT, false>;
+  l.threads = Fwd<N>::THREADS;
+  l.smem = (int)sizeof(FwdSmem<N>);
+  return l;
+}
+
 template <typename BT>
-cudaError_t launch_fwd(ScanParams p, int Bt, FwdBuffers w, float* workspace,
+FwdLaunch fwd_launch(int N, bool local, bool states) {
+  if (N == 16) return fwd_launch_n<16, BT>(local, states);
+  if (N == 32) return fwd_launch_n<32, BT>(local, states);
+  return fwd_launch_n<64, BT>(local, states);
+}
+
+cudaError_t launch_fwd_kernel(const FwdLaunch& l, dim3 grid, const ScanParams& p,
+                              const FwdBuffers& w, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(l.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.smem);
+  if (err != cudaSuccess) return err;
+  l.kernel<<<grid, l.threads, l.smem, stream>>>(p, w);
+  return cudaGetLastError();
+}
+
+template <typename BT>
+cudaError_t launch_fwd(ScanParams p, int Bt, int N, FwdBuffers w, float* workspace,
                        cudaStream_t stream) {
   p.vec_x = rows_aligned(p.x, p.sx_b, p.sx_l);
   p.vec_delta = rows_aligned(p.delta, p.sd_b, p.sd_l);
   w.exits = workspace;
   w.dsum = workspace + (long long)Bt * (w.segments - 1) * N * p.D;
   if (w.segments > 1) {
-    auto local = w.states != nullptr ? selective_scan_fwd_local<BT, true>
-                                     : selective_scan_fwd_local<BT, false>;
-    local<<<fwd_grid(Bt, p.D, w.segments, 0), FWD_THREADS, 0, stream>>>(p, w);
-    const cudaError_t err = cudaGetLastError();
+    auto local = fwd_launch<BT>(N, true, w.states != nullptr);
+    const cudaError_t err =
+        launch_fwd_kernel(local, fwd_grid(Bt, p.D, w.segments, 0), p, w, stream);
     if (err != cudaSuccess) return err;
   }
-  auto body = w.states != nullptr ? selective_scan_fwd_body<BT, true>
-                                  : selective_scan_fwd_body<BT, false>;
-  body<<<fwd_grid(Bt, p.D, w.segments, 1), FWD_THREADS, 0, stream>>>(p, w);
-  return cudaGetLastError();
+  auto body = fwd_launch<BT>(N, false, w.states != nullptr);
+  return launch_fwd_kernel(body, fwd_grid(Bt, p.D, w.segments, 1), p, w, stream);
 }
 
 ScanParams make_params(const void* x, const void* delta, const void* A,
@@ -845,13 +950,13 @@ ScanParams make_params(const void* x, const void* delta, const void* A,
 // Floats of workspace K7 needs: the carries (Bt, n_chunks, N, D), the chunk
 // sums of delta (Bt, n_chunks, D), the dB and dC partials (Bt, groups, L, N)
 // and the dA partials (Bt * n_chunks, D, N).
-long long bwd_workspace_floats(int Bt, int L, int D) {
+long long bwd_workspace_floats(int Bt, int L, int D, int N) {
   const long long nch = (L + TC - 1) / TC, groups = (D + BWD_GROUP - 1) / BWD_GROUP;
   return (long long)Bt * nch * N * D + (long long)Bt * nch * D +
          2LL * Bt * groups * L * N + (long long)Bt * nch * D * N;
 }
 
-template <typename BT>
+template <int N, typename BT>
 cudaError_t launch_bwd(const ScanParams& p, int Bt, BwdBuffers w, float* workspace,
                        cudaStream_t stream) {
   const long long nch = p.n_chunks;
@@ -862,27 +967,30 @@ cudaError_t launch_bwd(const ScanParams& p, int Bt, BwdBuffers w, float* workspa
   w.dC_part = w.dB_part + (long long)Bt * w.groups * p.L * N;
   w.dA_part = w.dC_part + (long long)Bt * w.groups * p.L * N;
   const dim3 chunks(w.groups, p.n_chunks, Bt);
-  selective_scan_bwd_local<BT><<<chunks, BWD_THREADS, 0, stream>>>(p, w);
+  selective_scan_bwd_local<N, BT><<<chunks, BWD_THREADS, 0, stream>>>(p, w);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long pairs = (long long)Bt * N * p.D;
-  selective_scan_bwd_carry<<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(p, w, Bt);
+  selective_scan_bwd_carry<N><<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(p, w, Bt);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  auto chunk = selective_scan_bwd_chunk<BT>;
-  const size_t smem = CHUNK_SMEM_FLOATS * sizeof(float);
+  auto chunk = selective_scan_bwd_chunk<N, BT>;
+  const size_t smem = BwdChunk<N>::SMEM_FLOATS * sizeof(float);
   err = cudaFuncSetAttribute(chunk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   chunk<<<chunks, BWD_THREADS, smem, stream>>>(p, w);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long bc = (long long)Bt * p.L * N;
-  selective_scan_bwd_reduce_bc<<<(unsigned)((bc + 255) / 256), 256, 0, stream>>>(p, w, Bt);
+  selective_scan_bwd_reduce_bc<N><<<(unsigned)((bc + 255) / 256), 256, 0, stream>>>(p, w, Bt);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  selective_scan_bwd_reduce_da<<<(p.D * N + 31) / 32, 256, 0, stream>>>(p, w, (int)(Bt * nch));
+  selective_scan_bwd_reduce_da<N>
+      <<<(p.D * N + 31) / 32, 256, 0, stream>>>(p, w, (int)(Bt * nch));
   return cudaGetLastError();
 }
+
+bool built_n(int n_state) { return n_state == 16 || n_state == 32 || n_state == 64; }
 
 }  // namespace
 
@@ -890,12 +998,13 @@ extern "C" {
 
 // Both return a cudaError_t (0 on success): the launch's own error, from
 // cudaGetLastError() right after it.  Strides are in elements.  x, delta and A
-// are fp32; `bc_f32` says whether B and C are fp32 (else bf16).
+// are fp32; `bc_f32` says whether B and C are fp32 (else bf16).  `n_state`
+// (N) is 16, 32 or 64; any other gives cudaErrorInvalidValue.
 
-// y (Bt, L, D) fp32 contiguous; `states` is null or (Bt, ceil(L/32), 16, D)
+// y (Bt, L, D) fp32 contiguous; `states` is null or (Bt, ceil(L/32), N, D)
 // fp32 contiguous and receives the state at the entry of every chunk;
-// `workspace` fp32 of lcasr_selective_scan_fwd_workspace(Bt, L, D, segments)
-// floats; `segments` as `fwd_segments` gives it.
+// `workspace` fp32 of lcasr_selective_scan_fwd_workspace(Bt, L, D, N,
+// segments) floats; `segments` as `fwd_segments` gives it.
 int lcasr_selective_scan_fwd(const void* x, const void* delta, const void* A,
                              const void* B, const void* C, void* y,
                              void* states, void* workspace, int segments, int Bt,
@@ -904,7 +1013,7 @@ int lcasr_selective_scan_fwd(const void* x, const void* delta, const void* A,
                              long long sB_b, long long sB_l, long long sC_b,
                              long long sC_l, void* stream) {
   FwdBuffers w;
-  if (n_state != N || Bt < 1 || L < 1 || D < 1 || !fwd_split(L, segments, &w.seg_chunks))
+  if (!built_n(n_state) || Bt < 1 || L < 1 || D < 1 || !fwd_split(L, segments, &w.seg_chunks))
     return cudaErrorInvalidValue;
   const ScanParams p = make_params(x, delta, A, B, C, L, D, sx_b, sx_l, sd_b,
                                    sd_l, sB_b, sB_l, sC_b, sC_l);
@@ -913,13 +1022,13 @@ int lcasr_selective_scan_fwd(const void* x, const void* delta, const void* A,
   w.segments = segments;
   float* ws = static_cast<float*>(workspace);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bc_f32) return launch_fwd<float>(p, Bt, w, ws, s);
-  return launch_fwd<__nv_bfloat16>(p, Bt, w, ws, s);
+  if (bc_f32) return launch_fwd<float>(p, Bt, n_state, w, ws, s);
+  return launch_fwd<__nv_bfloat16>(p, Bt, n_state, w, ws, s);
 }
 
-long long lcasr_selective_scan_fwd_workspace(int Bt, int L, int D, int segments) {
+long long lcasr_selective_scan_fwd_workspace(int Bt, int L, int D, int n_state, int segments) {
   (void)L;
-  return fwd_workspace_floats(Bt, D, segments);
+  return fwd_workspace_floats(Bt, D, n_state, segments);
 }
 
 // The grid (x, y, z) of K6's launch `pass` (0: selective_scan_fwd_local, 1:
@@ -935,9 +1044,9 @@ int lcasr_selective_scan_fwd_grid(int Bt, int L, int D, int segments, int pass, 
 }
 
 // g, dx, ddelta (Bt, L, D) fp32 contiguous; `states` as the forward wrote
-// them; dB, dC (Bt, L, 16) and dA (D, 16) fp32 contiguous, the finished
-// gradients; `workspace` fp32 of lcasr_selective_scan_bwd_workspace(Bt, L, D)
-// floats, which the launches overwrite.
+// them; dB, dC (Bt, L, N) and dA (D, N) fp32 contiguous, the finished
+// gradients; `workspace` fp32 of lcasr_selective_scan_bwd_workspace(Bt, L, D,
+// N) floats, which the launches overwrite.
 int lcasr_selective_scan_bwd(const void* x, const void* delta, const void* A,
                              const void* B, const void* C, const void* g,
                              const void* states, void* dx, void* ddelta,
@@ -947,7 +1056,7 @@ int lcasr_selective_scan_bwd(const void* x, const void* delta, const void* A,
                              long long sd_b, long long sd_l, long long sB_b,
                              long long sB_l, long long sC_b, long long sC_l,
                              void* stream) {
-  if (n_state != N || Bt < 1 || L < 1 || D < 1) return cudaErrorInvalidValue;
+  if (!built_n(n_state) || Bt < 1 || L < 1 || D < 1) return cudaErrorInvalidValue;
   const ScanParams p = make_params(x, delta, A, B, C, L, D, sx_b, sx_l, sd_b,
                                    sd_l, sB_b, sB_l, sC_b, sC_l);
   BwdBuffers w;
@@ -960,12 +1069,18 @@ int lcasr_selective_scan_bwd(const void* x, const void* delta, const void* A,
   w.dA = static_cast<float*>(dA);
   float* ws = static_cast<float*>(workspace);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bc_f32) return launch_bwd<float>(p, Bt, w, ws, s);
-  return launch_bwd<__nv_bfloat16>(p, Bt, w, ws, s);
+  switch (n_state * 2 + (bc_f32 != 0)) {
+    case 32: return launch_bwd<16, __nv_bfloat16>(p, Bt, w, ws, s);
+    case 33: return launch_bwd<16, float>(p, Bt, w, ws, s);
+    case 64: return launch_bwd<32, __nv_bfloat16>(p, Bt, w, ws, s);
+    case 65: return launch_bwd<32, float>(p, Bt, w, ws, s);
+    case 128: return launch_bwd<64, __nv_bfloat16>(p, Bt, w, ws, s);
+    default: return launch_bwd<64, float>(p, Bt, w, ws, s);
+  }
 }
 
-long long lcasr_selective_scan_bwd_workspace(int Bt, int L, int D) {
-  return bwd_workspace_floats(Bt, L, D);
+long long lcasr_selective_scan_bwd_workspace(int Bt, int L, int D, int n_state) {
+  return bwd_workspace_floats(Bt, L, D, n_state);
 }
 
 const char* lcasr_cuda_error_string(int err) {

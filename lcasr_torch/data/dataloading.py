@@ -293,3 +293,74 @@ class VariableBatchSimpleDataloader:
 
     def __len__(self) -> int:
         return -(-len(self.dataset) // self.batch_size)
+
+
+def chunk_text_and_speakers_json(
+    text: List[Dict[str, str]],
+    chunk_size: int,
+    chunk_overlap: int,
+    spectogram_length: int,
+    get_seconds: bool = False,
+):
+    """`chunk_text_json` that also gives, per chunk, the number of distinct
+    speakers among its words.  Raises KeyError on a word without a
+    `speakerTag`."""
+    assert chunk_size > chunk_overlap
+    text_remaining = text
+    splits, speakers, start_end = [], [], []
+    for i in range(0, spectogram_length, chunk_size - chunk_overlap):
+        c_start_sec = total_seconds(i)
+        c_end_sec = total_seconds(i + chunk_size)
+        overlap_sec = total_seconds(chunk_overlap)
+        c_text, c_speakers, max_idx = [], [], 0
+        for j, el in enumerate(text_remaining):
+            start_t, end_t = float(el["startTime"][:-1]), float(el["endTime"][:-1])
+            if start_t >= c_start_sec and end_t <= c_end_sec:
+                c_text.append(el["word"])
+                c_speakers.append(el["speakerTag"])
+            if end_t < c_end_sec - overlap_sec:
+                max_idx = j
+            if end_t > c_end_sec:
+                break
+        text_remaining = text_remaining[max_idx:]
+        splits.append(" ".join(c_text))
+        speakers.append(len(set(c_speakers)))
+        start_end.append((c_start_sec, c_end_sec))
+    return (splits, speakers, start_end) if get_seconds else (splits, speakers)
+
+
+def chunk_text_json_with_speaker_change(
+    text: List[Dict[str, str]],
+    chunk_size: int,
+    chunk_overlap: int,
+    spectogram_length: int,
+    get_seconds: bool = False,
+    speaker_change_token: str = "¬",
+):
+    """`chunk_text_json` with `speaker_change_token` inserted before a word
+    whose speaker differs from the word before it in the chunk.  Raises
+    KeyError on a word without a `speakerTag`."""
+    assert chunk_size > chunk_overlap
+    text_remaining = text
+    splits, start_end = [], []
+    for i in range(0, spectogram_length, chunk_size - chunk_overlap):
+        c_start_sec = total_seconds(i)
+        c_end_sec = total_seconds(i + chunk_size)
+        overlap_sec = total_seconds(chunk_overlap)
+        c_text, max_idx, prev_speaker = [], 0, None
+        for j, el in enumerate(text_remaining):
+            prev_speaker = el["speakerTag"] if prev_speaker is None else prev_speaker
+            start_t, end_t = float(el["startTime"][:-1]), float(el["endTime"][:-1])
+            if start_t >= c_start_sec and end_t <= c_end_sec:
+                if el["speakerTag"] != prev_speaker:
+                    c_text.append(speaker_change_token)
+                c_text.append(el["word"])
+                prev_speaker = el["speakerTag"]
+            if end_t < c_end_sec - overlap_sec:
+                max_idx = j
+            if end_t > c_end_sec:
+                break
+        text_remaining = text_remaining[max_idx:]
+        splits.append(" ".join(c_text))
+        start_end.append((c_start_sec, c_end_sec))
+    return (splits, start_end) if get_seconds else splits

@@ -132,13 +132,13 @@ def _bind(src: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         # x, delta, A, B, C, y, states, workspace; segments
         lib.lcasr_selective_scan_fwd.argtypes = [p] * 8 + [i] + tail
         lib.lcasr_selective_scan_fwd.restype = i
-        lib.lcasr_selective_scan_fwd_workspace.argtypes = [i] * 4
+        lib.lcasr_selective_scan_fwd_workspace.argtypes = [i] * 5  # Bt, L, D, N, segments
         lib.lcasr_selective_scan_fwd_workspace.restype = ll
         lib.lcasr_selective_scan_fwd_grid.argtypes = [i] * 5 + [ctypes.POINTER(i)]
         lib.lcasr_selective_scan_fwd_grid.restype = i
         lib.lcasr_selective_scan_bwd.argtypes = [p] * 13 + tail
         lib.lcasr_selective_scan_bwd.restype = i
-        lib.lcasr_selective_scan_bwd_workspace.argtypes = [i] * 3
+        lib.lcasr_selective_scan_bwd_workspace.argtypes = [i] * 4  # Bt, L, D, N
         lib.lcasr_selective_scan_bwd_workspace.restype = ll
     elif src == "subsampling_fused.cu":
         # x, out, 10 parameters; B, T, F, C, fp32 flag, activation, tile; stream

@@ -15,8 +15,10 @@ own module tree (whose names follow the flax tree one to one):
     `num_batches_tracked`), the Fourier positions' `w_r`, the token table
     `embedding` (vocab, d_model), the cosine attention's scalar `temperature`,
     and the Mamba mixer's raw parameters (`conv1d_fwd_kernel` (K, C),
-    `dt_proj_kernel` (dt_rank, C), `A_log`, `D`, ...) are carried over as
-    they are.
+    `dt_proj_kernel` (dt_rank, C), `A_log`, `D`, ...), and those of the
+    spare components (`TimeReductionModule`'s `dw_kernel` / `dw_bias`,
+    `Conv1DSubsampling`'s 1-D conv kernels (K, in, out)) are carried over
+    as they are.
 
 It takes numpy arrays (convert jax arrays with `np.asarray` first), so the
 port needs no JAX.  Any leaf or module name it does not know raises: a
@@ -44,13 +46,14 @@ _MODULE = re.compile(
     r"language_model_decoder|(self|cross)_attn_\d+|(self|cross|ff)_norm_\d+|ff_\d+|"
     r"q_proj|kv_proj|embed|pos_enc|encoder_pos_enc|dynamic_pos_bias|proj|out_norm|"
     r"acoustic_norm|qkv_\d+|out_\d+|attn_norm_\d+|lm_head|"
-    r"long_conv|kernel|mlp_in|mlp_out|output_linear|meta_layers_\d+|meta_decoder|combiner)$"
+    r"long_conv|kernel|mlp_in|mlp_out|output_linear|meta_layers_\d+|meta_decoder|combiner|"
+    r"norm_\d+|pw)$"
 )
 _PARAM_LEAVES = {"kernel", "bias", "scale", "weight", "depthwise_kernel",
                  "depthwise_bias", "inv_freq", "w_r",
                  "conv1d_fwd_kernel", "conv1d_fwd_bias", "conv1d_rvse_kernel",
                  "conv1d_rvse_bias", "dt_proj_kernel", "dt_proj_bias", "A_log", "D",
-                 "embedding", "temperature", "base_rates"}
+                 "embedding", "temperature", "base_rates", "dw_kernel", "dw_bias"}
 _STAT_LEAVES = {"running_mean", "running_std", "running_var", "num_batches_tracked"}
 
 
@@ -70,7 +73,8 @@ def _convert(path: Tuple[str, ...], leaf: np.ndarray) -> Tuple[str, np.ndarray]:
             raise ValueError(f"unknown module {m!r} in flax path {'/'.join(path)}")
     mods = [re.sub(r"^(meta_)?layers_(\d+)$", r"\1layers.\2", m) for m in mods]
     if name == "kernel" and leaf.ndim == 3:
-        pass  # the long convolution's direct (channels, H, l_max) kernel, as it is
+        pass  # the long convolution's direct (channels, H, l_max) kernel and
+        # Conv1DSubsampling's 1-D conv kernels (K, in, out), as they are
     elif name == "kernel":
         name = "weight"
         if leaf.ndim == 2:  # Dense (in, out) -> (out, in)

@@ -1,7 +1,9 @@
-"""Learnable Fourier positional encoding and the dynamic position bias
-(counterparts of lcasr_tpu/models/positional.py `LearnableFourierPosEnc`,
-the `fourier` arm of the paper's positional-encoding ablations, and
-`DynamicPositionBias`, the V2 encoder-decoder's attention bias).
+"""Learnable Fourier positional encoding, the dynamic position bias and the
+scaled sinusoidal embedding (counterparts of lcasr_tpu/models/positional.py
+`LearnableFourierPosEnc`, the `fourier` arm of the paper's
+positional-encoding ablations, `DynamicPositionBias`, the V2
+encoder-decoder's attention bias, and `ScaledSinuEmbedding`, a spare
+component no configuration uses).
 """
 from __future__ import annotations
 
@@ -70,3 +72,25 @@ class DynamicPositionBias(nn.Module):
         idx = (torch.arange(seqlen_q, device=device)[:, None]
                - torch.arange(seqlen_k, device=device)[None, :] + seqlen_k - 1)
         return bias[idx].permute(2, 0, 1)
+
+
+class ScaledSinuEmbedding(nn.Module):
+    """x + scale * [sin(t f), cos(t f)] over absolute positions t, the
+    frequencies f = 10000^(-2i / d_model), one learned scalar `scale` (1.0 at
+    init).  f is computed once, on the CPU, and moves with the module: a
+    `pow` of another device can round f an ulp apart, which t up to 16,383
+    turns into arguments 2^-9 apart."""
+
+    def __init__(self, d_model: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.d_model, self.dtype = d_model, dtype
+        self.scale = nn.Parameter(torch.ones(1))
+        inv_freq = 1.0 / (10000 ** (torch.arange(0, d_model, 2, dtype=torch.float32,
+                                                 device="cpu") / d_model))
+        self.register_buffer("inv_freq", inv_freq, persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        t = torch.arange(x.shape[1], dtype=torch.float32, device=x.device)
+        sinu = t[:, None] * self.inv_freq[None, :]
+        emb = torch.cat([torch.sin(sinu), torch.cos(sinu)], dim=-1)
+        return x + (emb * self.scale).to(x.dtype)[None]

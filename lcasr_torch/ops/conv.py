@@ -441,3 +441,99 @@ class StackingSubsampling(nn.Module):
         if self.norm_out is not None:
             x = self.norm_out(x)
         return x, lengths
+
+
+def uniform_init(bound: float):
+    """Initialiser that fills a tensor from U(-bound, bound) in place (the
+    JAX package's `uniform_init`, torch's default bounded-uniform)."""
+    def init(t: torch.Tensor) -> torch.Tensor:
+        return nn.init.uniform_(t, -bound, bound)
+
+    return init
+
+
+class _Conv1d(nn.Module):
+    """A 1-D convolution over (B, T, C) with its kernel kept in flax's (K, in,
+    out) layout under the name `kernel`, so the flax tree imports as it is."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int, stride: int, padding: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.randn(kernel_size, cin, cout) * (cin * kernel_size) ** -0.5)
+        self.bias = nn.Parameter(torch.zeros(cout))
+        self.stride, self.padding, self.dtype = stride, padding, dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.kernel.to(self.dtype).permute(2, 1, 0)
+        y = F.conv1d(x.to(self.dtype).transpose(1, 2), w, self.bias.to(self.dtype),
+                     stride=self.stride, padding=self.padding)
+        return y.transpose(1, 2)
+
+
+class Conv1DSubsampling(nn.Module):
+    """1-D conv subsampling over (B, T, feat_in): one 'same' conv of kernel 3
+    to conv_channels, then log2(factor) stride-2 convs (each optionally
+    followed by BatchRenorm, which `train` reaches), SiLU after every conv,
+    and a linear map to feat_out without bias.  Returns (x, lengths)."""
+
+    def __init__(self, subsampling_factor: int, feat_in: int, feat_out: int,
+                 conv_channels: int, batch_norm: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.sampling_num = int(math.log2(subsampling_factor))
+        self.batch_norm = batch_norm
+        C = conv_channels
+        self.conv_in = _Conv1d(feat_in, C, 3, 1, 1, dtype)
+        for i in range(self.sampling_num):
+            self.add_module(f"conv_{i}", _Conv1d(C, C, 3, 2, 1, dtype))
+            if batch_norm:
+                self.add_module(f"norm_{i}", BatchRenorm(C))
+        self.out = Dense(C, feat_out, bias=False, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, lengths: torch.Tensor, train: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        new_lengths = calc_length(lengths, all_paddings=2, kernel_size=3, stride=2,
+                                  ceil_mode=False, repeat_num=self.sampling_num)
+        h = F.silu(self.conv_in(x))
+        for i in range(self.sampling_num):
+            h = getattr(self, f"conv_{i}")(h)
+            if self.batch_norm:
+                h = getattr(self, f"norm_{i}")(h, train=train)
+            h = F.silu(h)
+        return self.out(h), new_lengths
+
+
+class TimeReductionModule(nn.Module):
+    """Squeezeformer time reduction over (B, T, d_model): a depthwise conv of
+    `kernel_size` and `stride`, padded by kernel_size - stride on both sides,
+    then a pointwise Dense to out_dim, all initialised U(-b, b) (b = K^-1/2
+    for the depthwise conv, d_model^-1/2 for the pointwise).  With `lengths`
+    the frames past each length are zeroed first, and the output is cut to
+    ceil(T / stride) frames with lengths ceil(lengths / stride)."""
+
+    def __init__(self, d_model: int, out_dim: int, kernel_size: int = 5, stride: int = 2,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.kernel_size, self.stride, self.dtype = kernel_size, stride, dtype
+        dw_init, pw_init = uniform_init(kernel_size ** -0.5), uniform_init(d_model ** -0.5)
+        self.dw_kernel = nn.Parameter(dw_init(torch.empty(kernel_size, d_model)))
+        self.dw_bias = nn.Parameter(dw_init(torch.empty(d_model)))
+        self.pw = Dense(d_model, out_dim, bias=True, dtype=dtype)
+        with torch.no_grad():
+            pw_init(self.pw.weight)
+            pw_init(self.pw.bias)
+
+    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None):
+        K, S = self.kernel_size, self.stride
+        pad = max(0, K - S)
+        if lengths is not None:
+            valid = torch.arange(x.shape[1], device=x.device)[None, :] < lengths[:, None]
+            x = torch.where(valid[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+        h = F.conv1d(x.transpose(1, 2), self.dw_kernel.t()[:, None, :].to(x.dtype),
+                     self.dw_bias.to(x.dtype), stride=S, padding=pad,
+                     groups=x.shape[-1]).transpose(1, 2)
+        h = self.pw(h)
+        if lengths is not None:
+            h = h[:, :-(-x.shape[1] // S)]
+            lengths = -(-lengths // S)
+        return h, lengths

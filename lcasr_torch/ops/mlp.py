@@ -1,6 +1,7 @@
 """Conformer feed-forward (counterpart of lcasr_tpu/ops/mlp.py):
 Dense -> tanh-approximate GELU -> Dense; `site` tags both for W8A8
-(ops/qdense.py)."""
+(ops/qdense.py).  `SwiGLU` is the JAX package's spare gated unit, which no
+configuration uses."""
 from __future__ import annotations
 
 from typing import Optional
@@ -24,3 +25,19 @@ class ConformerFeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+
+
+class SwiGLU(nn.Module):
+    """out_proj(silu(gate) * up), gate and up the halves of in_proj(x); both
+    projections without bias, the hidden width d_model x expansion_factor."""
+
+    def __init__(self, d_model: int, expansion_factor: int = 2,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        hidden = d_model * expansion_factor
+        self.in_proj = Dense(d_model, hidden * 2, bias=False, dtype=dtype)
+        self.out_proj = Dense(hidden, d_model, bias=False, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gate, up = self.in_proj(x).chunk(2, dim=-1)
+        return self.out_proj(F.silu(gate) * up)

@@ -9,7 +9,12 @@ x, delta, y are (Bt, L, D); A is (D, N); B, C are (Bt, L, N).  On CUDA
 tensors `selective_scan` launches the forward kernel K6 and, in the backward,
 K7 (`lcasr_torch/csrc/selective_scan.cu`); on CPU tensors it runs
 `selective_scan_ref` / `selective_scan_bwd_ref`, the plain fp32 recurrences.
-There is no fallback from one to the other.  The kernels take d_state 16, x
+There is no fallback from one to the other.  The kernels are built for
+d_state 16, 32 and 64 (`KERNEL_D_STATES`); any other d_state up to
+`MAX_D_STATE` is padded up to the next of them (`pad_d_state`: zero columns
+of B and C, -1 in A's), which is exact: a padded state starts at 0, receives
+B x = 0 and adds C h = 0 to y, its adjoint is C g = 0, so its dA, dB and dC
+are 0, and they are sliced away.  Above 64 the wrappers raise.  They take x
 in fp32, B and C in bf16 or fp32, any L >= 1 (they stop at L; nothing is
 padded), and read B and C through their strides, so the last-dimension slices
 of the mixer's `x_proj` output are not copied.  The wrappers make x, delta
@@ -42,7 +47,8 @@ import torch.nn.functional as F
 from lcasr_torch import kernels
 
 STATE_INTERVAL = 32  # steps between saved states; TC in selective_scan.cu
-KERNEL_D_STATE = 16
+KERNEL_D_STATES = (16, 32, 64)  # the instantiations of csrc/selective_scan.cu
+MAX_D_STATE = KERNEL_D_STATES[-1]
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 _SRC = "selective_scan.cu"
 
@@ -71,12 +77,15 @@ def flip_with_lengths(x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch
     return torch.take_along_dim(x, src[..., None], dim=1)
 
 
-# K6's split of the time axis (csrc/selective_scan.cu): 64 channels (128
-# threads) a block.  One segment where that gives FWD_FILL_BLOCKS blocks (two
-# 4-warp blocks on each of an H100's 132 SMs: the decode's 384 run best
-# unsplit); else the time axis is cut so that each of K6's two launches has
-# FWD_SPLIT_BLOCKS (eight an SM, faster than two or four at the 16384x4 and
-# 120,000-frame shapes: PERF.md)
+# K6's split of the time axis (csrc/selective_scan.cu): 64 channels a block,
+# of 128, 256 or 512 threads at d_state 16, 32 or 64.  One segment where that
+# gives FWD_FILL_BLOCKS blocks (two for each of an H100's 132 SMs: the
+# decode's 384 run best unsplit); else the time axis is cut so that each of
+# K6's two launches has FWD_SPLIT_BLOCKS (eight an SM).  Both count blocks
+# launched, not blocks resident at once; chosen at d_state 16, they are as
+# fast as a cut for 2 or 4 blocks an SM, or within 1% of it, at d_state 32
+# and 64 too, at the decode, 16384x4 and 120,000-frame shapes
+# (chip_smoke.ssm_split_sweep; PERF.md)
 FWD_CHANNELS = 64
 FWD_FILL_BLOCKS = 2 * 132
 FWD_SPLIT_BLOCKS = 8 * 132
@@ -171,12 +180,31 @@ def selective_scan_bwd_ref(x, delta, A, B, C, g, dtype: torch.dtype = torch.floa
     return rev(dx), rev(dd), dA, rev(dB), rev(dC)
 
 
+def kernel_d_state(N: int) -> int:
+    """The built d_state that runs N: the least of KERNEL_D_STATES >= N."""
+    for built in KERNEL_D_STATES:
+        if N <= built:
+            return built
+    raise ValueError(f"selective_scan kernels take d_state up to {MAX_D_STATE} "
+                     f"(built for {KERNEL_D_STATES}), got {N}")
+
+
+def pad_d_state(A, B, C, n_to: int):
+    """A (D, N), B and C (..., N) padded to n_to states: A's new columns -1,
+    B's and C's 0.  A padded state stays 0 and adds nothing to y or to any
+    gradient of the first N states."""
+    pad = n_to - A.shape[-1]
+    if pad == 0:
+        return A, B, C
+    return (F.pad(A, (0, pad), value=-1.0), F.pad(B, (0, pad)), F.pad(C, (0, pad)))
+
+
 def _check_kernel_inputs(x, delta, A, B, C):
     Bt, L, Dm = x.shape
     N = A.shape[-1]
-    if N != KERNEL_D_STATE:
-        raise ValueError(f"selective_scan kernel is built for d_state "
-                         f"{KERNEL_D_STATE}, got {N}")
+    if N not in KERNEL_D_STATES:
+        raise ValueError(f"selective_scan kernels are built for d_state 16, 32 and 64, "
+                         f"got {N}")
     if L < 1 or Bt < 1:
         raise ValueError(f"selective_scan: empty input {tuple(x.shape)}")
     want = {"delta": (Bt, L, Dm), "A": (Dm, N), "B": (Bt, L, N), "C": (Bt, L, N)}
@@ -194,8 +222,10 @@ def _check_kernel_inputs(x, delta, A, B, C):
 
 
 def _kernel_args(x, delta, A, B, C):
-    """Inputs as the kernels take them, and the argument tail shared by both
-    launches (sizes, B and C's dtype flag, strides in elements)."""
+    """Inputs as the kernels take them (d_state padded to a built one), and
+    the argument tail shared by both launches (sizes, B and C's dtype flag,
+    strides in elements)."""
+    A, B, C = pad_d_state(A, B, C, kernel_d_state(A.shape[-1]))
     if x.dtype not in KERNEL_DTYPES:
         raise TypeError(f"selective_scan kernel takes x in bf16 or fp32, not {x.dtype}")
     x = x.float()  # a bf16 x is cast here; the mixer gives fp32
@@ -215,8 +245,9 @@ def _kernel_args(x, delta, A, B, C):
 
 def selective_scan_fwd(x, delta, A, B, C, return_states: bool = False):
     """y (Bt, L, D) fp32 without the skip term, and with `return_states` the
-    chunk-entry states for the backward.  K6 on CUDA tensors, the plain
-    version on CPU tensors."""
+    chunk-entry states for the backward, (Bt, ceil(L / 32), N', D) at the
+    built d_state N' that runs N.  K6 on CUDA tensors, the plain version on
+    CPU tensors."""
     if x.device.type == "cpu":
         return selective_scan_ref(x, delta, A, B, C, return_states)
     (x, delta, A, B, C), tail = _kernel_args(x, delta, A, B, C)
@@ -228,8 +259,8 @@ def selective_scan_fwd(x, delta, A, B, C, return_states: bool = False):
     if return_states:
         states = torch.empty((Bt, _n_chunks(L), A.shape[1], Dm), **f32)
     lib = kernels.library(_SRC)
-    workspace = torch.empty((lib.lcasr_selective_scan_fwd_workspace(Bt, L, Dm, segments),),
-                            **f32)
+    workspace = torch.empty(
+        (lib.lcasr_selective_scan_fwd_workspace(Bt, L, Dm, A.shape[1], segments),), **f32)
     with torch.cuda.device(x.device):
         err = lib.lcasr_selective_scan_fwd(
             x.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
@@ -249,6 +280,7 @@ def selective_scan_bwd(x, delta, A, B, C, states, g
     plain version (which needs no states) on CPU tensors."""
     if x.device.type == "cpu":
         return selective_scan_bwd_ref(x, delta, A, B, C, g)
+    n_in = A.shape[1]
     (x, delta, A, B, C), tail = _kernel_args(x, delta, A, B, C)
     Bt, L, Dm = x.shape
     N = A.shape[1]
@@ -266,7 +298,7 @@ def selective_scan_bwd(x, delta, A, B, C, states, g
     dC = torch.empty((Bt, L, N), **f32)
     dA = torch.empty((Dm, N), **f32)
     lib = kernels.library(_SRC)
-    workspace = torch.empty((lib.lcasr_selective_scan_bwd_workspace(Bt, L, Dm),), **f32)
+    workspace = torch.empty((lib.lcasr_selective_scan_bwd_workspace(Bt, L, Dm, N),), **f32)
     with torch.cuda.device(x.device):
         err = lib.lcasr_selective_scan_bwd(
             x.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
@@ -276,6 +308,8 @@ def selective_scan_bwd(x, delta, A, B, C, states, g
         )
     kernels.check(lib, err, "selective_scan_bwd")
     kernels.launch_counts["selective_scan_bwd"] += 1
+    if n_in != N:  # the padded states' gradients are 0: sliced away
+        dA, dB, dC = dA[:, :n_in], dB[..., :n_in], dC[..., :n_in]
     return dx, dd, dA, dB, dC
 
 

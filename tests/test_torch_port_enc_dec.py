@@ -52,8 +52,8 @@ def _pair(variant, seed=0, **over):
     """(JAX model, randomized variables, port model with those weights)."""
     jcls, tcls = _classes(variant)
     jm = jcls(**dict(TINY, **over))
-    variables = randomize(jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 80, 128)),
-                                  text_sequence=jnp.zeros((1, 8), jnp.int32)), seed=seed)
+    variables = randomize(jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.zeros((1, 80, 128)),
+                                           text_sequence=jnp.zeros((1, 8), jnp.int32)), seed=seed)
     port = tcls(**dict(PORT_TINY, **over), device="cpu")
     port.load_state_dict(state_dict_from_flax(variables), strict=True)
     return jm, variables, port
@@ -107,8 +107,8 @@ def test_forward_matches_jax(case):
     audio = _audio(3, T=200)
     lens = None if "no_lengths" in case else np.array([200, 131], np.int32)
     text = np.random.default_rng(4).integers(1, VOCAB, size=(2, 11)).astype(np.int32)
-    want = jm.apply(variables, jnp.asarray(audio), text_sequence=jnp.asarray(text),
-                    length=None if lens is None else jnp.asarray(lens))
+    want = jax.jit(jm.apply)(variables, jnp.asarray(audio), text_sequence=jnp.asarray(text),
+                             length=None if lens is None else jnp.asarray(lens))
     with torch.no_grad():
         got = port(torch.from_numpy(audio), torch.from_numpy(text),
                    length=None if lens is None else torch.from_numpy(lens))
@@ -220,7 +220,7 @@ def test_calc_loss_value_and_gradients_match_jax(variant):
                             jnp.asarray(text), jnp.asarray(a_len), jnp.asarray(t_len))
         return out["loss"], out
 
-    (loss_j, out_j), g_j = jax.value_and_grad(f, has_aux=True)(variables["params"])
+    (loss_j, out_j), g_j = jax.jit(jax.value_and_grad(f, has_aux=True))(variables["params"])
     out = calc_loss(port, torch.from_numpy(audio), torch.from_numpy(text).long(),
                     torch.from_numpy(a_len), torch.from_numpy(t_len).long())
     out["loss"].backward()

@@ -34,7 +34,8 @@ def _pair(cfg, T, seed=0):
     from lcasr_torch.models.mamba import Mamba
 
     jm = JModel(**cfg)
-    variables = randomize(jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 80, T))), seed=seed)
+    variables = randomize(jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.zeros((1, 80, T))),
+                          seed=seed)
     port = Mamba(**cfg, device="cpu")
     port.load_state_dict(state_dict_from_flax(variables), strict=True)
     return jm, variables, port
@@ -72,7 +73,8 @@ def test_tiny_model_matches_jax(variant):
     rng = np.random.default_rng(4)
     audio = rng.normal(size=(3, 80, 300)).astype(np.float32)
     lengths = None if variant == "no_lengths" else np.array([300, 211, 97], np.int32)
-    want = jm.apply(variables, audio, length=None if lengths is None else jnp.asarray(lengths))
+    want = jax.jit(jm.apply)(variables, audio,
+                             length=None if lengths is None else jnp.asarray(lengths))
     with torch.no_grad():
         got = port(t(audio), length=None if lengths is None else t(lengths))
     lp = got["final_posteriors"]
@@ -95,7 +97,7 @@ def test_default_widths_match_jax():
     assert mixer.in_proj.weight.shape == (3072, 768) and mixer.x_proj.weight.shape == (80, 768)
     audio = np.random.default_rng(6).normal(size=(2, 80, 128)).astype(np.float32)
     lengths = np.array([128, 90], np.int32)
-    want = jm.apply(variables, audio, length=jnp.asarray(lengths))["final_posteriors"]
+    want = jax.jit(jm.apply)(variables, audio, length=jnp.asarray(lengths))["final_posteriors"]
     with torch.no_grad():
         got = port(t(audio), length=t(lengths))["final_posteriors"]
     assert_close(got, want, atol=ATOL)
@@ -525,3 +527,53 @@ def test_chip_smoke_plain_scan_patches_only_inside_its_with_block():
             chip_smoke.require_launches(False, "one launch")
     finally:
         kernels.reset_launch_counts()
+
+
+def test_d_state_32_forward_and_whole_gradient_match_jax(monkeypatch):
+    """A Mamba whose mixers have d_state 32 (the mixer's option in both
+    packages; each model builds its mixers at the default, so both mixer
+    classes are given a default of 32 here; on the card the scan kernels'
+    N = 32 instantiation): the forward's log-probs and one training step's
+    loss and every parameter's gradient against JAX, at the tolerances of
+    the d_state 16 tests above."""
+    from lcasr_tpu.models import mamba as jmamba
+    from lcasr_tpu.ops.ctc import ctc_loss as jax_ctc
+    from lcasr_torch.models import mamba as pmamba
+
+    class BiMambaMixer(jmamba.BiMambaMixer):
+        d_state: int = 32
+
+    class PortMixer(pmamba.BiMambaMixer):
+        def __init__(self, d_model, d_state=32, **kw):
+            super().__init__(d_model, d_state=d_state, **kw)
+
+    monkeypatch.setattr(jmamba, "BiMambaMixer", BiMambaMixer)
+    monkeypatch.setattr(pmamba, "BiMambaMixer", PortMixer)
+    jm = jmamba.Mamba(**TINY)
+    v = randomize(jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.zeros((1, 80, 320))), seed=14)
+    port = pmamba.Mamba(**TINY, device="cpu")
+    port.load_state_dict(state_dict_from_flax(v), strict=True)
+    assert port.layers[0].mixer.A_log.shape[-1] == 32
+    audio, lens, labels, label_lens, weight = _batch(seed=15)
+    want = jax.jit(jm.apply)(v, audio, length=jnp.asarray(lens))["final_posteriors"]
+    with torch.no_grad():
+        got = port(t(audio), length=t(lens))["final_posteriors"]
+    assert_close(got, want, atol=ATOL)
+
+    def f(params):
+        out = jm.apply({"params": params}, audio, length=jnp.asarray(lens), train=True)
+        nll = jax_ctc(out["final_posteriors"].astype(jnp.float32), labels, out["length"],
+                      label_lens, blank_id=VOCAB, reduction="none")
+        return (jnp.where(nll < 1e29, nll, 0.0) * weight).sum()
+
+    loss_j, g_j = jax.jit(jax.value_and_grad(f))(v["params"])
+    loss = _port_loss(port.train(), audio, lens, labels, label_lens, weight)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(loss_j), rtol=1e-5)
+    want = state_dict_from_flax({"params": jax.tree.map(np.asarray, g_j)})
+    params = dict(port.named_parameters())
+    gmax = max(w.abs().max().item() for w in want.values())
+    for name, w in want.items():
+        tol = 1e-4 * max(w.abs().max().item(), 1e-2 * gmax)
+        np.testing.assert_allclose(params[name].grad.numpy(), w.numpy(), atol=tol, rtol=0,
+                                   err_msg=name)

@@ -32,14 +32,16 @@ def _pair(cfg, T, seed=0):
     from lcasr_torch.models.sconformer_xl import SCConformerXL
 
     jm = JModel(**cfg)
-    variables = randomize(jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 80, T))), seed=seed)
+    variables = randomize(jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.zeros((1, 80, T))),
+                          seed=seed)
     port = SCConformerXL(**cfg, device="cpu")
     port.load_state_dict(state_dict_from_flax(variables), strict=True)
     return jm, variables, port
 
 
 def _compare(jm, variables, port, audio, lengths):
-    want = jm.apply(variables, audio, length=None if lengths is None else jnp.asarray(lengths))
+    want = jax.jit(jm.apply)(variables, audio,
+                             length=None if lengths is None else jnp.asarray(lengths))
     with torch.no_grad():
         got = port(torch.from_numpy(audio),
                    length=None if lengths is None else torch.from_numpy(lengths))
@@ -280,7 +282,9 @@ def test_port_imports_no_jax_and_no_lcasr_tpu():
         "             'lcasr_torch.training.meta', 'lcasr_torch.cli.train_meta',\n"
         "             'lcasr_torch.evaluation.dynamic_eval', 'lcasr_torch.evaluation.selftrain',\n"
         "             'lcasr_torch.evaluation.eval_manager', 'lcasr_torch.evaluation.compare',\n"
-        "             'lcasr_torch.utils.resources'):\n"
+        "             'lcasr_torch.utils.resources', 'lcasr_torch.utils.profiling',\n"
+        "             'lcasr_torch.utils.pretrained', 'lcasr_torch.cli.launcher',\n"
+        "             'lcasr_torch.data.preprocess', 'lcasr_torch.data.train_tokenizer'):\n"
         "    assert name in sys.modules, name\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('lcasr_torch')]))\n"

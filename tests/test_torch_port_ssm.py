@@ -53,7 +53,8 @@ def test_selective_scan_matches_jax_reference(L, with_d):
 
 
 def test_selective_scan_other_state_sizes_on_the_cpu():
-    """The plain version takes any d_state (the kernels take 16 and say so)."""
+    """The plain version takes any d_state; the kernels take the built ones
+    (16, 32 and 64) and say so, the wrappers padding the others up."""
     x, delta, A, Bm, Cm, Dskip = _inputs(2, 12, 4, 3, seed=1)
     want = jssm.selective_scan(*map(jnp.asarray, (x, delta, A, Bm, Cm, Dskip)), use_pallas=False)
     _close(ssm.selective_scan(*map(t, (x, delta, A, Bm, Cm, Dskip))), want)
@@ -421,10 +422,15 @@ def split_time_fwd(x, delta, A, Bm, Cm, segments):
     return y, states[:, :L:TC].transpose(2, 3).contiguous()
 
 
+# the JAX reference compiled once per shape: op by op its associative scan
+# takes seconds at a few thousand steps
+_jax_scan_ref = jax.jit(jssm._selective_scan_ref)
+
+
 def _hold_split(Bt, L, D, segments, seed):
     x, delta, A, Bm, Cm, _ = _inputs(Bt, L, D, 16, seed=seed)
     y, states = split_time_fwd(*map(t, (x, delta, A, Bm, Cm)), segments)
-    want = jssm._selective_scan_ref(*map(jnp.asarray, (x, delta, A, Bm, Cm)))
+    want = _jax_scan_ref(*map(jnp.asarray, (x, delta, A, Bm, Cm)))
     _close(y, want, name="y")
     _, want_states = ssm.selective_scan_ref(*map(t, (x, delta, A, Bm, Cm)), return_states=True)
     assert states.shape == want_states.shape == (Bt, ssm._n_chunks(L), 16, D)
@@ -461,11 +467,13 @@ def test_split_time_fwd_matches_pallas_interpret(L):
 def test_split_time_fwd_at_a_multi_chunk_segment_choice():
     """The wrapper's own choice where its segments hold several chunks: 16
     rows of 64 channels over 4,225 steps (133 chunks) give 67 segments of
-    two chunks, the last of one step."""
+    two chunks, the last of one step.  The split is held at 8 channels: up
+    to 64 channels are one block, so the wrapper chooses the same 67
+    segments, and the channels are independent of each other."""
     L = 66 * 64 + 1
     segments = ssm.fwd_segments(16, L, 64)
-    assert segments == 67 and L == (segments - 1) * 64 + 1
-    _hold_split(16, L, 64, segments, seed=50)
+    assert segments == 67 == ssm.fwd_segments(16, L, 8) and L == (segments - 1) * 64 + 1
+    _hold_split(16, L, 8, segments, seed=50)
 
 
 MAIN_SHAPES = {"decode": (32, 2048, 768), "16384x4": (8, 2048, 768), "8192x8": (16, 1024, 768),
@@ -547,3 +555,63 @@ def test_scan_fwd_experiment_patches_apply_to_the_sources():
             assert text.count(old) == 1, (name, rel, old[:60])
             texts[rel] = text.replace(old, new)
         assert any(texts[rel] != open(os.path.join(root, rel)).read() for rel in texts), name
+
+
+# ---------------------------------------------------------------------------
+# d_state other than 16: the plain version against the Pallas kernels, and
+# the wrappers' padding up to a built d_state
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("N", [8, 32], ids=lambda n: f"N{n}")
+def test_plain_scan_matches_the_pallas_kernels_at_other_d_states(monkeypatch, N):
+    """`_scan_pallas` and the native Pallas backward (interpret mode,
+    LCASR_NATIVE_SSM_BWD=force) at d_state 8 and 32: y and all five
+    gradients of the plain versions within REL of their largest value."""
+    monkeypatch.setenv("LCASR_NATIVE_SSM_BWD", "force")
+    x, delta, A, Bm, Cm, _ = _inputs(1, 24, 128, N, seed=70 + N)
+    w = np.random.default_rng(71 + N).normal(size=x.shape).astype(np.float32)
+    want_y = jssm._scan_pallas(*map(jnp.asarray, (x, delta, A, Bm, Cm)))
+    _close(ssm.selective_scan_ref(*map(t, (x, delta, A, Bm, Cm))), want_y, name="y")
+    want = _jax_grads(jssm._selective_scan_fast, x, delta, A, Bm, Cm, w)
+    got = ssm.selective_scan_bwd_ref(*map(t, (x, delta, A, Bm, Cm, w)))
+    for name, g, wv in zip(GRADS, got, want):
+        assert g.shape == wv.shape
+        _close(g, wv, name=name)
+
+
+@pytest.mark.parametrize("N", [1, 8, 20, 33, 64], ids=lambda n: f"N{n}")
+def test_padding_d_state_up_changes_no_output_and_no_gradient(N):
+    """What the wrappers do before a kernel runs: pad N up to the built
+    d_state (zero columns of B and C, -1 in A).  The plain versions on the
+    padded inputs give y, the states and the five gradients of the first N
+    states of the unpadded run, and exactly 0 for the padded ones."""
+    n_to = ssm.kernel_d_state(N)
+    assert n_to == min(b for b in ssm.KERNEL_D_STATES if b >= N)
+    x, delta, A, Bm, Cm, _ = _inputs(2, 45, 6, N, seed=80 + N)
+    g = torch.from_numpy(np.random.default_rng(81 + N).normal(size=x.shape).astype(np.float32))
+    args = list(map(t, (x, delta, A, Bm, Cm)))
+    Ap, Bp, Cp = ssm.pad_d_state(*args[2:], n_to)
+    assert Ap.shape == (6, n_to) and Bp.shape == Cp.shape == (2, 45, n_to)
+    assert (Ap[:, N:] == -1).all() and not Bp[..., N:].any() and not Cp[..., N:].any()
+    y, states = ssm.selective_scan_ref(*args, return_states=True)
+    y_p, states_p = ssm.selective_scan_ref(*args[:2], Ap, Bp, Cp, return_states=True)
+    _close(y_p, y.numpy(), rel=1e-6, name="y")
+    assert torch.equal(states_p[:, :, :N], states) and not states_p[:, :, N:].any()
+    grads = ssm.selective_scan_bwd_ref(*args, g)
+    grads_p = ssm.selective_scan_bwd_ref(*args[:2], Ap, Bp, Cp, g)
+    for name, a, b in zip(GRADS, grads, grads_p):
+        if name in ("dA", "dB", "dC"):
+            assert not b[..., N:].any(), name
+            b = b[..., :N]
+        _close(b, a.numpy(), rel=1e-6, name=name)
+
+
+def test_d_state_above_the_largest_built_one_raises_by_name():
+    assert ssm.kernel_d_state(64) == 64 and ssm.MAX_D_STATE == 64
+    with pytest.raises(ValueError, match="d_state up to 64"):
+        ssm.kernel_d_state(65)
+    x, delta, A, Bm, Cm, _ = _inputs(1, 3, 4, 65, seed=90)
+    with pytest.raises(ValueError, match="d_state up to 64"):
+        ssm._kernel_args(*map(t, (x, delta, A, Bm, Cm)))
+    # the padded inputs are what the kernels take
+    (_, _, A16, B16, C16), tail = ssm._kernel_args(*map(t, _inputs(1, 3, 4, 9, seed=91)[:5]))
+    assert A16.shape == (4, 16) and B16.shape == C16.shape == (1, 3, 16) and tail[3] == 16

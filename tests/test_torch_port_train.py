@@ -136,7 +136,7 @@ def test_model_train_loss_and_grads_match_jax(remat):
                       label_lens, blank_id=VOCAB, reduction="none")
         return (jnp.where(nll < 1e29, nll, 0.0) * weight).sum(), mut
 
-    (loss_j, mut), g_j = jax.value_and_grad(f, has_aux=True)(v["params"])
+    (loss_j, mut), g_j = jax.jit(jax.value_and_grad(f, has_aux=True))(v["params"])
     port = SCConformerXL(**cfg, device="cpu")
     port.load_state_dict(state_dict_from_flax(v), strict=True)
     loss = _port_loss(port, audio, lens, labels, label_lens, weight)
