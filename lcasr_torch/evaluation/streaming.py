@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from lcasr_torch.device import resolve_device
+from lcasr_torch.utils.profiling import span
 
 
 def subsampled_length(u_len: int, factor: int, mode: str = "dw_striding",
@@ -228,10 +229,11 @@ class StreamingDecoder:
         wins = spec_dev[:, idx].transpose(0, 1)  # (W, 80, seq_len)
         wins = wins.masked_fill((cols[None, :] >= lengths[:, None])[:, None, :], 0.0)
         log_probs = self.model(wins, length=lengths)["final_posteriors"]
-        for j in range(len(group)):  # padding windows add nothing
-            off, n = offsets[j], n_valid[j]
-            sums[off : off + n] += torch.exp(log_probs[j, :n].float())
-            counts[off : off + n] += 1.0
+        with span("decode.average"):
+            for j in range(len(group)):  # padding windows add nothing
+                off, n = offsets[j], n_valid[j]
+                sums[off : off + n] += torch.exp(log_probs[j, :n].float())
+                counts[off : off + n] += 1.0
 
     def _run_pipelined(self, spec, positions, offsets, n_valid, seq_len, overlap, W,
                        sums, counts, quant):
@@ -261,12 +263,14 @@ class StreamingDecoder:
                 pc = np.pad(pc, ((0, 0), (0, P - pc.shape[-1])))
             if cuda:
                 with torch.cuda.stream(side):
-                    piece = self._upload(pc, quant, pinned=True)
+                    with span("decode.upload"):
+                        piece = self._upload(pc, quant, pinned=True)
                     event = torch.cuda.Event()
                     event.record(side)
                 piece.record_stream(main)
             else:
-                piece, event = self._upload(pc, quant), None
+                with span("decode.upload"):
+                    piece, event = self._upload(pc, quant), None
             pieces.append(piece)
             events.append(event)
         zero = torch.zeros((spec.shape[0], P), dtype=pieces[0].dtype, device=self.device)
@@ -275,10 +279,12 @@ class StreamingDecoder:
             for event in events[g : g + 2]:
                 if event is not None:
                     main.wait_event(event)
-            spec_g = torch.cat([pieces[g], pieces[g + 1][:, :overlap]], dim=-1)
-            lo = g * W
-            self._accumulate_group(spec_g, g * P, positions[lo : lo + W], offsets[lo : lo + W],
-                                   n_valid[lo : lo + W], seq_len, W, sums, counts)
+            with span("decode.group"):
+                spec_g = torch.cat([pieces[g], pieces[g + 1][:, :overlap]], dim=-1)
+                lo = g * W
+                self._accumulate_group(spec_g, g * P, positions[lo : lo + W],
+                                       offsets[lo : lo + W], n_valid[lo : lo + W], seq_len, W,
+                                       sums, counts)
 
     @torch.no_grad()
     def _run(self, spec: np.ndarray, seq_len: int, overlap: int):
@@ -334,19 +340,22 @@ class StreamingDecoder:
             if memo is not None:
                 spec_dev = memo[2]
             else:
-                spec_dev = self._upload(spec, quant)  # the one upload
+                with span("decode.upload"):
+                    spec_dev = self._upload(spec, quant)  # the one upload
                 if memo_key is not None:
                     self._upload_memo = (memo_key, quant, spec_dev)
             for b0 in range(0, len(positions), W):
-                self._accumulate_group(spec_dev, 0, positions[b0 : b0 + W],
-                                       offsets[b0 : b0 + W], n_valid[b0 : b0 + W],
-                                       seq_len, W, sums, counts)
-        if self.mesh is not None:  # the ranks' partial overlap-sums, merged
-            from lcasr_torch.parallel.collectives import all_reduce_
+                with span("decode.group"):
+                    self._accumulate_group(spec_dev, 0, positions[b0 : b0 + W],
+                                           offsets[b0 : b0 + W], n_valid[b0 : b0 + W],
+                                           seq_len, W, sums, counts)
+        with span("decode.finish"):
+            if self.mesh is not None:  # the ranks' partial overlap-sums, merged
+                from lcasr_torch.parallel.collectives import all_reduce_
 
-            all_reduce_(sums, self.mesh.group("data"))
-            all_reduce_(counts, self.mesh.group("data"))
-        return sums[:n_out] / counts[:n_out].clamp_min(1.0)
+                all_reduce_(sums, self.mesh.group("data"))
+                all_reduce_(counts, self.mesh.group("data"))
+            return sums[:n_out] / counts[:n_out].clamp_min(1.0)
 
     def logits(self, spec: np.ndarray, seq_len: int, overlap: int) -> np.ndarray:
         """Merged averaged log-probs (T', C)."""

@@ -42,6 +42,7 @@ from lcasr_torch.ops.dense import Dense
 from lcasr_torch.ops.norms import RMSNorm
 from lcasr_torch.ops.qdense import TRAIN_REFUSAL, apply_quant_policy
 from lcasr_torch.ops.ssm import causal_conv1d, flip_with_lengths, selective_scan
+from lcasr_torch.utils.profiling import span
 
 
 def _uniform(shape, bound: float, gen: torch.Generator) -> torch.Tensor:
@@ -124,7 +125,8 @@ class MambaBlock(nn.Module):
         self.mixer = BiMambaMixer(d_model, n_layer=n_layer, dtype=dtype, generator=generator)
 
     def forward(self, x, lengths=None):
-        return self.mixer(self.norm(x), lengths=lengths) + x
+        with span("mixer"):
+            return self.mixer(self.norm(x), lengths=lengths) + x
 
 
 class Mamba(nn.Module):
@@ -206,7 +208,9 @@ class Mamba(nn.Module):
             else:
                 x = layer(x, lengths_arg)
             if i != self.n_layers - 1 and self.self_conditioning:
-                posts = torch.softmax(dec(x, logits=True).float(), dim=-1).to(x.dtype)
-                x = x + dec.project_back(posts)
-        x = dec.apply_norm(x)
-        return {"final_posteriors": dec(x, logits=return_logits), "length": length}
+                with span("self_cond"):
+                    posts = torch.softmax(dec(x, logits=True).float(), dim=-1).to(x.dtype)
+                    x = x + dec.project_back(posts)
+        with span("head"):
+            x = dec.apply_norm(x)
+            return {"final_posteriors": dec(x, logits=return_logits), "length": length}

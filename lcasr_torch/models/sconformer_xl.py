@@ -67,6 +67,7 @@ from lcasr_torch.parallel.collectives import all_gather_seq
 from lcasr_torch.parallel.context_parallel import context_parallel_attention
 from lcasr_torch.parallel.mesh import NO_PARALLEL, ParallelState, bind
 from lcasr_torch.parallel.ring_attention import ring_attention
+from lcasr_torch.utils.profiling import span
 
 # lcasr-9L-768D-6H, rotary theta 1.5e6 (~120M params): the repo's flagship
 FLAGSHIP = dict(
@@ -277,23 +278,27 @@ class ConformerLayer(nn.Module):
                 "context parallel needs position-local convs (conv_type=standard)")
         drop = Dropout(dropout_seed, x.device) if train else NO_DROPOUT
         if not self.transformer:
-            h = self.ff1(self.ff1_norm(x))
+            with span("ff"):
+                h = self.ff1(self.ff1_norm(x))
+                if self.sandwich_norm:
+                    h = self.ff1_norm_out(h)
+                x = drop(h, self.dropout_ff) * 0.5 + x
+        with span("attention"):
+            h = self.attend(self.attn_norm(x), lengths=lengths, rotary=rotary, drop=drop,
+                            capture=capture)
+            h = drop(h, min(self.dropout_ff, 0.1))
             if self.sandwich_norm:
-                h = self.ff1_norm_out(h)
-            x = drop(h, self.dropout_ff) * 0.5 + x
-        h = self.attend(self.attn_norm(x), lengths=lengths, rotary=rotary, drop=drop,
-                        capture=capture)
-        h = drop(h, min(self.dropout_ff, 0.1))
-        if self.sandwich_norm:
-            h = self.attn_norm_out(h)
-        x = h + x
+                h = self.attn_norm_out(h)
+            x = h + x
         if not self.transformer:
-            h = self.conv(self.conv_norm(x), pad_mask=pad_mask, train=train)
-            x = drop(h, self.dropout_conv) + x
-        h = self.ff2(self.ff2_norm(x))
-        if self.sandwich_norm:
-            h = self.ff2_norm_out(h)
-        x = drop(h, self.dropout_ff) * 0.5 + x
+            with span("conv"):
+                h = self.conv(self.conv_norm(x), pad_mask=pad_mask, train=train)
+                x = drop(h, self.dropout_conv) + x
+        with span("ff"):
+            h = self.ff2(self.ff2_norm(x))
+            if self.sandwich_norm:
+                h = self.ff2_norm_out(h)
+            x = drop(h, self.dropout_ff) * 0.5 + x
         return self.norm_out(x)
 
 
@@ -515,11 +520,13 @@ class SCConformerXL(nn.Module):
             else:
                 x = layer(x, lengths_arg, pad_mask, rotary, train, seed, capture)
             if i != self.n_layers - 1 and self.self_conditioning:
-                posts = torch.softmax(dec(x, logits=True).float(), dim=-1).to(x.dtype)
-                x = x + dec.project_back(posts)
-        if self.legasee_double_norm:
-            x = dec.apply_norm(x)
-        out = {"final_posteriors": dec(x, logits=return_logits), "length": length}
+                with span("self_cond"):
+                    posts = torch.softmax(dec(x, logits=True).float(), dim=-1).to(x.dtype)
+                    x = x + dec.project_back(posts)
+        with span("head"):
+            if self.legasee_double_norm:
+                x = dec.apply_norm(x)
+            out = {"final_posteriors": dec(x, logits=return_logits), "length": length}
         if captures is not None:
             out["intermediates"] = captures
         return out

@@ -40,6 +40,7 @@ from lcasr_torch.ops.subsampling import (
     strided_conv)
 from lcasr_torch.parallel.collectives import all_reduce_, all_reduce_sum, halo_exchange
 from lcasr_torch.parallel.mesh import NO_PARALLEL
+from lcasr_torch.utils.profiling import span
 
 _STATE = threading.local()
 
@@ -77,31 +78,32 @@ class BatchRenorm(nn.Module):
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
                 train: bool = False) -> torch.Tensor:
-        xf = x.float()
-        if not train:
-            y = (xf - self.running_mean) / self.running_std
-            return (self.weight * y + self.bias).to(x.dtype)
-        mean, var, _ = _masked_moments(xf, pad_mask, self.parallel.stat_groups())
-        std = torch.sqrt(var) + self.eps
+        with span("norm"):
+            xf = x.float()
+            if not train:
+                y = (xf - self.running_mean) / self.running_std
+                return (self.weight * y + self.bias).to(x.dtype)
+            mean, var, _ = _masked_moments(xf, pad_mask, self.parallel.stat_groups())
+            std = torch.sqrt(var) + self.eps
 
-        if is_recomputing():
-            ra_mean, ra_std, steps = self._first_pass
-        else:
-            ra_mean, ra_std = self.running_mean.clone(), self.running_std.clone()
-            steps = self.num_batches_tracked.clone()
-            self._first_pass = (ra_mean, ra_std, steps)
-        t = steps.float()
-        rmax = (2.0 / 35000.0 * t + 25.0 / 35.0).clamp(1.0, 3.0)
-        dmax = (5.0 / 20000.0 * t - 25.0 / 20.0).clamp(0.0, 5.0)
-        r = torch.minimum(torch.maximum(std.detach() / ra_std, 1.0 / rmax), rmax)
-        d = torch.minimum(torch.maximum((mean.detach() - ra_mean) / ra_std, -dmax), dmax)
-        y = (xf - mean) / std * r + d
-        if not is_recomputing():
-            with torch.no_grad():
-                self.running_mean.add_(self.momentum * (mean.detach() - ra_mean))
-                self.running_std.add_(self.momentum * (std.detach() - ra_std))
-                self.num_batches_tracked.add_(1)
-        return (self.weight * y + self.bias).to(x.dtype)
+            if is_recomputing():
+                ra_mean, ra_std, steps = self._first_pass
+            else:
+                ra_mean, ra_std = self.running_mean.clone(), self.running_std.clone()
+                steps = self.num_batches_tracked.clone()
+                self._first_pass = (ra_mean, ra_std, steps)
+            t = steps.float()
+            rmax = (2.0 / 35000.0 * t + 25.0 / 35.0).clamp(1.0, 3.0)
+            dmax = (5.0 / 20000.0 * t - 25.0 / 20.0).clamp(0.0, 5.0)
+            r = torch.minimum(torch.maximum(std.detach() / ra_std, 1.0 / rmax), rmax)
+            d = torch.minimum(torch.maximum((mean.detach() - ra_mean) / ra_std, -dmax), dmax)
+            y = (xf - mean) / std * r + d
+            if not is_recomputing():
+                with torch.no_grad():
+                    self.running_mean.add_(self.momentum * (mean.detach() - ra_mean))
+                    self.running_std.add_(self.momentum * (std.detach() - ra_std))
+                    self.num_batches_tracked.add_(1)
+            return (self.weight * y + self.bias).to(x.dtype)
 
 
 def _masked_moments(xf: torch.Tensor, pad_mask: Optional[torch.Tensor], groups=()):
@@ -145,19 +147,20 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
                 train: bool = False) -> torch.Tensor:
-        xf = x.float()
-        if train:
-            mean, var, n = _masked_moments(xf, pad_mask, self.parallel.stat_groups())
-            if not is_recomputing():
-                with torch.no_grad():
-                    n = torch.as_tensor(n, dtype=xf.dtype, device=xf.device)
-                    unbias = n / (n - 1.0).clamp_min(1.0)
-                    self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
-                    self.running_var.mul_(1 - self.momentum).add_(self.momentum * var * unbias)
-        else:
-            mean, var = self.running_mean, self.running_var
-        y = (xf - mean) * torch.rsqrt(var + self.eps)
-        return (self.weight * y + self.bias).to(x.dtype)
+        with span("norm"):
+            xf = x.float()
+            if train:
+                mean, var, n = _masked_moments(xf, pad_mask, self.parallel.stat_groups())
+                if not is_recomputing():
+                    with torch.no_grad():
+                        n = torch.as_tensor(n, dtype=xf.dtype, device=xf.device)
+                        unbias = n / (n - 1.0).clamp_min(1.0)
+                        self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+                        self.running_var.mul_(1 - self.momentum).add_(self.momentum * var * unbias)
+            else:
+                mean, var = self.running_mean, self.running_var
+            y = (xf - mean) * torch.rsqrt(var + self.eps)
+            return (self.weight * y + self.bias).to(x.dtype)
 
 
 class GroupNorm(nn.Module):
@@ -172,9 +175,10 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.group_norm(x.float().transpose(1, 2), self.num_groups, self.scale, self.bias,
-                         self.eps)
-        return y.transpose(1, 2).to(x.dtype)
+        with span("norm"):
+            y = F.group_norm(x.float().transpose(1, 2), self.num_groups, self.scale, self.bias,
+                             self.eps)
+            return y.transpose(1, 2).to(x.dtype)
 
 
 CONV_NORMS = ("batch_renorm", "batch_norm", "layer_norm", "group_norm", "none")
@@ -382,14 +386,16 @@ class ConvSubsampling(nn.Module):
             # halo scheme does not reproduce
             raise NotImplementedError("context parallel: causal subsampling unsupported")
         if self.mode == "dw_striding":
-            # never the fused kernel under context parallelism, as in JAX
-            if seq is None and fused_subsampling_enabled() and fused_eligible(
-                    x.shape[1], self.feat_in, self.conv_channels, self.sampling_num,
-                    self.is_causal):
-                h = fused_dw_striding(x, self._conv_params(), self.activation)
-            else:
-                h = dw_striding_chain(x[:, None], self._conv_params(), self.activation,
-                                      causal=self.is_causal, seq=seq).permute(0, 2, 3, 1)
+            params = self._conv_params()
+            with span("subsampling"):
+                # never the fused kernel under context parallelism, as in JAX
+                if seq is None and fused_subsampling_enabled() and fused_eligible(
+                        x.shape[1], self.feat_in, self.conv_channels, self.sampling_num,
+                        self.is_causal):
+                    h = fused_dw_striding(x, params, self.activation)
+                else:
+                    h = dw_striding_chain(x[:, None], params, self.activation,
+                                          causal=self.is_causal, seq=seq).permute(0, 2, 3, 1)
         elif self.mode == "striding":
             h = x[:, None]  # (B, 1, T, F)
             for i in range(self.sampling_num):

@@ -32,6 +32,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from lcasr_torch.utils.profiling import backward_span, span
+
 SENTINEL = 1e30  # -(-1e30): the JAX lattice's nll of an impossible alignment
 
 
@@ -55,28 +57,33 @@ def ctc_loss(
     reduction: str = "sum",
     segment_size: Optional[int] = None,  # noqa: ARG001 (memory only in JAX)
 ) -> torch.Tensor:
-    """CTC negative log-likelihood, fp32; blank defaults to the last class."""
-    if blank_id is None:
-        blank_id = log_probs.shape[-1] - 1
-    lp = log_probs.float()
-    device = lp.device
-    input_lengths = input_lengths.to(device=device, dtype=torch.long)
-    label_lengths = label_lengths.to(device=device, dtype=torch.long)
-    labels = labels.to(device=device, dtype=torch.long)
-    impossible = (input_lengths == 0) | (input_lengths < min_frames(labels, label_lengths))
-    if labels.shape[1] == 0:  # PyTorch wants a label axis
-        labels = torch.full((labels.shape[0], 1), blank_id, dtype=torch.long, device=device)
-    nll = F.ctc_loss(
-        lp.transpose(0, 1), labels, input_lengths.clamp_min(1), label_lengths,
-        blank=blank_id, reduction="none", zero_infinity=True,
-    )
-    # the select, not a multiply, gives the sentinel rows a zero gradient
-    nll = torch.where(impossible, torch.full_like(nll, SENTINEL), nll)
-    if reduction == "sum":
-        return nll.sum()
-    if reduction == "mean":
-        return (nll / label_lengths.clamp_min(1)).mean()
-    return nll
+    """CTC negative log-likelihood, fp32; blank defaults to the last class.
+    The spans `ctc_fwd` (this call) and `ctc_bwd` (PyTorch's CTC backward,
+    on the thread that runs it) time it in a profiler trace."""
+    with span("ctc_fwd"):
+        if blank_id is None:
+            blank_id = log_probs.shape[-1] - 1
+        lp = log_probs.float()
+        device = lp.device
+        input_lengths = input_lengths.to(device=device, dtype=torch.long)
+        label_lengths = label_lengths.to(device=device, dtype=torch.long)
+        labels = labels.to(device=device, dtype=torch.long)
+        impossible = (input_lengths == 0) | (input_lengths < min_frames(labels, label_lengths))
+        if labels.shape[1] == 0:  # PyTorch wants a label axis
+            labels = torch.full((labels.shape[0], 1), blank_id, dtype=torch.long, device=device)
+        lp_t = lp.transpose(0, 1)
+        nll = F.ctc_loss(
+            lp_t, labels, input_lengths.clamp_min(1), label_lengths,
+            blank=blank_id, reduction="none", zero_infinity=True,
+        )
+        backward_span("ctc_bwd", nll, lp_t)
+        # the select, not a multiply, gives the sentinel rows a zero gradient
+        nll = torch.where(impossible, torch.full_like(nll, SENTINEL), nll)
+        if reduction == "sum":
+            return nll.sum()
+        if reduction == "mean":
+            return (nll / label_lengths.clamp_min(1)).mean()
+        return nll
 
 
 NEG_INF = -1e30  # the JAX lattice's log of zero

@@ -37,6 +37,7 @@ import torch
 
 from lcasr_torch import kernels
 from lcasr_torch.ops.attention import NEG_INF, length_mask, window_mask
+from lcasr_torch.utils.profiling import span
 
 KERNEL_HEAD_DIMS = (32, 64, 128, 256)  # the forward K1, K2
 BWD_KERNEL_HEAD_DIMS = (32, 64, 128, 256)  # the backward K3-K5
@@ -362,19 +363,21 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, lengths, window, softmax_scale, q_offset, kv_offset):
-        o, lse = flash_attention_with_lse(q, k, v, lengths, window, softmax_scale,
-                                          q_offset, kv_offset)
-        ctx.save_for_backward(q, k, v, o, lse, lengths)
-        ctx.args = (window, softmax_scale, q_offset, kv_offset)
-        return o
+        with span("attn_fwd"):
+            o, lse = flash_attention_with_lse(q, k, v, lengths, window, softmax_scale,
+                                              q_offset, kv_offset)
+            ctx.save_for_backward(q, k, v, o, lse, lengths)
+            ctx.args = (window, softmax_scale, q_offset, kv_offset)
+            return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse, lengths = ctx.saved_tensors
-        window, softmax_scale, q_offset, kv_offset = ctx.args
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, lengths, window,
-                                         softmax_scale, q_offset, kv_offset)
-        return dq, dk, dv, None, None, None, None, None
+        with span("attn_bwd"):
+            q, k, v, o, lse, lengths = ctx.saved_tensors
+            window, softmax_scale, q_offset, kv_offset = ctx.args
+            dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, lengths, window,
+                                             softmax_scale, q_offset, kv_offset)
+            return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, lengths=None, window=(-1, -1), softmax_scale=None,

@@ -1,12 +1,14 @@
 """Normalisation layers (counterpart of lcasr_tpu/ops/norms.py).
 
 Statistics are fp32 whatever the input dtype; the output is cast back to
-the input's dtype.
+the input's dtype.  Each forward is the span `norm` (utils/profiling.py).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from lcasr_torch.utils.profiling import span
 
 
 class LayerNorm(nn.Module):
@@ -17,11 +19,12 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        mean = xf.mean(-1, keepdim=True)
-        var = ((xf - mean) ** 2).mean(-1, keepdim=True)
-        y = (xf - mean) * torch.reciprocal(torch.sqrt(var + self.eps))
-        return (y * self.scale + self.bias).to(x.dtype)
+        with span("norm"):
+            xf = x.float()
+            mean = xf.mean(-1, keepdim=True)
+            var = ((xf - mean) ** 2).mean(-1, keepdim=True)
+            y = (xf - mean) * torch.reciprocal(torch.sqrt(var + self.eps))
+            return (y * self.scale + self.bias).to(x.dtype)
 
 
 class RMSNorm(nn.Module):
@@ -33,10 +36,11 @@ class RMSNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        ms = (xf * xf).mean(-1, keepdim=True)
-        y = xf * torch.reciprocal(torch.sqrt(ms + self.eps))
-        return (y * self.scale).to(x.dtype)
+        with span("norm"):
+            xf = x.float()
+            ms = (xf * xf).mean(-1, keepdim=True)
+            y = xf * torch.reciprocal(torch.sqrt(ms + self.eps))
+            return (y * self.scale).to(x.dtype)
 
 
 def get_norm(name: str):

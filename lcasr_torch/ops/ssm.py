@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from lcasr_torch import kernels
+from lcasr_torch.utils.profiling import span
 
 STATE_INTERVAL = 32  # steps between saved states; TC in selective_scan.cu
 KERNEL_D_STATES = (16, 32, 64)  # the instantiations of csrc/selective_scan.cu
@@ -319,17 +320,19 @@ class _SelectiveScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, delta, A, B, C, need_states):
-        if not need_states:
-            return selective_scan_fwd(x, delta, A, B, C)
-        y, states = selective_scan_fwd(x, delta, A, B, C, return_states=True)
-        ctx.save_for_backward(x, delta, A, B, C, states)
-        return y
+        with span("scan_fwd"):
+            if not need_states:
+                return selective_scan_fwd(x, delta, A, B, C)
+            y, states = selective_scan_fwd(x, delta, A, B, C, return_states=True)
+            ctx.save_for_backward(x, delta, A, B, C, states)
+            return y
 
     @staticmethod
     def backward(ctx, g):
-        x, delta, A, B, C, states = ctx.saved_tensors
-        grads = selective_scan_bwd(x, delta, A, B, C, states, g)
-        return (*(gr.to(t.dtype) for gr, t in zip(grads, (x, delta, A, B, C))), None)
+        with span("scan_bwd"):
+            x, delta, A, B, C, states = ctx.saved_tensors
+            grads = selective_scan_bwd(x, delta, A, B, C, states, g)
+            return (*(gr.to(t.dtype) for gr, t in zip(grads, (x, delta, A, B, C))), None)
 
 
 def selective_scan(x: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,

@@ -6,6 +6,12 @@ The reference logs loss/frame, blank probability, lr, seq len, batch size,
 epoch and spec_augment per optimizer step to wandb (reference
 `exp/train.py:297-306`).  wandb is optional here; every run also appends a
 JSONL metrics stream that the eval/bench tooling can read back.
+
+Each row's `ts` is the host's wall time (`time.time()`) when the row was
+written, not a step time on the card's clock: the card runs behind the host,
+so the gap between two rows is the host's time between them, which leaves
+out work still queued on the card.  Step times on the card's clock come from
+a profiler trace (the Trainer's `lcasr.train.*` ranges, utils/profiling.py).
 """
 from __future__ import annotations
 

@@ -78,6 +78,7 @@ from lcasr_torch.parallel.tensor_parallel import parallelize, refuse_family
 from lcasr_torch.training import checkpointing
 from lcasr_torch.training.debug_hooks import grad_statistics
 from lcasr_torch.training.metrics import MetricsLogger
+from lcasr_torch.utils.profiling import span
 
 LABEL_BUCKET = 64
 
@@ -93,39 +94,45 @@ def make_chunks(audio: np.ndarray, audio_lengths: np.ndarray, txt: List[list], t
     widths bucketed to multiples of 64, textless chunks skipped).  Each
     chunk's transcripts go through `tokenizer.encode_batch` at once (one
     crossing into the native BPE a chunk)."""
-    B = audio.shape[0]
-    audio_chunks = chunk_spectogram(audio, chunk_size, chunk_overlap)
-    txt_chunks = [chunk_text_json(t, chunk_size, chunk_overlap, audio.shape[-1]) for t in txt]
-    culm = np.zeros(B, np.int64)
-    out = []
-    for ix, chunk in enumerate(audio_chunks):
-        active = culm <= audio_lengths
-        u_len = chunk.shape[-1]
-        cur_lengths = u_len - np.clip(culm + u_len - audio_lengths - chunk_overlap, 0, None)
-        cur_lengths = np.clip(cur_lengths, 0, u_len) * active
-        live = [b for b in range(B) if active[b]]
-        enc = [[] for _ in range(B)]
-        for b, ids in zip(live, tokenizer.encode_batch([txt_chunks[b][ix] for b in live])):
-            enc[b] = ids
-        t_lens = np.array([len(e) for e in enc], np.int64)
-        if t_lens.max(initial=0) == 0:
+    with span("train.make_chunks"):
+        B = audio.shape[0]
+        with span("train.chunk_audio"):
+            audio_chunks = chunk_spectogram(audio, chunk_size, chunk_overlap)
+        with span("train.chunk_text"):
+            txt_chunks = [chunk_text_json(t, chunk_size, chunk_overlap, audio.shape[-1])
+                          for t in txt]
+        culm = np.zeros(B, np.int64)
+        out = []
+        for ix, chunk in enumerate(audio_chunks):
+            active = culm <= audio_lengths
+            u_len = chunk.shape[-1]
+            cur_lengths = u_len - np.clip(culm + u_len - audio_lengths - chunk_overlap, 0, None)
+            cur_lengths = np.clip(cur_lengths, 0, u_len) * active
+            live = [b for b in range(B) if active[b]]
+            enc = [[] for _ in range(B)]
+            with span("train.tokenize"):
+                for b, ids in zip(live, tokenizer.encode_batch([txt_chunks[b][ix] for b in live])):
+                    enc[b] = ids
+            t_lens = np.array([len(e) for e in enc], np.int64)
+            if t_lens.max(initial=0) == 0:
+                culm += u_len - (chunk_overlap if ix != 0 else 0)
+                continue
+            with span("train.assemble"):
+                labels = np.full((B, _bucket(int(t_lens.max()))), pad_id, np.int64)
+                for b, e in enumerate(enc):
+                    labels[b, : len(e)] = e
+                padded = chunk
+                if u_len < chunk_size:
+                    padded = np.pad(chunk, ((0, 0), (0, 0), (0, chunk_size - u_len)))
+                out.append({
+                    "audio": padded.astype(np.float32),
+                    "audio_lengths": cur_lengths.astype(np.int32),
+                    "labels": labels,
+                    "label_lengths": t_lens.astype(np.int32),
+                    "weight": (active & (cur_lengths > 0)).astype(np.float32),
+                })
             culm += u_len - (chunk_overlap if ix != 0 else 0)
-            continue
-        labels = np.full((B, _bucket(int(t_lens.max()))), pad_id, np.int64)
-        for b, e in enumerate(enc):
-            labels[b, : len(e)] = e
-        padded = chunk
-        if u_len < chunk_size:
-            padded = np.pad(chunk, ((0, 0), (0, 0), (0, chunk_size - u_len)))
-        out.append({
-            "audio": padded.astype(np.float32),
-            "audio_lengths": cur_lengths.astype(np.int32),
-            "labels": labels,
-            "label_lengths": t_lens.astype(np.int32),
-            "weight": (active & (cur_lengths > 0)).astype(np.float32),
-        })
-        culm += u_len - (chunk_overlap if ix != 0 else 0)
-    return out
+        return out
 
 
 class _NoMetrics:
@@ -356,8 +363,9 @@ class Trainer:
             chunk = self._rank_rows(chunk)
             if self._flat_acc is None:
                 self.zero_pending()
-        audio, lengths, weight, labels, label_lengths = (self._upload(chunk[k]) for k in (
-            "audio", "audio_lengths", "weight", "labels", "label_lengths"))
+        with span("train.upload"):
+            audio, lengths, weight, labels, label_lengths = (self._upload(chunk[k]) for k in (
+                "audio", "audio_lengths", "weight", "labels", "label_lengths"))
         if augment and self.augmentation is not None:
             audio = self.augmentation(self.augment_generator, audio, lengths)
         if self.loss_mode == "enc_dec":
@@ -429,20 +437,21 @@ class Trainer:
     def fold_group(self, weight: float) -> None:
         """acc += weight * group gradient (the reference's per-group loss
         weight, by linearity), and clear the group gradient."""
-        if self.mesh is not None:
-            return self._fold_flat(weight)
-        ps = [p for p in self._params() if p.grad is not None]
-        fresh = [p for p in ps if p not in self._acc]
-        seen = [p for p in ps if p in self._acc]
-        if fresh:  # multi-tensor ops: one launch for all the tensors
-            grads = [p.grad for p in fresh]
-            torch._foreach_mul_(grads, weight)
-            self._acc.update(zip(fresh, grads))
-        if seen:
-            torch._foreach_add_([self._acc[p] for p in seen], [p.grad for p in seen],
-                                alpha=weight)
-        for p in ps:
-            p.grad = None
+        with span("train.fold"):
+            if self.mesh is not None:
+                return self._fold_flat(weight)
+            ps = [p for p in self._params() if p.grad is not None]
+            fresh = [p for p in ps if p not in self._acc]
+            seen = [p for p in ps if p in self._acc]
+            if fresh:  # multi-tensor ops: one launch for all the tensors
+                grads = [p.grad for p in fresh]
+                torch._foreach_mul_(grads, weight)
+                self._acc.update(zip(fresh, grads))
+            if seen:
+                torch._foreach_add_([self._acc[p] for p in seen], [p.grad for p in seen],
+                                    alpha=weight)
+            for p in ps:
+                p.grad = None
 
     def _fold_flat(self, weight: float) -> None:
         """fold_group under a mesh: the first group of an optimizer step
@@ -486,15 +495,16 @@ class Trainer:
 
     def optimizer_step(self, lr: float) -> None:
         """Clip and apply the accumulated gradient at learning rate lr."""
-        if self.mesh is not None:
-            return self._mesh_optimizer_step(lr)
-        if self.debug_hooks:
-            self.metrics.log(self.grad_statistics())
-        for p in self._params():
-            p.grad = self._acc.get(p)
-        set_learning_rate(self.optimizer, lr)
-        self.optimizer.step()
-        self.zero_pending()
+        with span("train.optimizer_step"):
+            if self.mesh is not None:
+                return self._mesh_optimizer_step(lr)
+            if self.debug_hooks:
+                self.metrics.log(self.grad_statistics())
+            for p in self._params():
+                p.grad = self._acc.get(p)
+            set_learning_rate(self.optimizer, lr)
+            self.optimizer.step()
+            self.zero_pending()
 
     def _tp_sharded(self) -> List[bool]:
         """Per trainable parameter: is it cut over the model axis?"""
@@ -572,7 +582,8 @@ class Trainer:
 
         while not finished:
             try:
-                audio, audio_lengths, txt, ids = next(data_iter)
+                with span("train.data_wait"):
+                    audio, audio_lengths, txt, ids = next(data_iter)
             except StopIteration:
                 epoch += 1
                 seen_ids = reset_seen_ids(seen_ids, epoch - 1)
@@ -599,9 +610,6 @@ class Trainer:
 
             chunks = make_chunks(audio, audio_lengths, txt, self.tokenizer,
                                  self.chunk_size, self.chunk_overlap, pad_id)
-            self.metrics.log({"batch_chunks": len(chunks), "podcast": cur_podcast,
-                              "sequence_length": self.chunk_size,
-                              "batch_size": self.batch_size})
             augment = (self.start_augment_after_n_epochs != -1
                        and epoch >= self.start_augment_after_n_epochs
                        and self.augmentation is not None
@@ -610,9 +618,11 @@ class Trainer:
             cur_loss, cur_frames, steps_since_bw = 0.0, 0, 0
             blank_prob = 0.0
             for ix, chunk in enumerate(chunks):
-                stats = [b.clone() for b in self._stat_buffers()]
+                with span("train.host_read"):
+                    stats = [b.clone() for b in self._stat_buffers()]
                 loss, blank_p = self.micro_step(chunk, augment)
-                loss_f = float(loss)
+                with span("train.host_read"):
+                    loss_f, blank_f = float(loss), float(blank_p)
                 if not np.isfinite(loss_f):
                     self.metrics.log({"nan": True})
                     with torch.no_grad():  # the chunk's statistics are dropped too
@@ -625,7 +635,7 @@ class Trainer:
                         raise RuntimeError("100 NaNs in a row, aborting")
                     continue
                 nans_in_a_row = 0
-                blank_prob = float(blank_p)
+                blank_prob = blank_f
                 cur_loss += loss_f
                 cur_frames += int(chunk["audio_lengths"].sum())
                 steps_since_bw += 1

@@ -6,6 +6,22 @@ which TensorBoard's profiler plugin and Perfetto open).  `time_fn` and
 `time_fn_chain` time a callable with the device work finished: they
 synchronise the CUDA device of every tensor the callable returns, and do not
 synchronise for CPU tensors.
+
+The port's own ranges.  While any `torch.profiler` records (`trace`, or a
+profiler of the caller's own), the port opens `record_function` ranges named
+`lcasr.<span>` where its work happens: the decode loop (`lcasr.decode.*`),
+the Trainer's host work (`lcasr.train.*`), the model's modules
+(`ff`, `attention`, `conv`, `mixer`, `self_cond`, `head`, `norm`,
+`subsampling`) and the ops (`attn_fwd`, `attn_bwd`, `scan_fwd`,
+`scan_bwd`, `ctc_fwd`, `ctc_bwd`).  They go into the same trace as the
+kernels, on the profiler's clock: in Perfetto (ui.perfetto.dev, open the
+`.pt.trace.json`) each range is a slice on the thread that opened it, above
+the launch calls it holds, which flow arrows join to their kernels, and a
+search for `lcasr.` lists them; in TensorBoard's profiler plugin they are rows of the
+trace viewer and of the operator table.  A backward range (`attn_bwd`,
+`scan_bwd`, `ctc_bwd`, the modules' recomputed forwards) is on autograd's
+thread, not on the one that called `backward()`.  Without a profiler a
+span costs one check of a flag.
 """
 from __future__ import annotations
 
@@ -16,6 +32,42 @@ import time
 from typing import Callable, Dict, Optional
 
 import torch
+
+
+SPAN_PREFIX = "lcasr."
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """`with span("norm"): ...` records the range `lcasr.norm` while a torch
+    profiler is recording, and is one shared no-op otherwise: a bare
+    `record_function` costs microseconds a call even with no profiler."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _NO_SPAN
+
+
+def backward_span(name: str, output: torch.Tensor, origin: torch.Tensor) -> None:
+    """The range `lcasr.<name>` around the backward of the ops from `origin`
+    to `output`: opened when `output`'s gradient arrives and closed when
+    `origin`'s is complete, by hooks that run on the thread that runs that
+    backward (autograd's device thread on the card).  Only while a profiler
+    is recording, and only where both need a gradient."""
+    if not (torch.autograd.profiler._is_profiler_enabled
+            and output.requires_grad and origin.requires_grad):
+        return
+    opened = []
+
+    def open_range(grad):
+        opened.append(span(name))
+        opened[-1].__enter__()
+
+    def close_range(grad):
+        if opened:
+            opened.pop().__exit__(None, None, None)
+
+    output.register_hook(open_range)
+    origin.register_hook(close_range)
 
 
 def _devices(out) -> set:
