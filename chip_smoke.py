@@ -14,6 +14,7 @@
     python3 chip_smoke.py --phases analysis,variants,adapt  # analysis, W8A8, long conv, adaptation
     python3 chip_smoke.py --phases tooling       # preprocessing, tokenizer, averaging, profiling
     python3 chip_smoke.py --phases kernels --scan_source OLD.cu  # K6/K7 bits against OLD.cu's
+    python3 chip_smoke.py --phases ctc           # the CTC kernels at the two training lattices
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -223,7 +224,7 @@ import time
 
 PHASES = ("kernels", "model", "decode", "train", "train_d256", "utterances", "mamba_decode",
           "mamba_train", "decode_opt", "train_opt", "audio", "serve", "enc_dec", "lm",
-          "parallel", "analysis", "variants", "adapt", "tooling")
+          "parallel", "analysis", "variants", "adapt", "tooling", "ctc")
 
 # configs/ladder_9l_768d_6h.yaml, written out: the machine with the card is
 # not promised pyyaml (tests/test_torch_port_train.py holds the two equal)
@@ -2035,13 +2036,19 @@ def plain_scan(dtype):
     return mock.patch.multiple(ssm, selective_scan_fwd=fwd, selective_scan_bwd=bwd)
 
 
+# one CTC loss, forward and backward, a training micro step on the card
+CTC_LAUNCHES = {"ctc_alpha": 1, "ctc_beta": 1}
+
+
 def require_launches(some: bool, what: str) -> None:
     """Raise unless kernels were launched since the counts were last zeroed
     (`some`) or none was (not `some`): a comparison of the kernels with their
-    plain versions must run the kernels on one side only."""
+    plain versions must run the kernels on one side only.  The CTC kernels
+    are not counted: a training step runs them on both sides of the
+    comparisons that hold the other kernels to their plain versions."""
     from lcasr_torch import kernels
 
-    n = sum(kernels.launch_counts.values())
+    n = sum(v for k, v in kernels.launch_counts.items() if k not in CTC_LAUNCHES)
     if (n > 0) != some:
         raise AssertionError(f"{what}: {n} kernel launches, expected "
                              f"{'some' if some else 'none'} ({dict(kernels.launch_counts)})")
@@ -2293,7 +2300,7 @@ class TrainRun:
         from lcasr_torch.data.tokenizer import load_tokenizer
 
         self.torch, self.workdir, self.what = torch, workdir, what
-        self.make_model, self.per_micro = make_model, per_micro
+        self.make_model, self.per_micro = make_model, {**per_micro, **CTC_LAUNCHES}
         self.tok = load_tokenizer()
         self.tmp = tempfile.mkdtemp(dir=workdir)
         self.pairs = make_corpus(self.tmp, [PODCAST_FRAMES] * N_PODCASTS)
@@ -2747,7 +2754,7 @@ def remat_policy(model, policy: str):
 # products' outputs are saved, and K1 (no aten op) is recomputed, as JAX's
 # dots_saveable recomputes its Pallas call: per layer K1 in the forward and
 # again in the recompute, K3 once
-DOTS_LAUNCHES = {"flash_attention_fwd": 18, "flash_attention_bwd_fused": 9}
+DOTS_LAUNCHES = {"flash_attention_fwd": 18, "flash_attention_bwd_fused": 9, **CTC_LAUNCHES}
 # "dots" computes what "nothing" computes, so the two steps differ only as
 # two runs of one step do (K3's dq atomics); these floors keep a rerun that
 # happens to repeat the bits from closing the gate at 0
@@ -2788,7 +2795,8 @@ def remat_dots_step(torch, model, one_step) -> dict:
 D256_TRAIN_CONFIG = merged(LADDER_CONFIG, {"model": {"n_layers": 6, "n_heads": 3,
                                                      "head_dim": 256}})
 # per micro step: K1 in each layer's forward and recompute, K3 once a layer
-D256_TRAIN_LAUNCHES = {"flash_attention_fwd": 12, "flash_attention_bwd_fused": 6}
+D256_TRAIN_LAUNCHES = {"flash_attention_fwd": 12, "flash_attention_bwd_fused": 6,
+                       **CTC_LAUNCHES}
 D256_OPT_STEPS = 5
 
 
@@ -2898,7 +2906,8 @@ def phase_utterances(torch, workdir: str) -> dict:
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = expect_launches({"flash_attention_fwd": 18 * n_steps,
-                                "flash_attention_bwd_fused": 9 * n_steps},
+                                "flash_attention_bwd_fused": 9 * n_steps,
+                                **{k: v * n_steps for k, v in CTC_LAUNCHES.items()}},
                                f"{n_steps} utterance steps")
     rows = [json.loads(line) for line in open(os.path.join(tmp, "ckpt", "metrics.jsonl"))]
     losses = [r["loss"] for r in rows if "utterance_step" in r]
@@ -2955,7 +2964,7 @@ OPT_MAMBA_LAUNCHES = {"selective_scan_fwd": MAMBA_EXPECTED_DECODE_LAUNCHES,
 # (`remat_subsampling`), so K8 runs in the forward and again when the backward
 # recomputes the subsampling's forward; its own backward is the conv chain's
 OPT_TRAIN_LAUNCHES = {"flash_attention_fwd_db": 18, "flash_attention_bwd_fused": 9,
-                      "subsampling_fused": 2}
+                      "subsampling_fused": 2, **CTC_LAUNCHES}
 PLAIN_ATTENTION_AGREEMENT = 0.94563  # K1 against plain attention on this batch (PERF.md)
 
 
@@ -3105,7 +3114,8 @@ def phase_train_opt(torch, workdir: str):
     kernels.reset_launch_counts()
     one_step()
     expect_launches({"flash_attention_fwd": OPT_TRAIN_LAUNCHES["flash_attention_fwd_db"],
-                     "flash_attention_bwd_fused": OPT_TRAIN_LAUNCHES["flash_attention_bwd_fused"]},
+                     "flash_attention_bwd_fused": OPT_TRAIN_LAUNCHES["flash_attention_bwd_fused"],
+                     **CTC_LAUNCHES},
                     "one micro step without the flags")
     log(f"  one 16384x4 micro step under both flags: launches {launches}")
     unflagged = "the same step without the flags"
@@ -3514,7 +3524,8 @@ ENC_DEC_CONFIG = merged(dict(LADDER_CONFIG, model_class="EncDecSconformer", mode
 # K1 in each encoder layer's forward, K3 in its backward: nothing is
 # recomputed (the JAX class has no remat either); the decoder's attention is
 # plain torch, as in the JAX package
-ENC_DEC_TRAIN_LAUNCHES = {"flash_attention_fwd": 6, "flash_attention_bwd_fused": 6}
+ENC_DEC_TRAIN_LAUNCHES = {"flash_attention_fwd": 6, "flash_attention_bwd_fused": 6,
+                          **CTC_LAUNCHES}
 ENC_DEC_FWD_LAUNCHES = {"flash_attention_fwd": 6}  # one encoder forward of one window
 ENC_DEC_BATCH, ENC_DEC_FRAMES, ENC_DEC_TEXT = 4, 16_384, 384  # the forward's batch
 ENC_DEC_LENGTHS = (16_384, 12_000, 8_192, 4_096)
@@ -5192,8 +5203,8 @@ def variants_longconv(torch, workdir: str) -> dict:
     loss, _ = trainer.micro_step(chunk)
     torch.cuda.synchronize()
     out["step_launches"] = expect_launches(
-        {"flash_attention_fwd": 2 * model.n_layers, "flash_attention_bwd_fused": model.n_layers},
-        "the longconv micro step")
+        {"flash_attention_fwd": 2 * model.n_layers, "flash_attention_bwd_fused": model.n_layers,
+         **CTC_LAUNCHES}, "the longconv micro step")
 
     def one_step():
         trainer.zero_pending()
@@ -5284,7 +5295,9 @@ def adapt_meta(torch, workdir: str) -> dict:
     steps = trainer.train_utterances(loader)
     torch.cuda.synchronize()
     launches = expect_launches({"flash_attention_fwd": 7 * steps,
-                                "flash_attention_bwd_fused": steps}, "meta training")
+                                "flash_attention_bwd_fused": steps,
+                                **{k: v * steps for k, v in CTC_LAUNCHES.items()}},
+                               "meta training")
     peak = peak_gb(torch)
     same_bits(torch, before, model, "meta training (a frozen parameter)", frozen)
     moved = sum(1 for k, p in model.named_parameters()
@@ -5357,7 +5370,8 @@ def adapt_dynamic_eval(torch, model) -> dict:
                                    num_negatives=DYN_NEGATIVES, epochs=1, lr=lr)
         seconds = time.perf_counter() - t0
         launches = expect_launches({"flash_attention_fwd": 2 * L * n_chunks,
-                                    "flash_attention_bwd_fused": L * n_chunks},
+                                    "flash_attention_bwd_fused": L * n_chunks,
+                                    **{k: v * n_chunks for k, v in CTC_LAUNCHES.items()}},
                                    f"dynamic evaluation at lr {lr}")
         same_bits(torch, before, model, f"dynamic evaluation at lr {lr}")
         out[name] = {"seconds": seconds, "launches": launches, "peak_gb": peak_gb(torch),
@@ -5405,7 +5419,8 @@ def adapt_selftrain(torch, model) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = expect_launches({"flash_attention_fwd": (2 * it + 1) * L,
-                                "flash_attention_bwd_fused": it * L}, "self-training")
+                                "flash_attention_bwd_fused": it * L,
+                                **{k: v * it for k, v in CTC_LAUNCHES.items()}}, "self-training")
     same_bits(torch, before, model, "self-training")
     if not torch.isfinite(out["final_posteriors"]).all():
         raise AssertionError("self-training's output is not finite")
@@ -5476,7 +5491,8 @@ def phase_mamba_d_state(torch, workdir: str) -> dict:
                                      "mamba_d_state_decode_profile.txt")
     del model
     n_layers = MAMBA_CONFIG["model"]["n_layers"]
-    per_micro = {"selective_scan_fwd": 2 * n_layers, "selective_scan_bwd": n_layers}
+    per_micro = {"selective_scan_fwd": 2 * n_layers, "selective_scan_bwd": n_layers,
+                 **CTC_LAUNCHES}
     run = TrainRun(torch, workdir, MAMBA_CONFIG, make, per_micro,
                    f"Mamba d_state {MAMBA_D_STATE}")
     model = make(0)
@@ -5684,7 +5700,8 @@ def phase_tooling(torch, workdir: str, seed: int) -> dict:
     tok = load_tokenizer()
     root = os.path.join(workdir, "repeats")
     # a recomputed layer launches K1 in the forward and again in the backward
-    per_micro = {"flash_attention_fwd": 2 * n_layers, "flash_attention_bwd_fused": n_layers}
+    per_micro = {"flash_attention_fwd": 2 * n_layers, "flash_attention_bwd_fused": n_layers,
+                 **CTC_LAUNCHES}
     train_s = {}
     for repeat in TOOLING_REPEATS:
         cfg = Config(merged(merged(LADDER_CONFIG, SMOKE_OVERRIDES), {
@@ -5796,6 +5813,147 @@ class PhaseClock:
             self._name = None
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the CTC kernels (csrc/ctc.cu) at the two training lattices
+# ---------------------------------------------------------------------------
+# (B, T', classes, label slots): the one-hour step (S = 15,043 pieces, the
+# corpus generator's words through the port's tokenizer) and the ladder's
+# 16384 x 22 (S ~700)
+CTC_SHAPES = {"one_hour": (1, 45000, 4096, 15043), "16384x22": (22, 2048, 4096, 704)}
+CTC_RUNS = {"one_hour": 3, "16384x22": 10}  # timed forward + backward pairs
+HBM_BYTES_S = 3.35e12
+
+
+def ctc_bound_ms(B, T, C, U, sms, clock_hz) -> dict:
+    """The least time of each pass, the larger of its special functions at
+    16 a clock an SM and its bytes at 3.35 TB/s.  Forward: at most two expf
+    and one logf a state a step; log-alpha written once and each row's
+    distinct emissions read once.  Backward: one more expf (the
+    posterior); log-alpha and the log-probs read once, the gradient written
+    once.  The T-step chain bounds the kernels far above either."""
+    S2, sfu = 2 * U + 1, 16 * sms * clock_hz
+    fwd = max(3 * B * T * S2 / sfu, 4 * B * T * (S2 + min(C, U + 1)) / HBM_BYTES_S)
+    bwd = max(4 * B * T * S2 / sfu, 4 * B * T * (S2 + 2 * C) / HBM_BYTES_S)
+    return {"fwd": 1e3 * fwd, "bwd": 1e3 * bwd}
+
+
+def phase_ctc(torch, seed: int) -> dict:
+    """At each lattice of CTC_SHAPES: the partition and how many of its
+    clusters the card holds at once; the kernels against PyTorch's CTC
+    (tests/test_torch_port_ctc_kernel.py's yardstick: log-alpha, the nll
+    and alpha + beta PyTorch's bits, the gradient the fp64 class sums of
+    PyTorch's posteriors within GRAD_REL, and F.ctc_loss's own gap from
+    those sums beside ours); one ctc_alpha and one ctc_beta launch count
+    for a forward that needs the gradient; then device ms (CUDA events) of
+    the training forward (`ctc_lattice`: both recursions and the
+    gradient), of alpha alone (a forward without gradient), per kernel
+    from the profiler, beside their bound and F.ctc_loss's own forward and
+    backward (`library_ms`, the yardstick; the port never calls it on the
+    card)."""
+    import ctypes
+
+    from lcasr_torch import kernels
+    from lcasr_torch.ops import ctc as ctc_ops
+    from tests.test_torch_port_ctc_kernel import (GRAD_REL, exact_gradient, library_gradient,
+                                                  library_posteriors)
+
+    lib = kernels.library("ctc.cu")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = max_sm_clock_hz()
+    out = {}
+    for name, (B, T, C, U) in CTC_SHAPES.items():
+        part = ctc_ops.ctc_partition(B, 2 * U + 1)
+        active = ctypes.c_int(0)
+        kernels.check(lib, lib.lcasr_ctc_active_clusters(part.cluster, part.threads,
+                                                         part.per_thread, ctypes.byref(active)),
+                      "ctc occupancy")
+        g = torch.Generator(device=DEVICE).manual_seed(seed)
+        lp = torch.log_softmax(torch.randn((B, T, C), generator=g, device=DEVICE) * 2, -1)
+        labels = torch.randint(0, C - 1, (B, U), generator=g, device=DEVICE)
+        il = torch.full((B,), T, dtype=torch.long, device=DEVICE)
+        ll = torch.full((B,), U, dtype=torch.long, device=DEVICE)
+        weight = torch.ones((B,), device=DEVICE)
+        blank = C - 1
+
+        nll_a, alpha = ctc_ops.ctc_alpha(lp, labels, il, ll, blank)
+        kernels.reset_launch_counts()
+        nll, grad, sums = ctc_ops.ctc_lattice(lp, labels, il, ll, blank)
+        launches = expect_launches(CTC_LAUNCHES, f"the CTC at {name}")
+        nll_r, alpha_r, sums_r, post_r, ext = library_posteriors(lp, labels, il, ll, blank)
+        bits = (torch.equal(alpha, alpha_r) and torch.equal(nll_a, nll_r)
+                and torch.equal(nll, nll_r))
+        del alpha, alpha_r
+        sums_bits = torch.equal(sums, sums_r)  # full lengths: every state is the rows'
+        del sums, sums_r
+        exact = exact_gradient(lp, post_r, ext, il, nll_r, weight)
+        mass = post_r.sum(2)
+        mass_range = (float(mass.min()), float(mass.max()))
+        del post_r, mass
+        grad_rel = float(((grad.double() - exact).abs() / exact.abs().clamp_min(1.0)).max())
+        lib_grad = library_gradient(lp, labels, il, ll, blank, weight)
+        lib_rel = float(((lib_grad.double() - exact).abs() / exact.abs().clamp_min(1.0)).max())
+        del grad, lib_grad, exact
+        log(f"  CTC {name} (B, T, C, U) = {(B, T, C, U)}: {part}, {active.value} clusters at "
+            f"once; log-alpha and nll {'the same bits as' if bits else 'NOT the bits of'} "
+            f"torch._ctc_loss's, alpha + beta {'the same bits as' if sums_bits else 'NOT the bits of'} "
+            f"PyTorch's (posteriors' sum a frame {mass_range[0]:.6g} to {mass_range[1]:.6g}); "
+            f"gradient against the fp64 class sums: ours {grad_rel:.3e} (limit {GRAD_REL:g}), "
+            f"F.ctc_loss's {lib_rel:.3e} (relative to max(1, |value|)); launches {launches}")
+        if not (bits and sums_bits and grad_rel <= GRAD_REL):
+            raise AssertionError(f"the CTC kernels disagree with PyTorch's at {name}")
+
+        def events(fn, runs):
+            ms = []
+            for _ in range(runs):
+                e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                e[0].record()
+                fn()
+                e[1].record()
+                e[1].synchronize()
+                ms.append(e[0].elapsed_time(e[1]))
+            return ms
+
+        train_ms = events(lambda: ctc_ops.ctc_lattice(lp, labels, il, ll, blank), CTC_RUNS[name])
+        alpha_ms = events(lambda: ctc_ops.ctc_alpha(lp, labels, il, ll, blank), CTC_RUNS[name])
+        per_kernel = {k: v[0] / 1e3 / v[1] for k, v in device_kernel_totals(
+            torch, lambda: ctc_ops.ctc_lattice(lp, labels, il, ll, blank), n=2).items()
+            if "ctc_" in k}
+        lib_fwd, lib_bwd = [], []
+        for _ in range(2 if name == "one_hour" else 5):
+            x = lp.detach().clone().requires_grad_()
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            e[0].record()
+            loss = torch.nn.functional.ctc_loss(x.transpose(0, 1), labels, il, ll, blank=blank,
+                                                reduction="none", zero_infinity=True).sum()
+            e[1].record()
+            loss.backward()
+            e[2].record()
+            e[2].synchronize()
+            lib_fwd.append(e[0].elapsed_time(e[1]))
+            lib_bwd.append(e[1].elapsed_time(e[2]))
+            del x, loss
+        bound = ctc_bound_ms(B, T, C, U, sms, clock_hz)
+        entry = {"shape": [B, T, C, U], "partition": part._asdict(),
+                 "active_clusters": active.value, "alpha_nll_bits_equal": bits,
+                 "sums_bits_equal": sums_bits, "posterior_mass": mass_range,
+                 "grad_rel": grad_rel, "library_grad_rel": lib_rel, "train_ms": train_ms,
+                 "alpha_ms": alpha_ms, "per_kernel_ms": per_kernel, "library_fwd_ms": lib_fwd,
+                 "library_bwd_ms": lib_bwd, "bound_ms": bound,
+                 "us_per_step": {"train": 1e3 * min(train_ms) / T,
+                                 "alpha": 1e3 * min(alpha_ms) / T}}
+        log(f"  CTC {name}: the training forward (both recursions, the gradient) "
+            f"{min(train_ms):.3f}-{max(train_ms):.3f} ms ({entry['us_per_step']['train']:.3f} us "
+            f"a step; bound {bound['fwd'] + bound['bwd']:.3f}), alpha alone "
+            f"{min(alpha_ms):.3f}-{max(alpha_ms):.3f} ms ({entry['us_per_step']['alpha']:.3f} us "
+            f"a step; bound {bound['fwd']:.3f}); per kernel {per_kernel}; F.ctc_loss "
+            f"(library_ms) forward {min(lib_fwd):.2f}-{max(lib_fwd):.2f}, backward "
+            f"{min(lib_bwd):.2f}-{max(lib_bwd):.2f} ms")
+        out[name] = entry
+        del lp, labels
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -5827,7 +5985,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     clock = PhaseClock()
     clock.start("build")
-    log("[1/20] build")
+    log("[1/21] build")
     build_s = kernels.build()
     log(f"  build {build_s:.2f} s into {kernels.BUILD_DIR}")
     for src, text in kernels.build_log.items():
@@ -5844,7 +6002,7 @@ def main() -> int:
     workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_train")
     if "kernels" in phases:
         clock.start("kernels")
-        log("[2/20] kernels against their plain versions")
+        log("[2/21] kernels against their plain versions")
         results["flash_attention_fwd"] = phase_kernels(torch)
         results["flash_attention_fwd_db"] = phase_kernels_db(torch)
         fwd_registers = {**template_entries(kernels.build_log["flash_attn_fwd.cu"]),
@@ -5874,12 +6032,12 @@ def main() -> int:
     model = None
     if "model" in phases:
         clock.start("model")
-        log("[3/20] flagship model, one window batch")
+        log("[3/21] flagship model, one window batch")
         model = flagship_model(torch)
         phase_model(torch, model, plain_attention(), "flagship")
     if "decode" in phases:
         clock.start("decode")
-        log("[4/20] 20-minute streaming greedy decode (the serving path)")
+        log("[4/21] 20-minute streaming greedy decode (the serving path)")
         model = model or flagship_model(torch)
         launches, _, rows = phase_decode(torch, model,
                                          {"flash_attention_fwd": EXPECTED_LAUNCHES},
@@ -5895,7 +6053,7 @@ def main() -> int:
     del model
     if "train" in phases:
         clock.start("train")
-        log("[5/20] training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1 "
+        log("[5/21] training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1 "
             "(the training path)")
         os.makedirs(workdir, exist_ok=True)
         try:
@@ -5915,7 +6073,7 @@ def main() -> int:
         results["flash_attention_fwd"]["train_host_side"] = host
     if "train_d256" in phases:
         clock.start("train_d256")
-        log("[6/20] lcasr_6l_768d_3h (head_dim 256) trains: K1 and K3 at D = 256")
+        log("[6/21] lcasr_6l_768d_3h (head_dim 256) trains: K1 and K3 at D = 256")
         os.makedirs(workdir, exist_ok=True)
         try:
             d256 = phase_train_d256(torch, workdir)
@@ -5928,7 +6086,7 @@ def main() -> int:
             k: v for k, v in d256.items() if k != "launches"}
     if "utterances" in phases:
         clock.start("utterances")
-        log("[7/20] utterance training with debug hooks, and wild-card CTC on the card")
+        log("[7/21] utterance training with debug hooks, and wild-card CTC on the card")
         os.makedirs(workdir, exist_ok=True)
         try:
             utt = phase_utterances(torch, workdir)
@@ -5940,7 +6098,7 @@ def main() -> int:
             k: v for k, v in utt.items() if k != "launches"}
     if "mamba_decode" in phases:
         clock.start("mamba_decode")
-        log("[8/20] Mamba: one window batch, then the 20-minute streaming greedy decode")
+        log("[8/21] Mamba: one window batch, then the 20-minute streaming greedy decode")
         model = mamba_model(torch)
         phase_model(torch, model, plain_scan(torch.float32), "Mamba")
         launches, rtfx, rows = phase_decode(
@@ -5953,7 +6111,7 @@ def main() -> int:
                                                   "K6", "the Mamba decode"), rtfx=rtfx)
     if "mamba_train" in phases:
         clock.start("mamba_train")
-        log("[9/20] Mamba training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1")
+        log("[9/21] Mamba training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1")
         os.makedirs(workdir, exist_ok=True)
         try:
             ladder, k6_step, k7_step, host = phase_mamba_train(torch, workdir)
@@ -5969,7 +6127,7 @@ def main() -> int:
         k6["train_host_side"] = host
     if "decode_opt" in phases:
         clock.start("decode_opt")
-        log("[10/20] the opt-in decode configuration (K2, K8) and the decoder's options")
+        log("[10/21] the opt-in decode configuration (K2, K8) and the decoder's options")
         launches, mamba_launches, numbers = phase_decode_opt(torch)
         for key in ("flash_attention_fwd_db", "subsampling_fused"):
             results.setdefault(key, {"name": key})["launches"] = launches[key]
@@ -5977,7 +6135,7 @@ def main() -> int:
         results["subsampling_fused"].update(numbers)
     if "train_opt" in phases:
         clock.start("train_opt")
-        log("[11/20] one training step under both flags, and under each alone, against the "
+        log("[11/21] one training step under both flags, and under each alone, against the "
             "same step without")
         os.makedirs(workdir, exist_ok=True)
         try:
@@ -5996,7 +6154,7 @@ def main() -> int:
             k1 = results.setdefault("flash_attention_fwd", {"name": "flash_attention_fwd"})
             if "audio" in phases:
                 clock.start("audio")
-                log("[12/20] from a WAV file to a transcript and a WER: the frontend on the "
+                log("[12/21] from a WAV file to a transcript and a WER: the frontend on the "
                     "card, evaluate in its three modes, the head_dim-256 model")
                 audio = phase_audio(torch, audio_dir, args.seed)
                 k1["audio_phase"] = audio
@@ -6005,13 +6163,13 @@ def main() -> int:
                     "launches_d256_decode"] = audio["wav_d256_k2"]["launches"]
             if "serve" in phases:
                 clock.start("serve")
-                log("[13/20] the streaming server: 4 sessions on the flagship, then the CLI")
+                log("[13/21] the streaming server: 4 sessions on the flagship, then the CLI")
                 k1["serve_phase"] = phase_serve(torch, audio_dir, args.seed)
         finally:
             shutil.rmtree(audio_dir, ignore_errors=True)
     if "enc_dec" in phases:
         clock.start("enc_dec")
-        log("[14/20] the encoder-decoder family: forwards, greedy decoding both ways, "
+        log("[14/21] the encoder-decoder family: forwards, greedy decoding both ways, "
             "enc_dec training, the internal-LM beam search")
         os.makedirs(workdir, exist_ok=True)
         try:
@@ -6028,7 +6186,7 @@ def main() -> int:
         k1["enc_dec_phase"] = enc_dec
     if "lm" in phases:
         clock.start("lm")
-        log("[15/20] decoding with a language model: train_lm, cached steps, create_logits, "
+        log("[15/21] decoding with a language model: train_lm, cached steps, create_logits, "
             "the beam searches, beam serving")
         lm_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_lm")
         os.makedirs(lm_dir, exist_ok=True)
@@ -6042,7 +6200,7 @@ def main() -> int:
         k1["lm_phase"] = lm_out
     if "parallel" in phases:
         clock.start("parallel")
-        log("[16/20] parallelism: the ring schedule on the card, then a world of one over NCCL "
+        log("[16/21] parallelism: the ring schedule on the card, then a world of one over NCCL "
             "(the flagship step, the TP model's ZeRO step, the mesh decode)")
         par_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                                "smoke_parallel")
@@ -6070,7 +6228,7 @@ def main() -> int:
     k3 = results.setdefault("flash_attention_bwd_fused", {"name": "flash_attention_bwd_fused"})
     if "analysis" in phases:
         clock.start("analysis")
-        log("[17/20] the paper's analysis on the flagship: attention statistics over one hour, "
+        log("[17/21] the paper's analysis on the flagship: attention statistics over one hour, "
             "probability rows against plain attention, attribution, the rotary probe")
         ana = phase_analysis(torch)
         k1["launches_analysis_summary"] = ana["summary"]["launches"]["flash_attention_fwd"]
@@ -6080,7 +6238,7 @@ def main() -> int:
         k1["analysis_phase"] = ana
     if "variants" in phases:
         clock.start("variants")
-        log("[18/20] model variants: the W8A8 decode under three policies, the int8 product, "
+        log("[18/21] model variants: the W8A8 decode under three policies, the int8 product, "
             "the other families under W8A8, long convolutions")
         var_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                                "smoke_variants")
@@ -6100,7 +6258,7 @@ def main() -> int:
         k1["variants_phase"] = var
     if "adapt" in phases:
         clock.start("adapt")
-        log("[19/20] test-time adaptation: the meta-learning conformer and its trainer, "
+        log("[19/21] test-time adaptation: the meta-learning conformer and its trainer, "
             "dynamic evaluation, self-training")
         adapt_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                                  "smoke_adapt")
@@ -6117,7 +6275,7 @@ def main() -> int:
         k1["adapt_phase"] = adapt
     if "tooling" in phases:
         clock.start("tooling")
-        log("[20/20] the host tooling: preprocessing, pairs, a tokenizer, two seed repeats "
+        log("[20/21] the host tooling: preprocessing, pairs, a tokenizer, two seed repeats "
             "averaged, a profiled decode, the spare components")
         tool_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                                 "smoke_tooling")
@@ -6134,6 +6292,11 @@ def main() -> int:
             entry["launches_tooling_micro_step"] = tooling["train_launches"][1][key] // 2
         k1["time_fn_chain_ms"] = tooling["k1_chain"]["ms"]
         k1["tooling_phase"] = tooling
+    if "ctc" in phases:
+        clock.start("ctc")
+        log("[21/21] the CTC kernels at the one-hour and 16384 x 22 lattices, against PyTorch's "
+            "CTC")
+        results["ctc"] = {"name": "ctc_alpha + ctc_beta", **phase_ctc(torch, args.seed)}
     clock.stop()
     log(f"  phase seconds: {clock.seconds}")
     name, power = [s.strip() for s in gpu.split(",", 1)]

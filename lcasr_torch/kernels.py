@@ -26,7 +26,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "lcasr_torch_kernels"
 SOURCES = ("flash_attn_fwd.cu", "flash_attn_fwd_db.cu", "flash_attn_bwd.cu",
-           "selective_scan.cu", "subsampling_fused.cu")
+           "selective_scan.cu", "subsampling_fused.cu", "ctc.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -47,6 +47,8 @@ launch_counts: Dict[str, int] = {
     "selective_scan_fwd": 0,
     "selective_scan_bwd": 0,
     "subsampling_fused": 0,
+    "ctc_alpha": 0,
+    "ctc_beta": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -144,6 +146,16 @@ def _bind(src: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         # x, out, 10 parameters; B, T, F, C, fp32 flag, activation, tile; stream
         lib.lcasr_subsampling_fused.argtypes = [p] * 12 + [i] * 7 + [p]
         lib.lcasr_subsampling_fused.restype = i
+    elif src == "ctc.cu":
+        # lp, labels, input_lengths, label_lengths; B, T, C, U, blank; the
+        # partition (cluster, threads, per_thread, tiles); stream
+        sizes = [i] * 9 + [p]
+        lib.lcasr_ctc_alpha.argtypes = [p] * 6 + sizes  # + alpha, nll
+        lib.lcasr_ctc_alpha.restype = i
+        lib.lcasr_ctc_lattice.argtypes = [p] * 9 + sizes  # + sums, nll, grad, edge, flags
+        lib.lcasr_ctc_lattice.restype = i
+        lib.lcasr_ctc_active_clusters.argtypes = [i] * 3 + [ctypes.POINTER(i)]
+        lib.lcasr_ctc_active_clusters.restype = i
     lib.lcasr_cuda_error_string.argtypes = [i]
     lib.lcasr_cuda_error_string.restype = ctypes.c_char_p
     return lib

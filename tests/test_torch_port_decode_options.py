@@ -274,8 +274,8 @@ def test_chip_smoke_expect_launches_compares_the_whole_dict():
 
 def test_chip_smoke_opt_counts_follow_the_geometry():
     """52 windows in 4 batches of 16: 9 layers x 4 K2 and 4 K8 launches; a
-    micro step runs every layer's forward twice (remat) and the checkpointed
-    subsampling's forward twice."""
+    micro step runs every layer's forward twice (remat), the checkpointed
+    subsampling's forward twice and the CTC kernels once."""
     import chip_smoke
     from lcasr_torch.evaluation.streaming import _window_positions
 
@@ -290,7 +290,8 @@ def test_chip_smoke_opt_counts_follow_the_geometry():
     assert chip_smoke.LADDER_CONFIG["model"]["remat_subsampling"]
     assert chip_smoke.OPT_TRAIN_LAUNCHES == {"flash_attention_fwd_db": 2 * layers,
                                              "flash_attention_bwd_fused": layers,
-                                             "subsampling_fused": 2}
+                                             "subsampling_fused": 2,
+                                             "ctc_alpha": 1, "ctc_beta": 1}
     for B, T, F in chip_smoke.SUB_MAIN_SHAPES:
         assert T % 8 == 0 and F % 8 == 0
 
