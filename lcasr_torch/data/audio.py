@@ -15,7 +15,8 @@ the RIFF chunks itself and returns exactly what the JAX `load_audio` returns
 torch on the waveform's device.  `spectrogram`, `mel_spectrogram` and
 `resample` run on the device of the tensor they are given (a numpy array
 goes to `device`, where `None` means the GPU); `processing_chain` takes a
-file to a (1, 80, T) mel spectrogram on `device`.
+file to a (1, 80, T) mel spectrogram on `device`, in three spans
+(`frontend.read`, `frontend.resample`, `frontend.mel`, utils/profiling.py).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from lcasr_torch.device import resolve_device
+from lcasr_torch.utils.profiling import span
 
 WIN_LENGTH = 400
 HOP_LENGTH = 160
@@ -398,6 +400,10 @@ def processing_chain(path_in: str, normalise: bool = True, device=None) -> torch
     """File -> normalised mel spectrogram (1, 80, T) on `device` (None: the
     GPU).  Reference `audio_tools.py:67-72`: load -> left channel ->
     resample to 16 kHz -> mel spectrogram with global normalisation."""
-    left, sr = load_left_channel(path_in)
-    x = torch.from_numpy(left).to(resolve_device(device))
-    return mel_spectrogram(resample(x, sr, SR), global_normalisation=normalise)
+    with span("frontend.read"):
+        left, sr = load_left_channel(path_in)
+        x = torch.from_numpy(left).to(resolve_device(device))
+    with span("frontend.resample"):
+        x = resample(x, sr, SR)
+    with span("frontend.mel"):
+        return mel_spectrogram(x, global_normalisation=normalise)

@@ -10,7 +10,9 @@ imports on a host without CUDA.
 
 `launch_counts` holds one plain integer per kernel.  A wrapper adds one where
 it launches its kernel and nowhere else, so a caller can show that a run went
-through the kernel (`reset_launch_counts()` before, read after).
+through the kernel (`reset_launch_counts()` before, read after).  An op that
+has no kernel of its own yet counts its calls there too
+(`rel_pos_attention`, ops/rel_pos_attention.py).
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ launch_counts: Dict[str, int] = {
     "subsampling_fused": 0,
     "ctc_alpha": 0,
     "ctc_beta": 0,
+    "rel_pos_attention": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

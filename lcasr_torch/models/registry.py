@@ -9,6 +9,7 @@ import torch
 
 from lcasr_torch.config import Config
 from lcasr_torch.models.enc_dec_sconformer import EncDecSconformer, EncDecSconformerV2
+from lcasr_torch.models.fastconformer import FastConformerCTC
 from lcasr_torch.models.lm import TransformerLM
 from lcasr_torch.models.mamba import Mamba
 from lcasr_torch.models.sconformer_meta import SCConformerMeta
@@ -16,7 +17,8 @@ from lcasr_torch.models.sconformer_xl import SCConformerXL
 
 _REGISTRY = {"SCConformerXL": SCConformerXL, "Mamba": Mamba,
              "EncDecSconformer": EncDecSconformer, "EncDecSconformerV2": EncDecSconformerV2,
-             "TransformerLM": TransformerLM, "SCConformerMeta": SCConformerMeta}
+             "TransformerLM": TransformerLM, "SCConformerMeta": SCConformerMeta,
+             "FastConformerCTC": FastConformerCTC}
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
 
@@ -29,11 +31,13 @@ def get_model_class(config: Config | Dict[str, Any] | None = None):
 
 
 def load_model(config: Config, vocab_size: int, device=None, model_class=None
-               ) -> Union[SCConformerXL, Mamba, EncDecSconformer, TransformerLM, SCConformerMeta]:
+               ) -> Union[SCConformerXL, Mamba, EncDecSconformer, TransformerLM, SCConformerMeta,
+                          FastConformerCTC]:
     """Build the model `config.model_class` names (SCConformerXL by default,
-    Mamba, EncDecSconformer, EncDecSconformerV2, TransformerLM or
-    SCConformerMeta), or `model_class` when given (the JAX function's third
-    argument), from config.model plus the tokenizer's vocab size.
+    Mamba, EncDecSconformer, EncDecSconformerV2, TransformerLM,
+    SCConformerMeta or FastConformerCTC, which has no JAX counterpart), or
+    `model_class` when given (the JAX function's third argument), from
+    config.model plus the tokenizer's vocab size.
     `training.dtype` sets the compute dtype when `model.dtype` does not;
     parameters stay fp32 (an fp32 master with bf16 compute).  Keys the JAX
     model does not know are ignored, as the JAX registry ignores them.

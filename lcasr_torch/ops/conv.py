@@ -308,7 +308,7 @@ class ConvSubsampling(nn.Module):
                  feat_out: int = 768, conv_channels: int = 256,
                  activation: str = "silu", norm_out: bool = False,
                  subsampling: str = "dw_striding", is_causal: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, out_bias: Optional[bool] = None):
         super().__init__()
         if subsampling not in ("dw_striding", "striding", "vggnet"):
             raise ValueError(f"Not valid sub-sampling: {subsampling}!")
@@ -352,7 +352,10 @@ class ConvSubsampling(nn.Module):
                 f = math.ceil((f - 2) / 2 + 1)
             else:
                 f = math.floor((f - 3 + (3 if is_causal else 2)) / 2 + 1)
-        self.out = Dense(int(f) * C, feat_out, bias=norm_out, dtype=dtype)
+        # the output projection has a bias where it has a norm after it, as
+        # in the JAX module, unless `out_bias` says otherwise (NeMo's has one)
+        self.out = Dense(int(f) * C, feat_out, bias=norm_out if out_bias is None else out_bias,
+                         dtype=dtype)
         self.norm_out = LayerNorm(feat_out) if norm_out else None
         self.parallel = NO_PARALLEL
 

@@ -12,8 +12,9 @@ profiler of the caller's own), the port opens `record_function` ranges named
 `lcasr.<span>` where its work happens: the decode loop (`lcasr.decode.*`),
 the Trainer's host work (`lcasr.train.*`), the model's modules
 (`ff`, `attention`, `conv`, `mixer`, `self_cond`, `head`, `norm`,
-`subsampling`) and the ops (`attn_fwd`, `attn_bwd`, `scan_fwd`,
-`scan_bwd`, `ctc_fwd`, `ctc_bwd`).  They go into the same trace as the
+`subsampling`), the ops (`attn_fwd`, `attn_bwd`, `scan_fwd`,
+`scan_bwd`, `ctc_fwd`, `ctc_bwd`, `relpos_attn`) and the audio frontend
+(`frontend.read`, `frontend.resample`, `frontend.mel`).  They go into the same trace as the
 kernels, on the profiler's clock: in Perfetto (ui.perfetto.dev, open the
 `.pt.trace.json`) each range is a slice on the thread that opened it, above
 the launch calls it holds, which flow arrows join to their kernels, and a
