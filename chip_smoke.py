@@ -15,6 +15,7 @@
     python3 chip_smoke.py --phases tooling       # preprocessing, tokenizer, averaging, profiling
     python3 chip_smoke.py --phases kernels --scan_source OLD.cu  # K6/K7 bits against OLD.cu's
     python3 chip_smoke.py --phases ctc           # the CTC kernels at the two training lattices
+    python3 chip_smoke.py --phases norms         # the row-norm kernels at the decode's rows
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -203,6 +204,12 @@ Phases, in order; any failure raises and exits non-zero:
               (4, 16384, .) against the CPU.  The launcher and `restart`
               (pyyaml) and the download (the network) are left to the CPU
               tests.
+ 21. ctc      the CTC kernels at the one-hour and 16384 x 22 lattices,
+              against PyTorch's CTC.
+ 22. norms    the row-norm kernels (LayerNorm and RMSNorm, forward and
+              backward) at (32768, 768) and (32768, 1024) bf16 against the
+              eager versions; device ms beside the byte bound, the eager
+              chain's and F.layer_norm / F.rms_norm's (the yardstick).
 
 Each phase's seconds are printed as it ends.
 
@@ -224,7 +231,7 @@ import time
 
 PHASES = ("kernels", "model", "decode", "train", "train_d256", "utterances", "mamba_decode",
           "mamba_train", "decode_opt", "train_opt", "audio", "serve", "enc_dec", "lm",
-          "parallel", "analysis", "variants", "adapt", "tooling", "ctc")
+          "parallel", "analysis", "variants", "adapt", "tooling", "ctc", "norms")
 
 # configs/ladder_9l_768d_6h.yaml, written out: the machine with the card is
 # not promised pyyaml (tests/test_torch_port_train.py holds the two equal)
@@ -2038,17 +2045,25 @@ def plain_scan(dtype):
 
 # one CTC loss, forward and backward, a training micro step on the card
 CTC_LAUNCHES = {"ctc_alpha": 1, "ctc_beta": 1}
+# every LayerNorm and RMSNorm on the card: they run on both sides of each
+# comparison here, and phase `norms` and tests/test_torch_port_norm_kernel.py
+# count them
+NORM_LAUNCHES = ("layer_norm_fwd", "layer_norm_bwd", "rms_norm_fwd", "rms_norm_bwd")
+
+
+def without_norms(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if k not in NORM_LAUNCHES}
 
 
 def require_launches(some: bool, what: str) -> None:
     """Raise unless kernels were launched since the counts were last zeroed
     (`some`) or none was (not `some`): a comparison of the kernels with their
-    plain versions must run the kernels on one side only.  The CTC kernels
-    are not counted: a training step runs them on both sides of the
+    plain versions must run the kernels on one side only.  The CTC and
+    row-norm kernels are not counted: a model runs them on both sides of the
     comparisons that hold the other kernels to their plain versions."""
     from lcasr_torch import kernels
 
-    n = sum(v for k, v in kernels.launch_counts.items() if k not in CTC_LAUNCHES)
+    n = sum(v for k, v in without_norms(kernels.launch_counts).items() if k not in CTC_LAUNCHES)
     if (n > 0) != some:
         raise AssertionError(f"{what}: {n} kernel launches, expected "
                              f"{'some' if some else 'none'} ({dict(kernels.launch_counts)})")
@@ -2122,11 +2137,12 @@ def phase_model(torch, model, plain, what: str):
 # ---------------------------------------------------------------------------
 def expect_launches(expected: dict, what: str) -> dict:
     """The launch counts since they were last zeroed must be `expected` and 0
-    of every other kernel."""
+    of every other kernel but the row norms'."""
     from lcasr_torch import kernels
 
     launches = dict(kernels.launch_counts)
-    if launches != dict(dict.fromkeys(launches, 0), **expected):
+    counted = without_norms(launches)
+    if counted != dict(dict.fromkeys(counted, 0), **expected):
         raise AssertionError(f"{what} launched {launches}, expected {expected} and 0 of "
                              f"every other kernel")
     return launches
@@ -2320,7 +2336,11 @@ class TrainRun:
             chunk_overlap=0, random_seed=config["training"]["random_seed"])
 
     def expected(self, launches: dict, micro: int) -> dict:
-        return dict(dict.fromkeys(launches, 0), **{k: v * micro for k, v in self.per_micro.items()})
+        """`launches` as they must read after `micro` micro steps, the row
+        norms' as they read."""
+        norms = {k: v for k, v in launches.items() if k in NORM_LAUNCHES}
+        return dict(dict.fromkeys(launches, 0), **norms,
+                    **{k: v * micro for k, v in self.per_micro.items()})
 
     def ladder(self):
         """Train the ladder with the launch counts zeroed just before and
@@ -2557,7 +2577,9 @@ class TrainRun:
         launches = dict(kernels.launch_counts)
         metrics_path = os.path.join(long_tr.checkpoint_dir, "metrics.jsonl")
         loss = [r["loss"] for r in map(json.loads, open(metrics_path)) if "loss" in r]
-        ms = step_times(metrics_path)[LONG_FRAMES][0][0]
+        # one step logs one row and has no row before it to time it from:
+        # its time is then the whole run's
+        ms = step_times(metrics_path).get(LONG_FRAMES, [(1e3 * long_s, None)])[0][0]
         peak = torch.cuda.max_memory_allocated() / 1e9
         log(f"  120000x1 {self.what} step: loss {loss}, step {ms:.2f} ms "
             f"({LONG_FRAMES * 0.01 / (ms / 1e3):.1f} audio-s/s), run {long_s:.2f} s, peak memory "
@@ -5954,6 +5976,120 @@ def phase_ctc(torch, seed: int) -> dict:
     return out
 
 
+NORM_SHAPES = ((32768, 768), (32768, 1024))  # a window group's rows: flagship, Parakeet
+
+
+def norm_bound_ms(rows: int, D: int, backward: bool) -> float:
+    """The least time of a bf16 row norm at 3.35 TB/s: the forward reads x
+    and writes y; the backward reads x, dy, mean and rstd and writes dx,
+    dscale and dbias."""
+    nbytes = rows * D * 2 * (3 if backward else 2) + (rows * 8 + D * 8 if backward else 0)
+    return 1e3 * nbytes / HBM_BYTES_S
+
+
+def phase_norms(torch, seed: int) -> dict:
+    """At each of NORM_SHAPES in bf16, LayerNorm and RMSNorm: the kernels
+    against the eager versions (the forward's largest gap in bf16 ulps, the
+    backward's dx / dscale / dbias gaps from the eager autograd's); device
+    ms (CUDA events over 50 calls back to back, and each kernel's own time
+    by the profiler) of the forward without statistics, with them, and the
+    backward, beside the byte bound, the eager chain's ms and F.layer_norm /
+    F.rms_norm's (`library_ms`, the yardstick; the port never calls them)."""
+    from lcasr_torch.ops import norms
+    from tests.test_torch_port_norm_kernel import bf16_ulp, make_case
+
+    F = torch.nn.functional
+    out = {}
+    for kind, eps in (("layer_norm", 1e-5), ("rms_norm", 1e-6)):
+        for rows, D in NORM_SHAPES:
+            x, scale, bias = make_case(DEVICE, rows, D, torch.bfloat16, seed)
+            bias = bias if kind == "layer_norm" else None
+            ref = ((lambda t: norms.layer_norm_ref(t, scale, bias, eps)) if bias is not None
+                   else (lambda t: norms.rms_norm_ref(t, scale, eps)))
+            lib_args = (scale.to(torch.bfloat16), None if bias is None else bias.to(torch.bfloat16))
+            library = ((lambda t: F.layer_norm(t, (D,), *lib_args, eps)) if bias is not None
+                       else (lambda t: F.rms_norm(t, (D,), lib_args[0], eps)))
+            with torch.no_grad():
+                y = norms._row_norm(x, scale, bias, eps)
+                y_ref = ref(x)
+            # the eager output: equal in most values, many ulps off only where y
+            # cancels near 0 (the statistics' last bits); the eager elementwise
+            # chain fed the kernel's own statistics: the same bits
+            same = float((y == y_ref).float().mean())
+            ulps = float(((y.float() - y_ref.float()).abs() / bf16_ulp(y_ref)).max())
+            dy = torch.randn_like(y)
+            _, mean, rstd = norms.row_norm_fwd(x, scale, bias, eps, stats=True)
+            h = (x.float() * rstd[:, None] if bias is None
+                 else (x.float() - mean[:, None]) * rstd[:, None])
+            chain_bits = torch.equal(y, (h * scale if bias is None else h * scale + bias).to(y.dtype))
+            grads = norms.row_norm_bwd(x, dy, mean, rstd, scale)
+            leaves = [x.clone().requires_grad_(), scale.clone().requires_grad_()] + (
+                [] if bias is None else [bias.clone().requires_grad_()])
+            y_eager = (norms.rms_norm_ref(leaves[0], leaves[1], eps) if bias is None
+                       else norms.layer_norm_ref(leaves[0], leaves[1], leaves[2], eps))
+            eager_grads = torch.autograd.grad(y_eager, leaves, dy, retain_graph=True)
+            gaps = {name: float((a.float() - b.float()).abs().max() / b.float().abs().max())
+                    for name, a, b in zip(("dx", "dscale", "dbias"), grads, eager_grads)}
+            if (not chain_bits or gaps["dx"] > 1e-2
+                    or max(v for k, v in gaps.items() if k != "dx") > 1e-4):
+                raise AssertionError(f"{kind} {rows} x {D}: the eager chain on the kernel's "
+                                     f"statistics {'equal' if chain_bits else 'NOT equal'}, "
+                                     f"gradient gaps from the eager autograd's {gaps}")
+
+            def fwd():
+                norms.row_norm_fwd(x, scale, bias, eps, stats=False)
+
+            def fwd_stats():
+                norms.row_norm_fwd(x, scale, bias, eps, stats=True)
+
+            def bwd():
+                norms.row_norm_bwd(x, dy, mean, rstd, scale)
+
+            def eager_bwd():
+                torch.autograd.grad(y_eager, leaves, dy, retain_graph=True)
+
+            lib_leaves = [x.clone().requires_grad_()] + [
+                t.clone().requires_grad_() for t in lib_args if t is not None]
+            y_lib = (F.layer_norm(lib_leaves[0], (D,), lib_leaves[1], lib_leaves[2], eps)
+                     if bias is not None else F.rms_norm(lib_leaves[0], (D,), lib_leaves[1], eps))
+
+            def library_bwd():
+                torch.autograd.grad(y_lib, lib_leaves, dy, retain_graph=True)
+
+            with torch.no_grad():
+                ms = {"fwd": device_ms(torch, fwd), "fwd_stats": device_ms(torch, fwd_stats),
+                      "eager_fwd": device_ms(torch, lambda: ref(x), n=10),
+                      "library_fwd": device_ms(torch, lambda: library(x))}
+            ms.update(bwd=device_ms(torch, bwd), eager_bwd=device_ms(torch, eager_bwd, n=10),
+                      library_bwd=device_ms(torch, library_bwd))
+            kernel_ms = {}
+            for name, fn in (("fwd", fwd), ("fwd_stats", fwd_stats), ("bwd", bwd)):
+                totals = device_kernel_totals(torch, fn, n=20)
+                kernel_ms[name] = {k: v[0] / 1e3 / v[1] for k, v in totals.items()}
+            bound = {"fwd": norm_bound_ms(rows, D, False), "bwd": norm_bound_ms(rows, D, True)}
+            own = {name: sum(v for k, v in per.items() if "row_norm" in k or "column_sum" in k)
+                   for name, per in kernel_ms.items()}
+            entry = {"shape": [rows, D], "dtype": "bf16", "fwd_equal_share": same,
+                     "fwd_max_ulps": ulps, "grad_gaps": gaps,
+                     "ms": ms, "kernel_ms": kernel_ms, "bound_ms": bound,
+                     "roofline": {"fwd": bound["fwd"] / own["fwd"],
+                                  "bwd": bound["bwd"] / own["bwd"]}}
+            log(f"  {kind} ({rows}, {D}) bf16: forward equal to the eager chain's in "
+                f"{100 * same:.3f}% of values (at most {ulps:g} ulp off), its bits on the "
+                f"kernel's statistics, "
+                f"gradient gaps {gaps}; device ms: forward {ms['fwd']:.4f} (kernel "
+                f"{own['fwd']:.4f}, bound {bound['fwd']:.4f}: "
+                f"{100 * entry['roofline']['fwd']:.1f}%), with statistics "
+                f"{ms['fwd_stats']:.4f}, backward {ms['bwd']:.4f} (kernels {own['bwd']:.4f}, "
+                f"bound {bound['bwd']:.4f}: {100 * entry['roofline']['bwd']:.1f}%); eager "
+                f"{ms['eager_fwd']:.4f} / {ms['eager_bwd']:.4f}; library_ms "
+                f"{ms['library_fwd']:.4f} / {ms['library_bwd']:.4f}; per kernel {kernel_ms}")
+            out[f"{kind}_{D}"] = entry
+            del x, y, y_ref, dy, leaves, y_eager, lib_leaves, y_lib
+            torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--phases", default=",".join(PHASES),
@@ -5985,7 +6121,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
     clock = PhaseClock()
     clock.start("build")
-    log("[1/21] build")
+    log("[1/22] build")
     build_s = kernels.build()
     log(f"  build {build_s:.2f} s into {kernels.BUILD_DIR}")
     for src, text in kernels.build_log.items():
@@ -6002,7 +6138,7 @@ def main() -> int:
     workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_train")
     if "kernels" in phases:
         clock.start("kernels")
-        log("[2/21] kernels against their plain versions")
+        log("[2/22] kernels against their plain versions")
         results["flash_attention_fwd"] = phase_kernels(torch)
         results["flash_attention_fwd_db"] = phase_kernels_db(torch)
         fwd_registers = {**template_entries(kernels.build_log["flash_attn_fwd.cu"]),
@@ -6032,12 +6168,12 @@ def main() -> int:
     model = None
     if "model" in phases:
         clock.start("model")
-        log("[3/21] flagship model, one window batch")
+        log("[3/22] flagship model, one window batch")
         model = flagship_model(torch)
         phase_model(torch, model, plain_attention(), "flagship")
     if "decode" in phases:
         clock.start("decode")
-        log("[4/21] 20-minute streaming greedy decode (the serving path)")
+        log("[4/22] 20-minute streaming greedy decode (the serving path)")
         model = model or flagship_model(torch)
         launches, _, rows = phase_decode(torch, model,
                                          {"flash_attention_fwd": EXPECTED_LAUNCHES},
@@ -6053,7 +6189,7 @@ def main() -> int:
     del model
     if "train" in phases:
         clock.start("train")
-        log("[5/21] training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1 "
+        log("[5/22] training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1 "
             "(the training path)")
         os.makedirs(workdir, exist_ok=True)
         try:
@@ -6073,7 +6209,7 @@ def main() -> int:
         results["flash_attention_fwd"]["train_host_side"] = host
     if "train_d256" in phases:
         clock.start("train_d256")
-        log("[6/21] lcasr_6l_768d_3h (head_dim 256) trains: K1 and K3 at D = 256")
+        log("[6/22] lcasr_6l_768d_3h (head_dim 256) trains: K1 and K3 at D = 256")
         os.makedirs(workdir, exist_ok=True)
         try:
             d256 = phase_train_d256(torch, workdir)
@@ -6086,7 +6222,7 @@ def main() -> int:
             k: v for k, v in d256.items() if k != "launches"}
     if "utterances" in phases:
         clock.start("utterances")
-        log("[7/21] utterance training with debug hooks, and wild-card CTC on the card")
+        log("[7/22] utterance training with debug hooks, and wild-card CTC on the card")
         os.makedirs(workdir, exist_ok=True)
         try:
             utt = phase_utterances(torch, workdir)
@@ -6098,7 +6234,7 @@ def main() -> int:
             k: v for k, v in utt.items() if k != "launches"}
     if "mamba_decode" in phases:
         clock.start("mamba_decode")
-        log("[8/21] Mamba: one window batch, then the 20-minute streaming greedy decode")
+        log("[8/22] Mamba: one window batch, then the 20-minute streaming greedy decode")
         model = mamba_model(torch)
         phase_model(torch, model, plain_scan(torch.float32), "Mamba")
         launches, rtfx, rows = phase_decode(
@@ -6111,7 +6247,7 @@ def main() -> int:
                                                   "K6", "the Mamba decode"), rtfx=rtfx)
     if "mamba_train" in phases:
         clock.start("mamba_train")
-        log("[9/21] Mamba training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1")
+        log("[9/22] Mamba training: the ladder Trainer, 8192x8 -> 16384x4, then 120000x1")
         os.makedirs(workdir, exist_ok=True)
         try:
             ladder, k6_step, k7_step, host = phase_mamba_train(torch, workdir)
@@ -6127,7 +6263,7 @@ def main() -> int:
         k6["train_host_side"] = host
     if "decode_opt" in phases:
         clock.start("decode_opt")
-        log("[10/21] the opt-in decode configuration (K2, K8) and the decoder's options")
+        log("[10/22] the opt-in decode configuration (K2, K8) and the decoder's options")
         launches, mamba_launches, numbers = phase_decode_opt(torch)
         for key in ("flash_attention_fwd_db", "subsampling_fused"):
             results.setdefault(key, {"name": key})["launches"] = launches[key]
@@ -6135,7 +6271,7 @@ def main() -> int:
         results["subsampling_fused"].update(numbers)
     if "train_opt" in phases:
         clock.start("train_opt")
-        log("[11/21] one training step under both flags, and under each alone, against the "
+        log("[11/22] one training step under both flags, and under each alone, against the "
             "same step without")
         os.makedirs(workdir, exist_ok=True)
         try:
@@ -6154,7 +6290,7 @@ def main() -> int:
             k1 = results.setdefault("flash_attention_fwd", {"name": "flash_attention_fwd"})
             if "audio" in phases:
                 clock.start("audio")
-                log("[12/21] from a WAV file to a transcript and a WER: the frontend on the "
+                log("[12/22] from a WAV file to a transcript and a WER: the frontend on the "
                     "card, evaluate in its three modes, the head_dim-256 model")
                 audio = phase_audio(torch, audio_dir, args.seed)
                 k1["audio_phase"] = audio
@@ -6163,13 +6299,13 @@ def main() -> int:
                     "launches_d256_decode"] = audio["wav_d256_k2"]["launches"]
             if "serve" in phases:
                 clock.start("serve")
-                log("[13/21] the streaming server: 4 sessions on the flagship, then the CLI")
+                log("[13/22] the streaming server: 4 sessions on the flagship, then the CLI")
                 k1["serve_phase"] = phase_serve(torch, audio_dir, args.seed)
         finally:
             shutil.rmtree(audio_dir, ignore_errors=True)
     if "enc_dec" in phases:
         clock.start("enc_dec")
-        log("[14/21] the encoder-decoder family: forwards, greedy decoding both ways, "
+        log("[14/22] the encoder-decoder family: forwards, greedy decoding both ways, "
             "enc_dec training, the internal-LM beam search")
         os.makedirs(workdir, exist_ok=True)
         try:
@@ -6186,7 +6322,7 @@ def main() -> int:
         k1["enc_dec_phase"] = enc_dec
     if "lm" in phases:
         clock.start("lm")
-        log("[15/21] decoding with a language model: train_lm, cached steps, create_logits, "
+        log("[15/22] decoding with a language model: train_lm, cached steps, create_logits, "
             "the beam searches, beam serving")
         lm_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "smoke_lm")
         os.makedirs(lm_dir, exist_ok=True)
@@ -6200,7 +6336,7 @@ def main() -> int:
         k1["lm_phase"] = lm_out
     if "parallel" in phases:
         clock.start("parallel")
-        log("[16/21] parallelism: the ring schedule on the card, then a world of one over NCCL "
+        log("[16/22] parallelism: the ring schedule on the card, then a world of one over NCCL "
             "(the flagship step, the TP model's ZeRO step, the mesh decode)")
         par_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                                "smoke_parallel")
@@ -6228,7 +6364,7 @@ def main() -> int:
     k3 = results.setdefault("flash_attention_bwd_fused", {"name": "flash_attention_bwd_fused"})
     if "analysis" in phases:
         clock.start("analysis")
-        log("[17/21] the paper's analysis on the flagship: attention statistics over one hour, "
+        log("[17/22] the paper's analysis on the flagship: attention statistics over one hour, "
             "probability rows against plain attention, attribution, the rotary probe")
         ana = phase_analysis(torch)
         k1["launches_analysis_summary"] = ana["summary"]["launches"]["flash_attention_fwd"]
@@ -6238,7 +6374,7 @@ def main() -> int:
         k1["analysis_phase"] = ana
     if "variants" in phases:
         clock.start("variants")
-        log("[18/21] model variants: the W8A8 decode under three policies, the int8 product, "
+        log("[18/22] model variants: the W8A8 decode under three policies, the int8 product, "
             "the other families under W8A8, long convolutions")
         var_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                                "smoke_variants")
@@ -6258,7 +6394,7 @@ def main() -> int:
         k1["variants_phase"] = var
     if "adapt" in phases:
         clock.start("adapt")
-        log("[19/21] test-time adaptation: the meta-learning conformer and its trainer, "
+        log("[19/22] test-time adaptation: the meta-learning conformer and its trainer, "
             "dynamic evaluation, self-training")
         adapt_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                                  "smoke_adapt")
@@ -6275,7 +6411,7 @@ def main() -> int:
         k1["adapt_phase"] = adapt
     if "tooling" in phases:
         clock.start("tooling")
-        log("[20/21] the host tooling: preprocessing, pairs, a tokenizer, two seed repeats "
+        log("[20/22] the host tooling: preprocessing, pairs, a tokenizer, two seed repeats "
             "averaged, a profiled decode, the spare components")
         tool_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                                 "smoke_tooling")
@@ -6294,9 +6430,13 @@ def main() -> int:
         k1["tooling_phase"] = tooling
     if "ctc" in phases:
         clock.start("ctc")
-        log("[21/21] the CTC kernels at the one-hour and 16384 x 22 lattices, against PyTorch's "
+        log("[21/22] the CTC kernels at the one-hour and 16384 x 22 lattices, against PyTorch's "
             "CTC")
         results["ctc"] = {"name": "ctc_alpha + ctc_beta", **phase_ctc(torch, args.seed)}
+    if "norms" in phases:
+        clock.start("norms")
+        log("[22/22] the row-norm kernels at a window group's rows, against the eager chain")
+        results["norms"] = {"name": "layer_norm + rms_norm", **phase_norms(torch, args.seed)}
     clock.stop()
     log(f"  phase seconds: {clock.seconds}")
     name, power = [s.strip() for s in gpu.split(",", 1)]

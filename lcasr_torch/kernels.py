@@ -28,7 +28,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "lcasr_torch_kernels"
 SOURCES = ("flash_attn_fwd.cu", "flash_attn_fwd_db.cu", "flash_attn_bwd.cu",
-           "selective_scan.cu", "subsampling_fused.cu", "ctc.cu")
+           "selective_scan.cu", "subsampling_fused.cu", "ctc.cu", "norms.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -52,6 +52,10 @@ launch_counts: Dict[str, int] = {
     "ctc_alpha": 0,
     "ctc_beta": 0,
     "rel_pos_attention": 0,
+    "layer_norm_fwd": 0,
+    "layer_norm_bwd": 0,
+    "rms_norm_fwd": 0,
+    "rms_norm_bwd": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -159,6 +163,17 @@ def _bind(src: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.lcasr_ctc_lattice.restype = i
         lib.lcasr_ctc_active_clusters.argtypes = [i] * 3 + [ctypes.POINTER(i)]
         lib.lcasr_ctc_active_clusters.restype = i
+    elif src == "norms.cu":
+        # the launch shape (elems, block rows, threads, grid); stream
+        shape = [i] * 5 + [p]
+        # x, scale, bias, y, mean, rstd; rows, D, eps, rms
+        lib.lcasr_row_norm_fwd.argtypes = [p] * 6 + [ll, i, ctypes.c_float, i] + shape
+        lib.lcasr_row_norm_fwd.restype = i
+        # x, dy, mean, rstd, scale, dx, dscale, dbias, part; rows, D, rms
+        lib.lcasr_row_norm_bwd.argtypes = [p] * 9 + [ll, i, i] + shape
+        lib.lcasr_row_norm_bwd.restype = i
+        lib.lcasr_row_norm_blocks_per_sm.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+        lib.lcasr_row_norm_blocks_per_sm.restype = i
     lib.lcasr_cuda_error_string.argtypes = [i]
     lib.lcasr_cuda_error_string.restype = ctypes.c_char_p
     return lib
